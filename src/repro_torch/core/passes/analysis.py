@@ -1,0 +1,433 @@
+"""AnalysisManager — memoized CFG/dataflow analyses for the pass pipeline.
+
+The paper's pipeline (§4.3) re-runs uniformity up to five times per
+function, and every run recomputes predecessors, post-dominators and
+control dependence from scratch; Algorithm 2 and the structurizer then
+recompute dominators and loops again.  This manager memoizes each analysis
+keyed by the function's IR version counters (vir.Function):
+
+  * ``cfg_version``  guards pure CFG analyses (predecessors, RPO,
+    dominators, post-dominators, loops, control dependence, CDG leaves);
+  * ``df_version``   guards uniformity results (which also depend on
+    instruction operands/dataflow, not just block structure);
+
+so a pass that declares "I only changed instruction attrs"
+(``fn.bump_version(cfg=False, dataflow=False)``) invalidates the decoded
+interpreter's program cache but keeps every analysis here warm, and a pass
+that rewrote instructions in place without touching edges
+(``cfg=False``) keeps the CFG analyses while invalidating uniformity.
+
+Passes receive the manager as an optional ``am`` argument and fall back to
+a private instance, so direct ``run_<pass>(fn)`` calls in tests keep
+working unchanged.  Cached ``UniformityInfo`` objects are shared — treat
+them as immutable (clone before mutating, as the hazard-injection tests
+do on fresh instances).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+from ..interp_mem import AffineFact
+from ..vir import Const, Function, Op, Param, Reg, Ty, Value
+from .. import graph
+
+
+class AnalysisManager:
+    """Version-keyed memoization of per-function analyses.
+
+    ``enabled=False`` turns every query into a plain recompute — used by
+    benchmarks/compile_time.py to measure the pre-cache baseline.
+    """
+
+    def __init__(self, *, enabled: bool = True) -> None:
+        self.enabled = enabled
+        # (id(fn), kind) -> (version, value); fn objects are kept alive by
+        # `_refs` so ids cannot be recycled under us.
+        self._cache: Dict[Tuple[int, str], Tuple[int, Any]] = {}
+        self._refs: Dict[int, Function] = {}
+        self.hits = 0
+        self.misses = 0
+
+    # -- plumbing ----------------------------------------------------------
+    def _get(self, fn: Function, kind: str, version: int,
+             build: Callable[[], Any]) -> Any:
+        if not self.enabled:
+            return build()
+        key = (id(fn), kind)
+        ent = self._cache.get(key)
+        if ent is not None and ent[0] == version:
+            self.hits += 1
+            return ent[1]
+        self.misses += 1
+        val = build()
+        self._cache[key] = (version, val)
+        self._refs[id(fn)] = fn
+        return val
+
+    def invalidate(self, fn: Optional[Function] = None) -> None:
+        """Drop cached results (for one function, or everything)."""
+        if fn is None:
+            self._cache.clear()
+            self._refs.clear()
+            return
+        for key in [k for k in self._cache if k[0] == id(fn)]:
+            del self._cache[key]
+        self._refs.pop(id(fn), None)
+
+    # -- CFG analyses (keyed by cfg_version) -------------------------------
+    def predecessors(self, fn: Function):
+        return self._get(fn, "preds", fn.cfg_version,
+                         lambda: graph.predecessors(fn))
+
+    def rpo(self, fn: Function):
+        return self._get(fn, "rpo", fn.cfg_version, lambda: graph.rpo(fn))
+
+    def dominators(self, fn: Function) -> graph.DomInfo:
+        return self._get(fn, "dom", fn.cfg_version,
+                         lambda: graph.dominators(fn))
+
+    def postdominators(self, fn: Function) -> graph.PostDomInfo:
+        return self._get(fn, "pdom", fn.cfg_version,
+                         lambda: graph.postdominators(fn))
+
+    def loops(self, fn: Function):
+        return self._get(fn, "loops", fn.cfg_version,
+                         lambda: graph.natural_loops(fn,
+                                                     self.dominators(fn)))
+
+    def control_deps(self, fn: Function):
+        return self._get(fn, "cdeps", fn.cfg_version,
+                         lambda: graph.control_deps(
+                             fn, self.postdominators(fn)))
+
+    def cdg_leaves(self, fn: Function):
+        return self._get(fn, "cdg_leaves", fn.cfg_version,
+                         lambda: graph.cdg_leaves(fn,
+                                                  self.control_deps(fn)))
+
+    # -- uniformity (keyed by df_version + configuration) ------------------
+    def uniformity(self, fn: Function, tti, *,
+                   kernel_params_uniform: bool = False):
+        """Memoized run_uniformity.
+
+        Exact reuse when neither the dataflow-relevant IR (df_version) nor
+        the TTI configuration changed since the last run — attrs-only
+        edits such as mir_safety's negate-flag repair hit this path for
+        free.  Real dataflow edits re-run the fixpoint (callers wanting a
+        warm restart across edits can pass ``seed=`` to run_uniformity
+        directly; the result is then conservative, so the shared pipeline
+        does not do it implicitly).
+        """
+        from .uniformity import run_uniformity
+        sig = (tti.uni_hw, tti.uni_ann, tti.has_zicond, tti.has_minmax,
+               tti.wg_equals_warp, bool(kernel_params_uniform))
+        kind = f"uniformity:{sig}"
+        return self._get(
+            fn, kind, fn.df_version,
+            lambda: run_uniformity(
+                fn, tti, kernel_params_uniform=kernel_params_uniform,
+                am=self))
+
+
+# --------------------------------------------------------------------------
+# Affine index facts — decode-time classification of memory-access index
+# vectors, shared by the interpreter's coalescing engine (core/interp_mem)
+# and the grid batcher's store-privacy licence (core/interp).
+#
+# Every index chain is resolved to a LINEAR FORM over the SIMT id basis
+#
+#     gx / gy   = global_id(0) / global_id(1)
+#     lx / ly   = local_id(0) / local_id(1)
+#     lane      = lane_id(0)         grpx / grpy = group_id(0) / (1)
+#     warp      = warp_id(0)
+#     gys       = global_id(1) * global_size(0)     (2-D linear ids)
+#     grpys     = group_id(1)  * num_groups(0)
+#
+# plus a uniform remainder, walking through the front-ends' single-store
+# entry-block stack slots (the same machinery the PR 4 store-privacy scan
+# used, widened from "exactly one gid factor" to full multi-term forms so
+# 2-D ``gid_x + gid_y * get_global_size(0)`` chains classify too).  From
+# one classification both consumers derive their facts:
+#
+#   * the per-row LANE STRIDE (the gx/lx/lane coefficients) gives the
+#     coalescing engine its analytic licence: stride 0 means the index
+#     is row-uniform, a known-sign stride means the per-row line keys
+#     are monotone along the lane axis (interp_mem.AffineFact);
+#   * the coefficient PATTERN gives the store-privacy level: a pure
+#     ``s*gx + uniform`` / ``s*grpx + uniform`` form writes
+#     cross-workgroup-disjoint cells in 1-D launches ("1d", the PR 4
+#     licence); the matched 2-D pairs ``s*(gx + gys)`` /
+#     ``s*(grpx + grpys)`` are injective per thread / per workgroup
+#     across the WHOLE launch, so 2-D grids also license re-merge and
+#     row compaction ("2d").
+#
+# Conservatism: anything unrecognized (data-dependent indices, modulo
+# wraps, select/cmov mixes, multiplications by runtime uniforms — the
+# multiplier could be zero) classifies to None and the consumers fall
+# back to their exact generic paths.
+# --------------------------------------------------------------------------
+
+#: intrinsics whose value is identical for every thread of the LAUNCH
+_LAUNCH_UNIFORM_INTRS = {"local_size", "num_groups", "global_size",
+                         "num_threads", "num_warps", "grid_dim"}
+
+_ID_SYMS = {
+    ("global_id", 0): ("gx", True),
+    ("global_id", 1): ("gy", True),
+    ("local_id", 0): ("lx", True),
+    ("local_id", 1): ("ly", True),
+    ("lane_id", 0): ("lane", False),
+    ("group_id", 0): ("grpx", False),
+    ("group_id", 1): ("grpy", False),
+    ("warp_id", 0): ("warp", False),
+}
+
+#: basis symbols that vary along the lane axis (affine with stride 1,
+#: under the launch-layout condition for gx/lx)
+_LANE_SYMS = ("gx", "lx", "lane")
+
+
+class _Lin:
+    """Linear form: sum of c[sym]*sym + a uniform remainder."""
+    __slots__ = ("c", "layout", "has_scalar", "const_abs", "const_val")
+
+    def __init__(self, c=None, layout=False, has_scalar=False,
+                 const_abs=0, const_val=None):
+        self.c = c or {}
+        self.layout = layout          # uses gx/gy/lx/ly (warp-layout dep)
+        self.has_scalar = has_scalar  # unbounded uniform addend present
+        self.const_abs = const_abs    # summed |const addends|
+        self.const_val = const_val    # exact value iff a pure constant
+
+
+def _lin_add(a: _Lin, b: _Lin, sign: int) -> _Lin:
+    c = dict(a.c)
+    for k, v in b.c.items():
+        c[k] = c.get(k, 0) + sign * v
+    # const_val is non-None only for PURE constants, so the sum is pure
+    # iff both sides were
+    cv = None
+    if a.const_val is not None and b.const_val is not None:
+        cv = a.const_val + sign * b.const_val
+    return _Lin(c, a.layout or b.layout, a.has_scalar or b.has_scalar,
+                a.const_abs + b.const_abs, cv)
+
+
+class _MemFacts:
+    """Per-function memory-access facts (memoized on the function,
+    keyed by ir_version — computed once per decode)."""
+    __slots__ = ("index_fact", "store_privacy")
+
+    def __init__(self) -> None:
+        #: id(mem instr) -> AffineFact (only provable accesses present)
+        self.index_fact: Dict[int, AffineFact] = {}
+        #: id(STORE instr) -> "2d" | "1d" | None
+        self.store_privacy: Dict[int, Optional[str]] = {}
+
+
+def _is_uniform_product(v: Value, defs, slot_stores, entry_ids,
+                        names: Tuple[str, str], depth: int = 0) -> bool:
+    """Structural match: ``v`` is exactly the intrinsic ``names[0]`` (dim
+    0), or ``names[1][0] * names[1][1]`` — through slot round-trips.
+    Used to recognize the 2-D row strides global_size(0) ==
+    num_groups(0)*local_size(0), and num_groups(0)."""
+    if depth > 12 or not isinstance(v, Reg):
+        return False
+    i = defs.get(id(v))
+    if i is None:
+        return False
+    if i.op is Op.INTR:
+        return i.operands[0] == names[0] and i.operands[1] == 0
+    if i.op is Op.SLOT_LOAD:
+        ss = slot_stores.get(id(i.operands[0]), [])
+        if len(ss) != 1 or id(ss[0]) not in entry_ids:
+            return False
+        return _is_uniform_product(ss[0].operands[1], defs, slot_stores,
+                                   entry_ids, names, depth + 1)
+    if i.op is Op.MUL and names[1] is not None:
+        n1, n2 = names[1]
+        for x, y in ((i.operands[0], i.operands[1]),
+                     (i.operands[1], i.operands[0])):
+            if (_is_uniform_product(x, defs, slot_stores, entry_ids,
+                                    (n1, None), depth + 1)
+                    and _is_uniform_product(y, defs, slot_stores,
+                                            entry_ids, (n2, None),
+                                            depth + 1)):
+                return True
+    return False
+
+
+def affine_mem_facts(fn: Function) -> _MemFacts:
+    """Classify every LOAD/STORE/ATOMIC index of ``fn`` (memoized on the
+    function, keyed by its ir_version)."""
+    cached = getattr(fn, "_mem_facts", None)
+    if cached is not None and cached[0] == fn.ir_version:
+        return cached[1]
+
+    defs: Dict[int, Any] = {}
+    slot_stores: Dict[int, list] = {}
+    entry_ids = {id(i) for i in fn.entry.instrs}
+    for i in fn.instructions():
+        if i.result is not None:
+            defs[id(i.result)] = i
+        if i.op is Op.SLOT_STORE:
+            slot_stores.setdefault(id(i.operands[0]), []).append(i)
+
+    def classify(v: Value, depth: int) -> Optional[_Lin]:
+        if depth > 12:
+            return None
+        if isinstance(v, Const):
+            try:
+                cv = int(v.value)
+            except (TypeError, ValueError):
+                return None
+            return _Lin(const_abs=abs(cv), const_val=cv)
+        if isinstance(v, Param):
+            if v.ty is Ty.PTR:
+                return None
+            return _Lin(has_scalar=True)     # launch scalar: uniform
+        if not isinstance(v, Reg):
+            return None
+        i = defs.get(id(v))
+        if i is None:
+            return None
+        op = i.op
+        if op is Op.INTR:
+            key = (i.operands[0], i.operands[1])
+            sym = _ID_SYMS.get(key)
+            if sym is not None:
+                return _Lin({sym[0]: 1}, layout=sym[1])
+            if i.operands[0] in _LAUNCH_UNIFORM_INTRS \
+                    or i.operands[0] == "core_id":
+                return _Lin(has_scalar=True)
+            return None
+        if op is Op.SLOT_LOAD:
+            ss = slot_stores.get(id(i.operands[0]), [])
+            # exactly one store, in the entry block: it dominates every
+            # load, so the load can never observe the slot's zero init
+            if len(ss) != 1 or id(ss[0]) not in entry_ids:
+                return None
+            return classify(ss[0].operands[1], depth + 1)
+        if op in (Op.ADD, Op.SUB):
+            a = classify(i.operands[0], depth + 1)
+            b = classify(i.operands[1], depth + 1)
+            if a is None or b is None:
+                return None
+            return _lin_add(a, b, 1 if op is Op.ADD else -1)
+        if op is Op.MUL:
+            a = classify(i.operands[0], depth + 1)
+            b = classify(i.operands[1], depth + 1)
+            if a is None or b is None:
+                return None
+            for x, y, yv in ((a, b, i.operands[1]), (b, a, i.operands[0])):
+                # scale by an exact constant
+                if y.const_val is not None and not y.c and not y.has_scalar:
+                    k = y.const_val
+                    return _Lin({s: cv * k for s, cv in x.c.items()},
+                                x.layout, x.has_scalar,
+                                x.const_abs * abs(k),
+                                None if x.const_val is None
+                                else x.const_val * k)
+            # the 2-D row strides: gy * global_size(0), grpy * num_groups(0)
+            for x, yv in ((a, i.operands[1]), (b, i.operands[0])):
+                nz = {s for s, cv in x.c.items() if cv}
+                if nz == {"gy"} and _is_uniform_product(
+                        yv, defs, slot_stores, entry_ids,
+                        ("global_size", ("num_groups", "local_size"))):
+                    return _Lin({"gys": x.c["gy"]}, True,
+                                x.has_scalar or x.const_abs != 0)
+                if nz == {"grpy"} and _is_uniform_product(
+                        yv, defs, slot_stores, entry_ids,
+                        ("num_groups", None)):
+                    return _Lin({"grpys": x.c["grpy"]}, x.layout,
+                                x.has_scalar or x.const_abs != 0)
+            if not a.c and not b.c:      # uniform * uniform
+                return _Lin(layout=a.layout or b.layout, has_scalar=True)
+            return None
+        return None
+
+    def index_fact(lin: Optional[_Lin]) -> Optional[AffineFact]:
+        if lin is None:
+            return None
+        stride = sum(lin.c.get(s, 0) for s in _LANE_SYMS)
+        if stride == 0:
+            return AffineFact("uni", lin.layout)
+        if lin.has_scalar:
+            return None             # unbounded addend: wrap unprovable
+        span_mul = sum(abs(cv) for cv in lin.c.values())
+        return AffineFact("inc" if stride > 0 else "dec", lin.layout,
+                          span_mul, lin.const_abs)
+
+    def privacy(lin: Optional[_Lin]) -> Optional[str]:
+        if lin is None:
+            return None
+        nz = {s: cv for s, cv in lin.c.items() if cv}
+        keys = set(nz)
+        if keys == {"gx"} or keys == {"grpx"}:
+            return "1d"
+        if keys == {"gx", "gys"} and nz["gx"] == nz["gys"]:
+            return "2d"
+        if keys == {"grpx", "grpys"} and nz["grpx"] == nz["grpys"]:
+            return "2d"
+        return None
+
+    facts = _MemFacts()
+    for i in fn.instructions():
+        op = i.op
+        if op is Op.LOAD:
+            f = index_fact(classify(i.operands[1], 0))
+            if f is not None:
+                facts.index_fact[id(i)] = f
+        elif op is Op.STORE:
+            lin = classify(i.operands[1], 0)
+            f = index_fact(lin)
+            if f is not None:
+                facts.index_fact[id(i)] = f
+            facts.store_privacy[id(i)] = privacy(lin)
+        elif op is Op.ATOMIC:
+            f = index_fact(classify(i.operands[2], 0))
+            if f is not None:
+                facts.index_fact[id(i)] = f
+    fn._mem_facts = (fn.ir_version, facts)  # type: ignore[attr-defined]
+    return facts
+
+
+def export_codegen_facts(fn: Function) -> Dict[str, Dict]:
+    """Positional view of ``affine_mem_facts`` for code generators.
+
+    Backends that re-emit the function (rather than walking the live
+    ``Instr`` objects) cannot key on ``id(instr)``; they address
+    instructions as ``(block_index, instr_index)``.  Returns
+
+      ``{"index":         {(bi, ii): (kind, layout, span_mul, span_add)},
+         "store_private": {(bi, ii): "2d" | "1d" | None}}``
+
+    covering exactly the accesses ``affine_mem_facts`` proved (loads /
+    stores / atomics for "index"; every STORE for "store_private").
+    """
+    facts = affine_mem_facts(fn)
+    index: Dict[Tuple[int, int], Tuple[str, bool, int, int]] = {}
+    store_private: Dict[Tuple[int, int], Optional[str]] = {}
+    for bi, b in enumerate(fn.blocks):
+        for ii, i in enumerate(b.instrs):
+            f = facts.index_fact.get(id(i))
+            if f is not None:
+                index[(bi, ii)] = (f.kind, f.layout, f.span_mul,
+                                   f.span_add)
+            if i.op is Op.STORE:
+                store_private[(bi, ii)] = facts.store_privacy.get(id(i))
+    return {"index": index, "store_private": store_private}
+
+
+_NULL = AnalysisManager(enabled=False)
+
+
+def ensure_manager(am: Optional[AnalysisManager]) -> AnalysisManager:
+    """Passes call this on their optional ``am`` argument: a provided
+    manager is shared across the pipeline; ``None`` gets a fresh private
+    one (still memoizes within the single pass run)."""
+    return am if am is not None else AnalysisManager()
+
+
+__all__ = ["AnalysisManager", "affine_mem_facts", "ensure_manager",
+           "export_codegen_facts"]
