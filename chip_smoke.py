@@ -15,8 +15,12 @@ without a result when either is missing or any check fails.
 Tolerances: integer buffers exact; float buffers exact, except kernels
 with EXP or LOG (blackscholes, srad_flag), held at rtol = atol = 1e-5
 because CUDA's expf/logf and torch's differ by a few ulps. Against the
-float64 numpy reference, blackscholes and srad_flag use the bench's atol
-(5e-2 and 1e-3); vecadd, saxpy and cfd_like are exact.
+numpy reference, blackscholes, srad_flag and psum use the bench's atol
+(5e-2, 1e-3 and 1e-3); vecadd, saxpy, cfd_like, vote_hw and bscan_hw are
+exact.
+
+Each kernel is timed twice: CUDA events around a batch of wrapper calls,
+and the device time of its kernel from a torch.profiler trace.
 """
 from __future__ import annotations
 
@@ -34,8 +38,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.convert import to_tensors  # noqa: E402
-from repro_torch.core.backends.torch_backend import (  # noqa: E402
-    _FnLowering, compile_torch)
+from repro_torch.core.backends.torch_backend import compile_torch  # noqa: E402
 from repro_torch.core.interp import LaunchParams  # noqa: E402
 from repro_torch.core.passes.pipeline import PassConfig, run_pipeline  # noqa: E402
 from repro_torch.core.vir import BINOPS, UNOPS, Op, Ty  # noqa: E402
@@ -122,6 +125,11 @@ def _numpy_ref(name: str, b, sc):
         flux = b["flux"].copy()
         flux[:n] = f
         return {"flux": flux}, 0.0
+    if name == "psum":
+        xm = np.where(np.arange(b["x"].size) < n, b["x"], np.float32(0))
+        y = b["y"].copy()
+        y[:n] = np.cumsum(xm.reshape(-1, 32), axis=1).reshape(-1)[:n]
+        return {"y": y}, 1e-3
     if name == "vote_hw":
         x = b["x"].reshape(-1, 32)
         gid = np.arange(x.size).reshape(-1, 32)
@@ -188,26 +196,37 @@ def _traffic(fn) -> int:
     return len(reads & ptrs) + len(writes & ptrs)
 
 
-class _LaneOps:
-    """Counts the lane operations the lockstep program executes (both
-    sides of every branch, every loop trip) while the plain version runs,
-    by wrapping the walker's straight-line step."""
-    ARITH = BINOPS | UNOPS | {Op.SELECT, Op.CMOV}
+ARITH = BINOPS | UNOPS | {Op.SELECT, Op.CMOV}
 
-    def __enter__(self):
-        self.n = 0
-        self._step = _FnLowering._lower_simple
 
-        def step(low, i, st):
-            if i.op in self.ARITH:
-                self.n += low.R * low.W
-            return self._step(low, i, st)
+def _lane_ops(fn, lanes: int) -> int:
+    """Lane operations of one pass over the VIR: each arithmetic
+    instruction once per lane. Loop trips past the first are left out, so
+    this undercounts, as a term of a least time may."""
+    return lanes * sum(i.op in ARITH for i in fn.instructions())
 
-        _FnLowering._lower_simple = step
-        return self
 
-    def __exit__(self, *exc):
-        _FnLowering._lower_simple = self._step
+def _device_ms(fn, calls: int = 20):
+    """Device time per call of the kernels that ``fn`` launches, summed
+    from a torch.profiler trace of ``calls`` calls (CUDA activity only),
+    with the kernels' names and launches per call; None where the trace
+    shows no device time in three tries (one trace of the H100 came back
+    empty)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0]
+        if evs:
+            us = sum(e.self_device_time_total for e in evs)
+            return (us / calls / 1e3, sorted({e.key[:40] for e in evs}),
+                    sum(e.count for e in evs) / calls)
+    return None, [], 0.0
 
 
 CASES = [("vecadd", 256), ("saxpy", 256), ("blackscholes", 256),
@@ -270,12 +289,9 @@ def main() -> int:
     print(f"main path: {total} CUDA launches {launches}")
 
     # held against the plain version on the card and numpy
-    errs, lane_ops = {}, {}
+    errs = {}
     for name, (bench, bufs, sc, params, ck) in cases.items():
-        with _LaneOps() as count:
-            plain = sx.simt_launch_plain(ck.fn, params,
-                                         to_tensors(bufs, dev), sc)
-        lane_ops[name] = count.n
+        plain = sx.simt_launch_plain(ck.fn, params, to_tensors(bufs, dev), sc)
         tol = 1e-5 if name.rstrip("01") in EXP_LOG else 0.0
         errs[name] = _compare(name, outs[name], plain, tol, tol)
         ref, atol = _numpy_ref(name, bufs, sc)
@@ -313,24 +329,39 @@ def main() -> int:
         L = params.grid * params.wg_threads
         nbytes = _traffic(ck.fn) * L * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = lane_ops[name] / F32_OPS_PER_S * 1e3
+        lanes_ops = _lane_ops(ck.fn, L)
+        ops_ms = lanes_ops / F32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        library_ms = None
+        # the yardstick: one torch call computing the same function
         n = sc["n"]
         if name == "vecadd":
             x, y, z = tens["x"][:n], tens["y"][:n], tens["z"][:n]
-            library_ms = _median_ms(lambda: torch.add(x, y, out=z),
-                                    args.reps)
+            lib_fn = lambda: torch.add(x, y, out=z)  # noqa: E731
         elif name == "saxpy":
             x, y = tens["x"][:n], tens["y"][:n]
-            library_ms = _median_ms(lambda: y.add_(x, alpha=sc["a"]),
-                                    args.reps)
+            lib_fn = lambda: y.add_(x, alpha=sc["a"])  # noqa: E731
+        elif name == "psum":   # a scan never reads past its lane
+            x, y = tens["x"].view(-1, 32), tens["y"].view(-1, 32)
+            lib_fn = lambda: torch.cumsum(x, 1, out=y)  # noqa: E731
+        else:
+            lib_fn = None
+        library_ms = None if lib_fn is None else _median_ms(lib_fn, args.reps)
         lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
         print(f"time {name:13s} {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"{nbytes} B {bytes_ms:.4f} ms  {lane_ops[name]} lane ops "
+              f"{nbytes} B {bytes_ms:.4f} ms  {lanes_ops} lane ops "
               f"{ops_ms:.4f} ms  bound {bound_ms:.4f} ms by {bound_by}  "
               f"achieved {bound_ms / ms:.3f} of bound{lib}")
+        # device time from a profiler trace, beside the event time above
+        dev_ms, kernels, per_call = _device_ms(
+            lambda: sx.simt_launch(ck.fn, params, tens, sc))
+        lib_dev = (None,) if lib_fn is None else _device_ms(lib_fn)
+        print(f"device {name:13s} kernel "
+              + ("not measured" if dev_ms is None else
+                 f"{dev_ms:.4f} ms ({per_call:g} kernels/call {kernels})")
+              + f" events {ms:.4f} ms"
+              + ("" if lib_dev[0] is None else
+                 f"  library kernel {lib_dev[0]:.4f} ms"))
         records.append({"name": f"simt_exec/{name}", "route": "cuda",
                         "source": SOURCE, "replaces": REPLACES,
                         "launches": launches[name],

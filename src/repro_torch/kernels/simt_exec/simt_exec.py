@@ -53,18 +53,38 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _CTYPE = {torch.float32: "float", torch.int32: "int"}
 _BOUND: "weakref.WeakKeyDictionary[Function, Dict[tuple, Any]]" = \
     weakref.WeakKeyDictionary()
+_ANALYSED: "weakref.WeakKeyDictionary[Function, tuple]" = \
+    weakref.WeakKeyDictionary()
 
 
 # --------------------------------------------------------------------------
 # checks shared by the kernel and its plain version
 # --------------------------------------------------------------------------
 
+def _analyse(kernel_fn: Function) -> Tuple[List[str], List[str], bool]:
+    """(pointer params, written pointer params, has atomics), walked once
+    per Function and IR version so a repeated launch skips the walk."""
+    hit = _ANALYSED.get(kernel_fn)
+    if hit is None or hit[0] != kernel_fn.ir_version:
+        buf_names = [p.name for p in kernel_fn.params if p.ty is Ty.PTR]
+        written, atomic = set(), False
+        for i in kernel_fn.instructions():
+            if i.op is Op.STORE:
+                written.add(getattr(i.operands[0], "name", "?"))
+            elif i.op is Op.ATOMIC:
+                atomic = True
+        hit = _ANALYSED[kernel_fn] = (
+            kernel_fn.ir_version, buf_names,
+            [nm for nm in buf_names if nm in written], atomic)
+    return hit[1:]
+
+
 def _check(kernel_fn: Function, params: LaunchParams,
            buffers: Dict[str, torch.Tensor]) -> Tuple[List[str], List[str]]:
     """(pointer params, written pointer params); raises on what the tiled
     kernel does not take."""
     W, grid = params.wg_threads, params.grid
-    buf_names = [p.name for p in kernel_fn.params if p.ty is Ty.PTR]
+    buf_names, out_names, atomic = _analyse(kernel_fn)
     devices = set()
     for nm in buf_names:
         t = buffers[nm]
@@ -79,14 +99,10 @@ def _check(kernel_fn: Function, params: LaunchParams,
         devices.add(t.device)
     if len(devices) > 1:
         raise ValueError(f"buffers on several devices: {devices}")
-    written = set()
-    for i in kernel_fn.instructions():
-        if i.op is Op.STORE:
-            written.add(getattr(i.operands[0], "name", "?"))
-        elif i.op is Op.ATOMIC:
-            raise NotImplementedError(
-                "atomic kernels are not tileable; use compile_torch")
-    return buf_names, [nm for nm in buf_names if nm in written]
+    if atomic:
+        raise NotImplementedError(
+            "atomic kernels are not tileable; use compile_torch")
+    return buf_names, out_names
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """simt_exec: the tiled plain version against the reference's Pallas
-kernel, the CUDA code generator's output, and the CUDA kernel against
-the plain version (on a card only).
+kernel, and the CUDA code generator's output. The CUDA kernel against the
+plain version, on a card, is in ``test_torch_simt_exec_cuda.py``.
 
 Tolerances: integer buffers exact; float buffers exact for the kernels
 with no multiply-add and no transcendental (EXACT), where XLA on the CPU
