@@ -1,11 +1,25 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's main path (kernel source -> frontend -> VIR ->
-run_pipeline -> CUDA ``simt_launch``) at full size, holds every launch
-against the plain torch version on the card and the map kernels against a
-numpy reference, runs the whole-buffer ``compile_torch`` backend on the
-card, times each kernel, and prints one JSON line of kernel records and a
-last line ``{"ok": true, "device": {...}}``.
+Two paths of the port, each at full size:
+
+  * the compiler's main path (kernel source -> frontend -> VIR ->
+    run_pipeline -> CUDA ``simt_launch``): every launch held against the
+    plain torch version on the card and the map kernels against a numpy
+    reference, and the whole-buffer ``compile_torch`` backend on the card;
+  * the LM serving path on granite-3-2b at full width and depth (random
+    weights from ``--seed``): ``LM.prefill`` on 4 prompts of 2048 tokens,
+    whose 81 RMSNorms and 40 attentions go through the rmsnorm and
+    flash_attention kernels, and ``ServeEngine`` answering 16 requests.
+    Each kernel is held against its plain version at the path's shapes,
+    decode is held against prefill, and a depth-2 model on the card
+    against the same model on the CPU.
+
+Each kernel's launches are counted on each path (counts set to 0 just
+before, read just after): a record's ``launches_by_path`` gives each
+path's own count (``compiler``; ``prefill`` and ``serve``) and
+``launches`` their sum. Each kernel is timed, and the script prints one
+JSON line of kernel records and a last line
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--seed N] [--reps N]
 
@@ -19,21 +33,46 @@ numpy reference, blackscholes, srad_flag and psum use the bench's atol
 (5e-2, 1e-3 and 1e-3); vecadd, saxpy, cfd_like, vote_hw and bscan_hw are
 exact.
 
+LM tolerances, each beside the typical size of what it holds (the
+check lines print both):
+
+  * rmsnorm rtol = atol = 1e-5 in float32 and 2e-2 in bf16 (those of
+    tests/test_kernels.py); outputs of randn rows and scales have a
+    median |y| of about 0.45, one bf16 ulp at most 0.0078 of |y|.
+  * flash_attention at the path's shape (4, 32, 2048, 64), causal:
+    bf16 rtol 1e-2, atol 2e-3; float32 rtol = atol = 2e-5. With randn
+    q, k, v the softmax weights of a row of n keys act as about n / e
+    equal ones, so |o| is about (e / n) ** 0.5: a median over all
+    elements of about 0.035, up to about 4 in the first rows. The rtol covers one bf16 ulp (at most
+    0.0078 of |o|, as both sides round one float32 result) and the atol
+    sits well below the median |o|, so a dropped or doubled key tile or a
+    wrong scale in a late row fails.
+  * decode against prefill (64 teacher-forced steps, full depth):
+    atol 0.2, rtol 0, inside tests/test_archs.py's atol 0.55, rtol 0.1;
+    the logits have a standard deviation of about 1 and the two paths
+    measured 0.098 apart on the H100.
+  * the depth-2 model on the card against the CPU: atol = rtol = 0.1 on
+    the logits (tests/test_torch_lm.py).
+
 Each kernel is timed twice: CUDA events around a batch of wrapper calls,
 and the device time of its kernel from a torch.profiler trace.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -45,10 +84,19 @@ from repro_torch.core.vir import BINOPS, UNOPS, Op, Ty  # noqa: E402
 from repro_torch.kernels.simt_exec import simt_exec as sx  # noqa: E402
 from repro_torch.kernels.simt_exec.ops import volt_torch_run  # noqa: E402
 from repro_torch.volt_bench import suite  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention as fa  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm as rn  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.blueprint import (count_params, init_params,  # noqa
+                                          tree_map)
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 N = 2**24 - 37                 # ragged tail: exercises the `gid < n` guard
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 SOURCE = "src/repro_torch/kernels/simt_exec/codegen.py"
 REPLACES = "src/repro/kernels/simt_exec/simt_exec.py:121"
 CONFIG = PassConfig(uni_hw=True, uni_ann=True, uni_func=True)
@@ -207,11 +255,14 @@ def _lane_ops(fn, lanes: int) -> int:
 
 
 def _device_ms(fn, calls: int = 20):
-    """Device time per call of the kernels that ``fn`` launches, summed
-    from a torch.profiler trace of ``calls`` calls (CUDA activity only),
-    with the kernels' names and launches per call; None where the trace
-    shows no device time in three tries (one trace of the H100 came back
-    empty)."""
+    """Device time per call of the kernels that ``fn`` launches, from a
+    torch.profiler trace of ``calls`` calls (CUDA activity only): each
+    kernel's mean time over its recorded launches, summed over the
+    kernels, so a kernel counts once per call. The trace can drop launch
+    records (on the H100 as few as 1 in 20), so the records are not
+    counted as launches; records per call come back beside the kernels'
+    names. None where the trace shows no device time in three tries (one
+    trace of the H100 came back empty)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -223,8 +274,8 @@ def _device_ms(fn, calls: int = 20):
         evs = [e for e in prof.key_averages()
                if e.self_device_time_total > 0]
         if evs:
-            us = sum(e.self_device_time_total for e in evs)
-            return (us / calls / 1e3, sorted({e.key[:40] for e in evs}),
+            us = sum(e.self_device_time_total / e.count for e in evs)
+            return (us / 1e3, sorted({e.key[:40] for e in evs}),
                     sum(e.count for e in evs) / calls)
     return None, [], 0.0
 
@@ -232,6 +283,289 @@ def _device_ms(fn, calls: int = 20):
 CASES = [("vecadd", 256), ("saxpy", 256), ("blackscholes", 256),
          ("srad_flag0", 256), ("srad_flag1", 256), ("cfd_like", 256),
          ("psum", 32), ("vote_hw", 32), ("bscan_hw", 32)]
+
+
+# --------------------------------------------------------------------------
+# the LM serving path: granite-3-2b at full width and depth
+# --------------------------------------------------------------------------
+
+LM_ARCH = "granite-3-2b"
+PREFILL_B, PREFILL_S = 4, 2048       # 8192 rows for each RMSNorm
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 512, 16, 16
+RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+FA_TOL = {torch.bfloat16: (1e-2, 2e-3), torch.float32: (2e-5, 2e-5)}
+DECODE_ATOL = 0.2
+LM_SOURCES = {
+    "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm/rmsnorm.py:23"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:113")}
+
+
+def _rms_inputs(g, dev, N, d, dtype):
+    return (torch.randn(N, d, generator=g, device=dev).to(dtype),
+            torch.randn(d, generator=g, device=dev).to(dtype))
+
+
+def _library_rmsnorm(x, s):
+    """The yardstick: torch's own RMSNorm of the same rows."""
+    return F.rms_norm(x, (x.shape[1],), s, 1e-6)
+
+
+def _qkv(g, dev, cfg, B, S, dtype):
+    """q, k, v as the layer hands them to the kernel: (B, H, S, D) views
+    of (B, S, H, D) projections, K/V with the config's KV heads."""
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return tuple(torch.randn(B, S, h, D, generator=g, device=dev)
+                 .to(dtype).transpose(1, 2) for h in (H, Hkv, Hkv))
+
+
+def lm_kernel_checks(dev, cfg, seed):
+    """Each kernel against its plain version on the card, at the path's
+    shapes; returns the max abs errors by (kernel, shape, dtype)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    errs = {}
+    for N in (PREFILL_B * PREFILL_S, SERVE_SLOTS):
+        for dt, tol in RMS_TOL.items():
+            x, s = _rms_inputs(g, dev, N, cfg.d_model, dt)
+            want = rn.rmsnorm_plain(x, s)
+            e = _compare(f"rmsnorm({N})", {"y": rn.rmsnorm(x, s)},
+                         {"y": want}, tol, tol)
+            errs[("rmsnorm", N, dt)] = e
+            print(f"check rmsnorm ({N}, {cfg.d_model}) {str(dt)[6:]} vs "
+                  f"plain max abs err {e:.3g} (tol {tol}; median |y| "
+                  f"{float(want.float().abs().median()):.3g})")
+    S = PREFILL_S
+    for dt, (rtol, atol) in FA_TOL.items():
+        q, k, v = _qkv(g, dev, cfg, PREFILL_B, S, dt)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        e = _compare(f"flash_attention({S})",
+                     {"o": fa.flash_attention(q, k, v, causal=True)},
+                     {"o": want}, rtol, atol)
+        errs[("flash_attention", S, dt)] = e
+        print(f"check flash_attention ({PREFILL_B}, {cfg.n_heads}, {S}, "
+              f"{cfg.head_dim}) kv heads {cfg.n_kv_heads} causal "
+              f"{str(dt)[6:]} vs plain max abs err {e:.3g} (rtol {rtol}, "
+              f"atol {atol}; median |o| "
+              f"{float(want.float().abs().median()):.3g})")
+        del q, k, v, want
+    return errs
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def _kernel_row(name, shape, fn, plain_fn, lib_fn, nbytes, ops, ops_rate,
+                reps, launches):
+    """Times one kernel at one shape: events, profiler device time, the
+    plain version, the library call; the bound from bytes and ops. The
+    card's SM clock and power draw are read right after the events, while
+    it is still loaded."""
+    ms = _median_ms(fn, reps)
+    clocks = _smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
+    dev_ms, _, per_call = _device_ms(fn)
+    plain_ms = _median_ms(plain_fn, reps, batch=1)
+    library_ms = _median_ms(lib_fn, reps)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_rate * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"time {name:15s} {shape}  launches {launches}  {ms:.4f} ms  "
+          "device " + ("not measured" if dev_ms is None else
+                       f"{dev_ms:.4f} ms ({per_call:g} records/call)")
+          + f"  bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, "
+          f"{ops:.4g} ops)  share {bound_ms / ms:.3f}  plain "
+          f"{plain_ms:.4f} ms  library {library_ms:.4f} ms  card after the "
+          f"events: {clocks.splitlines()[0]} (sm, max sm, power, temp)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def lm_kernel_times(dev, cfg, reps, by_path, errs):
+    """Timing rows at the path's shapes; the JSON records take the
+    prefill shape in bf16."""
+    g = torch.Generator(dev).manual_seed(7)
+    d = cfg.d_model
+    records = []
+    for N in (PREFILL_B * PREFILL_S, SERVE_SLOTS):
+        # four input sets in turn (134 MB at 8192 rows), so that a call
+        # does not find its 33.5 MB input in the 50 MB L2 cache
+        sets = itertools.cycle([_rms_inputs(g, dev, N, d, torch.bfloat16)
+                                for _ in range(4)])
+        row = _kernel_row(
+            "rmsnorm", f"({N}, {d}) bf16",
+            lambda: rn.rmsnorm(*next(sets)),
+            lambda: rn.rmsnorm_plain(*next(sets)),
+            lambda: _library_rmsnorm(*next(sets)),
+            2 * N * d * 2 + d * 2, 4 * N * d, F32_OPS_PER_S, reps,
+            {p: n["rmsnorm"] for p, n in by_path.items()})
+        if N == PREFILL_B * PREFILL_S:
+            records.append({"name": "rmsnorm", **row, "max_abs_err":
+                            errs[("rmsnorm", N, torch.bfloat16)]})
+    B, S, H, D = PREFILL_B, PREFILL_S, cfg.n_heads, cfg.head_dim
+    q, k, v = _qkv(g, dev, cfg, B, S, torch.bfloat16)
+    nbytes = sum(t.numel() * 2 for t in (q, k, v, q))
+    pairs = S * (S + 1) // 2          # (query, key) pairs under the mask
+    row = _kernel_row(
+        "flash_attention", f"({B}, {H}, {S}, {D}) causal bf16",
+        lambda: fa.flash_attention(q, k, v, causal=True),
+        lambda: fa.flash_attention_plain(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        nbytes, 4 * B * H * D * pairs, BF16_OPS_PER_S, reps,
+        {p: n["flash_attention"] for p, n in by_path.items()})
+    records.append({"name": "flash_attention", **row, "max_abs_err":
+                    errs[("flash_attention", S, torch.bfloat16)]})
+    for r in records:
+        src, replaces = LM_SOURCES[r["name"]]
+        per_path = {p: n[r["name"]] for p, n in by_path.items()}
+        r.update(route="cuda", source=src, replaces=replaces,
+                 launches=sum(per_path.values()),
+                 launches_by_path=per_path)
+    return records
+
+
+def _breakdown(fn, wall_ms: float, label: str) -> None:
+    """Where one call's time goes: the device's busy time (the sum of its
+    kernels in a torch.profiler trace of CUDA activity) against the
+    call's wall time measured without the profiler, and the kernels that
+    take the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not evs:
+        print(f"where the time goes, {label}: not measured (empty trace)")
+        return
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    n = sum(e.count for e in evs)
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"where the time goes, {label}: wall {wall_ms:.2f} ms, device "
+          f"busy {busy:.2f} ms in {n} kernels, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.3f}; top: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"x{e.count}" for e in top))
+
+
+def _sync_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lm_phase(dev, seed: int, reps: int):
+    """The LM serving path, checked and timed; returns the kernels'
+    records."""
+    cfg = get_config(LM_ARCH)
+    model = get_model(cfg)
+    bp = model.blueprint()
+    params, secs = _sync_s(lambda: init_params(
+        bp, torch.Generator(dev).manual_seed(seed)))
+    print(f"lm {cfg.name}: {count_params(bp)} params, {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"({cfg.n_kv_heads} kv) x {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}; init on the card {secs:.2f} s")
+    errs = lm_kernel_checks(dev, cfg, seed)
+
+    # the path, counted: one prefill of 4 x 2048 tokens ...
+    toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                         generator=torch.Generator(dev).manual_seed(seed),
+                         device=dev)
+    rn.LAUNCHES = fa.LAUNCHES = sx.LAUNCHES = 0
+    logits, first_s = _sync_s(lambda: model.prefill(params, toks))
+    per_prefill = {"rmsnorm": rn.LAUNCHES, "flash_attention": fa.LAUNCHES}
+    want = {"rmsnorm": 2 * cfg.n_layers + 1,
+            "flash_attention": cfg.n_layers}
+    if per_prefill != want or sx.LAUNCHES:
+        raise AssertionError(f"prefill launched {per_prefill}, simt_exec "
+                             f"{sx.LAUNCHES}; expected {want}")
+    if (logits.shape != (PREFILL_B, cfg.padded_vocab)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    print(f"prefill main path: launches per call {per_prefill}; first "
+          f"call {first_s:.3f} s")
+
+    # ... and the engine answering 16 requests
+    rng = np.random.default_rng(seed)
+    eng = ServeEngine(model, params, slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, int(rng.integers(16, 65))).astype(np.int32),
+        max_new=SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    for r in reqs:
+        eng.submit(r)
+    rn.LAUNCHES = fa.LAUNCHES = sx.LAUNCHES = 0
+    _, serve_s = _sync_s(eng.run_until_drained)
+    per_serve = {"rmsnorm": rn.LAUNCHES, "flash_attention": fa.LAUNCHES}
+    bad = [(r.rid, r.error, len(r.out)) for r in reqs
+           if not r.done or r.error or len(r.out) != SERVE_NEW]
+    if bad or per_serve["rmsnorm"] < 1 or sx.LAUNCHES:
+        raise AssertionError(f"serving: failed requests {bad}, launches "
+                             f"{per_serve}, simt_exec {sx.LAUNCHES}")
+    prompt_toks = sum(len(r.prompt) for r in reqs)
+    gen = SERVE_REQUESTS * SERVE_NEW
+    print(f"serve main path: {SERVE_REQUESTS} requests ({prompt_toks} "
+          f"prompt tokens, {gen} generated) on {SERVE_SLOTS} slots in "
+          f"{serve_s:.3f} s, {gen / serve_s:.1f} generated tokens/s; "
+          f"launches {per_serve}")
+    by_path = {"prefill": per_prefill, "serve": per_serve}
+
+    # prefill and decode speed, after the counted runs
+    times = [_sync_s(lambda: model.prefill(params, toks))[1]
+             for _ in range(3)]
+    pre_s = statistics.median(times)
+    print(f"prefill {PREFILL_B} x {PREFILL_S}: {pre_s * 1e3:.1f} ms "
+          f"(median of 3), {PREFILL_B * PREFILL_S / pre_s:.0f} tokens/s")
+    step_toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                              (SERVE_SLOTS, 1))).to(dev)
+    step_pos = torch.full((SERVE_SLOTS,), 100, device=dev)
+    step = [_sync_s(lambda: model.decode_step(params, eng.cache, step_toks,
+                                              step_pos))[1]
+            for _ in range(10)]
+    step_ms = statistics.median(step) * 1e3
+    print(f"decode_step {SERVE_SLOTS} slots, cache {SERVE_MAX_SEQ}: "
+          f"{step_ms:.2f} ms (median of 10), "
+          f"{SERVE_SLOTS / step_ms * 1e3:.1f} tokens/s")
+    _breakdown(lambda: model.prefill(params, toks), pre_s * 1e3,
+               f"prefill {PREFILL_B} x {PREFILL_S}")
+    _breakdown(lambda: model.decode_step(params, eng.cache, step_toks,
+                                         step_pos), step_ms,
+               f"decode_step {SERVE_SLOTS} slots")
+
+    # decode matches prefill at full width (tests/test_archs.py's check)
+    prompt = toks[:1, :64]
+    full = model.prefill(params, prompt)
+    cache = model.init_cache(1, 64, device=dev)
+    for t in range(64):
+        last, cache = model.decode_step(params, cache, prompt[:, t:t + 1],
+                                        torch.full((1,), t, device=dev))
+    e = _compare("decode vs prefill", {"l": last[:, 0, :cfg.vocab]},
+                 {"l": full[:, :cfg.vocab]}, 0.0, DECODE_ATOL)
+    print(f"check decode (64 steps) vs prefill logits max abs err {e:.3g} "
+          f"(atol {DECODE_ATOL}, rtol 0; logits std "
+          f"{float(full[:, :cfg.vocab].std()):.3g})")
+
+    # the card (kernels) against the CPU (plain versions), depth 2
+    m2 = get_model(dataclasses.replace(cfg, n_layers=2))
+    p_cpu = init_params(m2.blueprint(), torch.Generator().manual_seed(seed))
+    toks2 = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)))
+    want2 = m2.prefill(p_cpu, toks2)
+    got2 = m2.prefill(tree_map(lambda a: a.to(dev), p_cpu), toks2.to(dev))
+    e = _compare("depth-2 card vs cpu", {"l": got2.cpu()[:, :cfg.vocab]},
+                 {"l": want2[:, :cfg.vocab]}, 0.1, 0.1)
+    print(f"check depth-2 prefill (2 x 128) card vs cpu logits max abs err "
+          f"{e:.3g} (atol = rtol = 0.1)")
+    del params, eng, cache
+    torch.cuda.empty_cache()
+    return lm_kernel_times(dev, cfg, min(reps, 10), by_path, errs)
 
 
 def main() -> int:
@@ -246,10 +580,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 1. the card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(_smi("name,power.limit").splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
@@ -269,13 +600,19 @@ def main() -> int:
     for name, (bench, bufs, sc, params, ck) in cases.items():
         srcs[name] = sx.kernel_source(
             ck.fn, params, {k: torch.from_numpy(v) for k, v in bufs.items()})
-    built = sx.build_many(list(srcs.values()))
+    with ThreadPoolExecutor(2) as pool:
+        lm_built = {m.KERNEL.kind: pool.submit(m.KERNEL.build)
+                    for m in (rn, fa)}
+        built = sx.build_many(list(srcs.values()))
+        for kind, fut in lm_built.items():
+            so, secs = fut.result()
+            print(f"build {kind:15s} {so.name[:12]} nvcc {secs:.1f} s")
     for name, (so, secs) in zip(srcs, built):
         print(f"build {name:13s} {so.name[:12]} nvcc {secs:.1f} s")
     print(f"build total {time.perf_counter() - t0:.1f} s")
 
     # 3. the main path at full size, counted
-    sx.LAUNCHES = 0
+    sx.LAUNCHES = rn.LAUNCHES = fa.LAUNCHES = 0
     outs, launches = {}, {}
     for name, (bench, bufs, sc, params, ck) in cases.items():
         before = sx.LAUNCHES
@@ -284,7 +621,8 @@ def main() -> int:
         launches[name] = sx.LAUNCHES - before
     torch.cuda.synchronize()
     total = sx.LAUNCHES
-    if total != len(cases) or min(launches.values()) < 1:
+    if (total != len(cases) or min(launches.values()) < 1
+            or rn.LAUNCHES or fa.LAUNCHES):
         raise AssertionError(f"main path launched {launches}")
     print(f"main path: {total} CUDA launches {launches}")
 
@@ -358,16 +696,22 @@ def main() -> int:
         lib_dev = (None,) if lib_fn is None else _device_ms(lib_fn)
         print(f"device {name:13s} kernel "
               + ("not measured" if dev_ms is None else
-                 f"{dev_ms:.4f} ms ({per_call:g} kernels/call {kernels})")
+                 f"{dev_ms:.4f} ms ({per_call:g} records/call {kernels})")
               + f" events {ms:.4f} ms"
               + ("" if lib_dev[0] is None else
                  f"  library kernel {lib_dev[0]:.4f} ms"))
         records.append({"name": f"simt_exec/{name}", "route": "cuda",
                         "source": SOURCE, "replaces": REPLACES,
                         "launches": launches[name],
+                        "launches_by_path": {"compiler": launches[name]},
                         "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library_ms})
+
+    # 6. the LM serving path
+    t0 = time.perf_counter()
+    records += lm_phase(dev, args.seed, args.reps)
+    print(f"lm phase {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,7 @@ from ..vir import (Block, Const, Function, GlobalVar, Instr, Module, Op,
                    Param, Reg, Ty, Value, BINOPS, UNOPS)
 from .. import graph
 from ..interp import LaunchParams
+from ...device import resolve_device
 
 _TY_DTYPE = {Ty.I32: torch.int32, Ty.F32: torch.float32, Ty.BOOL: torch.bool}
 
@@ -45,16 +46,6 @@ _I32_MAX = 2**31 - 1
 
 class LowerError(Exception):
     pass
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Raises when the card is asked for and
-    there is none: the port never falls back to the host."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass device='cpu' to run on "
-                           "the host")
-    return dev
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,116 @@
+"""Attention forward with an online softmax, as a CUDA kernel on Hopper.
+
+Replaces ``repro/kernels/flash_attention/flash_attention.py:
+flash_attention`` (the Pallas TPU kernel ``_fa_kernel``).
+``csrc/flash_attention.cu`` holds the kernel and its note: one CTA per
+(batch, head, 64-row query tile), float32 on the CUDA cores, bound by
+operations, causal key tiles past the diagonal never loaded. It is built
+with nvcc at first use into ``build/flash_attention/<sha256>.so`` and
+launched through ctypes on the current stream.
+
+The public layout is the JAX kernel's, q (B, H, Sq, D), with two
+widenings: k and v may have Hkv heads, Hkv dividing H (head h reads KV
+head ``h // (H // Hkv)``), and Sq, Sk are any length. The kernel reads
+q, k and v through their strides, so transposed views of a
+(B, S, H, D) layout are taken as they are; only the last dimension must
+be contiguous. The output is a new contiguous (B, H, Sq, D).
+
+On CPU tensors ``flash_attention`` runs ``flash_attention_plain``, the
+float32 math of the JAX package's ``ref.py``. A CUDA tensor goes to the
+kernel or raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from ..build import SourceKernel
+
+#: launches of the CUDA kernel; the plain version does not count
+LAUNCHES = 0
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (32, 64)
+BLOCK_Q = 64
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_ARGS = [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+KERNEL = SourceKernel(
+    "flash_attention",
+    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+    {f"flash_attention_{t}_d{d}": _ARGS
+     for t in _SUFFIX.values() for d in HEAD_DIMS})
+
+
+def _shapes(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention takes q (B, H, Sq, D) and k, v "
+                         f"(B, Hkv, Sk, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or H % Hkv:
+        raise ValueError(f"k, v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)}: Hkv must divide H")
+    return B, H, Hkv, Sq, Sk, D
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True
+                          ) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(D), causal mask -1e30) v`` in float32, cast
+    to q's dtype; any device."""
+    B, H, Hkv, Sq, Sk, D = _shapes(q, k, v)
+    k = k.repeat_interleave(H // Hkv, dim=1)
+    v = v.repeat_interleave(H // Hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = s.masked_fill(~mask, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D) -> (B, H, Sq, D). CPU
+    tensors take the plain version, CUDA tensors the kernel."""
+    global LAUNCHES
+    B, H, Hkv, Sq, Sk, D = _shapes(q, k, v)
+    devices = {q.device, k.device, v.device}
+    if devices == {torch.device("cpu")}:
+        return flash_attention_plain(q, k, v, causal=causal)
+    if len(devices) != 1 or q.device.type != "cuda":
+        raise ValueError(f"flash_attention kernel: q, k, v on {devices}; "
+                         "all must be on one CUDA device")
+    if q.dtype not in _SUFFIX or {k.dtype, v.dtype} != {q.dtype}:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
+                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim {D} not in "
+                         f"{HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: the last dimension of "
+                         "q, k and v must be contiguous")
+    n_blocks = B * H * -(-Sq // BLOCK_Q)
+    if Sk == 0 or n_blocks >= 2**31:
+        raise ValueError(f"flash_attention kernel: Sk = {Sk}, "
+                         f"{n_blocks} blocks")
+    out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    if Sq == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        KERNEL.call(f"flash_attention_{_SUFFIX[q.dtype]}_d{D}",
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), B, H, Hkv, Sq, Sk,
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    int(causal), 1.0 / math.sqrt(D), stream)
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,69 @@
+"""RMSNorm over the rows of an (N, d) array, as a CUDA kernel on Hopper.
+
+Replaces ``repro/kernels/rmsnorm/rmsnorm.py:rmsnorm`` (the Pallas TPU
+kernel). ``csrc/rmsnorm.cu`` holds the kernel and its note: one CTA per
+row, bound by bytes. It is built with nvcc at first use into
+``build/rmsnorm/<sha256>.so`` and launched through ctypes on the current
+stream.
+
+On CPU tensors ``rmsnorm`` runs ``rmsnorm_plain``, the same function in
+torch. A CUDA tensor goes to the kernel or raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ..build import SourceKernel
+
+#: launches of the CUDA kernel; the plain version does not count
+LAUNCHES = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = SourceKernel(
+    "rmsnorm", Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu",
+    {f"rmsnorm_{t}": [_P, _P, _P, _I, _I, _F, _P] for t in ("f32", "bf16")})
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """The float32 mean of squares per row, then ``x * rsqrt(var + eps)
+    * scale``, cast back to x's dtype; any device, any leading dims."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x: (N, d) row-normalized; scale: (d,). CPU tensors take the plain
+    version, CUDA tensors the kernel."""
+    global LAUNCHES
+    if x.dim() != 2 or scale.shape != (x.shape[1],):
+        raise ValueError(f"rmsnorm takes x (N, d) and scale (d,), got "
+                         f"{tuple(x.shape)} and {tuple(scale.shape)}")
+    if x.device.type == "cpu" and scale.device.type == "cpu":
+        return rmsnorm_plain(x, scale, eps=eps)
+    if x.device.type != "cuda" or scale.device != x.device:
+        raise ValueError(f"rmsnorm kernel: x on {x.device}, scale on "
+                         f"{scale.device}; both must be on one CUDA device")
+    if x.dtype not in _SUFFIX or scale.dtype != x.dtype:
+        raise TypeError(f"rmsnorm kernel takes float32 or bfloat16 x and "
+                        f"scale of one dtype, got {x.dtype}, {scale.dtype}")
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("rmsnorm kernel: x and scale must be contiguous")
+    N, d = x.shape
+    out = torch.empty_like(x)
+    if N == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        KERNEL.call(f"rmsnorm_{_SUFFIX[x.dtype]}", x.data_ptr(),
+                    scale.data_ptr(), out.data_ptr(), N, d, float(eps),
+                    stream)
+    LAUNCHES += 1
+    return out

@@ -3,7 +3,7 @@ and launch it with ``simt_launch``."""
 from typing import Any, Dict, Optional
 
 from ...convert import to_tensors
-from ...core.backends.torch_backend import resolve_device
+from ...device import resolve_device
 from ...core.interp import LaunchParams
 from ...core.passes.pipeline import PassConfig, run_pipeline
 from .simt_exec import simt_launch

@@ -23,11 +23,6 @@ A CUDA tensor goes to the kernel or raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 import weakref
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -40,6 +35,8 @@ from ...core.backends.torch_backend import (_TY_DTYPE, _FnLowering, _State,
                                             intrinsics, scalar_lanes)
 from ...core.interp import LaunchParams
 from ...core.vir import Function, Op, Ty
+from ..build import source_key
+from ..build import build_many as _build_many
 from .codegen import emit_kernel
 
 #: launches of the CUDA kernel; the plain version does not count
@@ -47,7 +44,6 @@ LAUNCHES = 0
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _HEADER = _CSRC / "simt_runtime.cuh"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "simt"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 _CTYPE = {torch.float32: "float", torch.int32: "int"}
@@ -156,59 +152,14 @@ def kernel_source(kernel_fn: Function, params: LaunchParams,
 
 
 def source_hash(src: str) -> str:
-    h = hashlib.sha256()
-    h.update(src.encode())
-    h.update(_HEADER.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the simt_exec kernels")
-    return path
+    return source_key(src, [_HEADER], NVCC_FLAGS)
 
 
 def build_many(sources: List[str]) -> List[Tuple[Path, float]]:
-    """Build every source not built yet, one nvcc process each, all
-    started together. Returns each shared library with the seconds its
-    nvcc took (0.0 where it was built already), in order."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    outs, procs = [], {}
-    t0 = time.perf_counter()
-    for src in sources:
-        key = source_hash(src)
-        so = BUILD_DIR / f"{key}.so"
-        outs.append(so)
-        if so.exists() or so in procs:
-            continue
-        cu = BUILD_DIR / f"{key}.cu"
-        cu.write_text(src)
-        tmp = BUILD_DIR / f"{key}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               str(cu)]
-        log = BUILD_DIR / f"{key}.log"
-        with open(log, "w") as f:
-            procs[so] = (tmp, log, subprocess.Popen(
-                cmd, stdout=f, stderr=subprocess.STDOUT))
-    seconds: Dict[Path, float] = {}
-    errors = []
-    while len(seconds) < len(procs):
-        for so, (tmp, log, proc) in procs.items():
-            if so in seconds or proc.poll() is None:
-                continue
-            seconds[so] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed for {so.stem}.cu:\n"
-                              f"{log.read_text()}")
-            else:
-                os.replace(tmp, so)
-        time.sleep(0.02)
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return [(so, seconds.get(so, 0.0)) for so in outs]
+    """Build every emitted source not built yet, one nvcc each, all at
+    once (``kernels.build.build_many``)."""
+    return _build_many("simt", sources, flags=NVCC_FLAGS, include=_CSRC,
+                       headers=[_HEADER])
 
 
 def _library(src: str):

@@ -1,0 +1,223 @@
+"""Unified LM assembly: the dense attention path of the reference's LM.
+
+Port of ``repro.models.transformer``. A model is a stack of identical
+*periods*; a period is a short list of layers. Params of a period are
+stacked on a leading axis, as in the reference, and a Python loop over
+that axis takes the place of ``lax.scan``.
+
+Decode carries a per-period cache tree (KV pages for attention layers),
+stacked the same way. Unlike the reference, ``decode_step`` writes the
+new keys and values into the cache in place (one indexed store per
+layer instead of a one-hot select over the whole cache) and returns the
+same cache object. A step that fails part-way and is run again with the
+same tokens and positions writes the same rows, so a retry is
+idempotent.
+
+The config's ``attn_impl``, ``attn_chunk``, ``attn_skip_masked_blocks``
+and ``attn_unroll_kv`` are the reference's XLA lowering choices; the
+port reads none of them, and prefill's attention always goes through the
+flash_attention kernel.
+
+Only what granite-style dense models run is ported: attention mixers
+with dense feed-forward. The other mixers, MoE feed-forward, the
+encoder-decoder stack and the training loss raise ``NotImplementedError``
+naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from ..device import resolve_device
+from . import layers as L
+from .blueprint import Leaf, leaf, tree_map
+
+Params = Any
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+# --------------------------------------------------------------------------
+# layer descriptors
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    mixer: str          # attn | attn_cross | mamba | mlstm | slstm
+    ff: str             # dense | moe | none
+
+
+def _stack_bp(bp, n: int):
+    """Add a leading period axis to every blueprint leaf."""
+    return tree_map(
+        lambda l: Leaf((n,) + l.shape, ("layers",) + l.axes, l.dtype,
+                       l.init, None if l.scale_dim is None
+                       else l.scale_dim + 1), bp)
+
+
+_MIXER_ITEM = {"mamba": "A6/B5 (models/ssm.py)",
+               "mlstm": "A6 (models/xlstm.py)",
+               "slstm": "A6 (models/xlstm.py)",
+               "attn_cross": "A11 (encoder-decoder)"}
+
+
+class LM:
+    """See configs/base.py:ModelConfig for the knob list."""
+
+    def __init__(self, cfg) -> None:
+        self.cfg = cfg
+        assert cfg.n_layers % len(cfg.layer_pattern()) == 0, \
+            f"{cfg.name}: pattern does not tile n_layers"
+        self.period = cfg.layer_pattern()
+        self.n_periods = cfg.n_layers // len(self.period)
+
+    # -- blueprints -----------------------------------------------------------
+    def _layer_bp(self, kind: LayerKind):
+        c = self.cfg
+        if kind.mixer != "attn":
+            raise _not_ported(f"the {kind.mixer} mixer",
+                              _MIXER_ITEM.get(kind.mixer, "A6"))
+        bp: Dict[str, Any] = {"ln1": L.rmsnorm_bp(c.d_model),
+                              "attn": L.attn_bp(c.d_model, c.n_heads,
+                                                c.n_kv_heads, c.head_dim)}
+        if kind.ff == "dense":
+            bp["ln2"] = L.rmsnorm_bp(c.d_model)
+            bp["mlp"] = L.mlp_bp(c.d_model, c.d_ff, c.gated_mlp)
+        elif kind.ff == "moe":
+            raise _not_ported("MoE feed-forward", "A6/B4 (models/moe.py)")
+        return bp
+
+    def blueprint(self):
+        c = self.cfg
+        if c.enc_dec:
+            raise _not_ported("the encoder-decoder stack",
+                              _MIXER_ITEM["attn_cross"])
+        period_bp = [self._layer_bp(k) for k in self.period]
+        bp: Dict[str, Any] = {
+            "embed": leaf((c.padded_vocab, c.d_model), ("vocab", "embed"),
+                          scale_dim=1),
+            "stack": _stack_bp(period_bp, self.n_periods),
+            "ln_f": L.rmsnorm_bp(c.d_model),
+        }
+        if not c.tie_embeddings:
+            bp["unembed"] = leaf((c.d_model, c.padded_vocab),
+                                 ("embed", "vocab"), scale_dim=0)
+        return bp
+
+    def _unembed(self, params) -> torch.Tensor:
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["unembed"])
+
+    # -- one period of layers ---------------------------------------------------
+    def _apply_layer(self, kind: LayerKind, p, x, positions, *,
+                     causal: bool):
+        c = self.cfg
+        h = L.rmsnorm(p["ln1"], x)
+        mix = L.gqa_attention(
+            p["attn"], h, positions, n_heads=c.n_heads,
+            n_kv=c.n_kv_heads, causal=causal, rope_theta=c.rope_theta,
+            use_rope=(c.pos != "none"))
+        if c.parallel_block and kind.ff == "dense":
+            # Cohere-style: attn and FF read the same normed input
+            return x + mix + L.mlp(p["mlp"], h, c.gated_mlp)
+        x = x + mix
+        if kind.ff == "dense":
+            x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), c.gated_mlp)
+        return x
+
+    def _run_stack(self, stack_params, x, positions, *, kinds, causal):
+        for i in range(self.n_periods):
+            pparams = tree_map(lambda a: a[i], stack_params)
+            for k, kind in enumerate(kinds):
+                x = self._apply_layer(kind, pparams[k], x, positions,
+                                      causal=causal)
+        return x
+
+    # -- training forward ---------------------------------------------------------
+    def loss_fn(self, params, batch, *, remat: bool = True):
+        raise _not_ported("LM.loss_fn (training)", "A8 (train/)")
+
+    # -- decode -----------------------------------------------------------------
+    def _layer_cache(self, kind: LayerKind, B: int, S_max: int, device):
+        c = self.cfg
+        if kind.mixer != "attn":
+            raise _not_ported(f"the {kind.mixer} decode cache",
+                              _MIXER_ITEM.get(kind.mixer, "A6"))
+        shape = (self.n_periods, B, S_max, c.n_kv_heads, c.head_dim)
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+    def init_cache(self, B: int, S_max: int, device=None):
+        """Stacked (n_periods, ...) cache tree, on the card unless
+        ``device`` says otherwise."""
+        dev = resolve_device(device)
+        return [self._layer_cache(k, B, S_max, dev) for k in self.period]
+
+    def decode_step(self, params, cache, tokens, pos, enc_out=None):
+        """tokens: (B,1) int; pos: (B,) current lengths.
+        Returns (logits (B,1,V) float32, cache updated in place)."""
+        if enc_out is not None:
+            raise _not_ported("decode against an encoder",
+                              _MIXER_ITEM["attn_cross"])
+        x = params["embed"][tokens].to(torch.bfloat16)
+        positions = pos[:, None]
+        for i in range(self.n_periods):
+            pparams = tree_map(lambda a: a[i], params["stack"])
+            pcache = tree_map(lambda a: a[i], cache)
+            for k, kind in enumerate(self.period):
+                x = self._decode_layer(kind, pparams[k], pcache[k], x,
+                                       positions, pos)
+        x = L.rmsnorm(params["ln_f"], x)
+        logits = (x @ self._unembed(params)).float()
+        return _mask_vocab_pad(logits, self.cfg.vocab), cache
+
+    def _decode_layer(self, kind: LayerKind, p, cache, x, positions, pos):
+        c = self.cfg
+        h = L.rmsnorm(p["ln1"], x)
+        q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
+        k = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wk"])
+        v = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wv"])
+        if c.pos != "none":
+            q = L.apply_rope(q, positions, c.rope_theta)
+            k = L.apply_rope(k, positions, c.rope_theta)
+        kc = _insert_at(cache["k"], k, pos)
+        vc = _insert_at(cache["v"], v, pos)
+        o = L.attention_decode(q, kc, vc, pos + 1)
+        # sequential even under parallel_block, as the reference decodes
+        x = x + torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+        if kind.ff == "dense":
+            x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), c.gated_mlp)
+        return x
+
+    # -- prefill ------------------------------------------------------------------
+    def prefill(self, params, tokens):
+        """Full-sequence forward that returns last-position logits (the
+        inference-prefill shape), float32 (B, V)."""
+        B, S = tokens.shape
+        x = params["embed"][tokens].to(torch.bfloat16)
+        positions = torch.arange(S, device=tokens.device)[None, :]
+        x = self._run_stack(params["stack"], x, positions,
+                            kinds=self.period, causal=True)
+        x = L.rmsnorm(params["ln_f"], x)
+        return (x[:, -1] @ self._unembed(params)).float()
+
+
+def _mask_vocab_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Padded vocab columns (Megatron-style padding) get -1e30."""
+    if logits.shape[-1] == vocab:
+        return logits
+    keep = torch.arange(logits.shape[-1], device=logits.device) < vocab
+    return logits.masked_fill(~keep, -1e30)
+
+
+def _insert_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
+               ) -> torch.Tensor:
+    """cache (B,S,H,D), new (B,1,H,D), pos (B,): writes row ``pos[b]`` of
+    every batch entry in place and returns the cache."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, pos.long()] = new[:, 0].to(cache.dtype)
+    return cache

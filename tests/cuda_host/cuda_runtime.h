@@ -1,8 +1,11 @@
 // Host stand-in for the parts of the CUDA runtime that the simt_exec
 // kernels use, so that their emitted source compiles with g++ and runs on
 // the CPU: one std::thread per CUDA thread, the blocks of a grid in turn,
-// std::barrier for __syncthreads and the block-wide votes. It checks the
-// generated code's semantics, not its speed.
+// std::barrier for __syncthreads and the block-wide votes. The float32
+// instantiations of the hand-written kernels (rmsnorm, flash_attention)
+// run on it too: warp shuffles and __syncwarp are block-wide exchanges,
+// so every thread of the block must reach them, as those kernels do. It
+// checks the code's semantics, not its speed.
 #pragma once
 
 #include <algorithm>
@@ -30,9 +33,21 @@ namespace vx_host {
 inline std::barrier<>* bar = nullptr;
 inline int acc_or = 0, acc_and = 1;
 inline unsigned acc_ballot = 0;
+inline float xchg[1024];
 }  // namespace vx_host
 
 inline void __syncthreads() { vx_host::bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  vx_host::bar->arrive_and_wait();
+}
+
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask,
+                             int = 32) {
+  vx_host::bar->arrive_and_wait();
+  vx_host::xchg[threadIdx.x] = v;
+  vx_host::bar->arrive_and_wait();
+  return vx_host::xchg[threadIdx.x ^ lane_mask];
+}
 
 inline int __syncthreads_or(int p) {
   vx_host::bar->arrive_and_wait();
@@ -79,12 +94,17 @@ inline int __float2int_rz(float f) {
   if (f < -2147483648.0f) return (-2147483647 - 1);
   return (int)f;
 }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 using std::max;
 using std::min;
 
 inline int cudaGetLastError() { return 0; }
 
-// kernel<<<grid, block, 0, stream>>>(args) is rewritten to this call
+// kernel<<<grid, block, 0, stream>>>(args) is rewritten to this call; the
+// hand-written kernels launch through VX_LAUNCH, which comes to the same
+#define VX_LAUNCH(K, G, B, S, ...) \
+  vx_host_launch((G), (B), [&] { K(__VA_ARGS__); })
+
 inline void vx_host_launch(int grid, int block, std::function<void()> body) {
   gridDim.x = grid;
   blockDim.x = block;

@@ -1,0 +1,159 @@
+"""The port's LM against the JAX package's, at smoke size.
+
+granite-3-2b's smoke variant (2 layers, d_model 128, 4 heads with 2 KV
+heads, head_dim 32, vocab 512): the JAX package's ``init_params`` output
+goes to the port through ``lm_params_from_numpy``, and the same tokens go
+through both ``prefill`` and ``decode_step``.
+
+Tolerance: atol = rtol = 0.1 on float32 logits of size up to ~4, both
+sides in bf16. Measured: prefill 0.035, decode 0.036 (one or two bf16
+ulps of the logits; the reference rounds attention scores and
+probabilities to bf16, the port's prefill keeps them in float32). The
+prompt is 64 tokens, a multiple of the smoke config's attention chunk
+(32): the reference's chunked attention is wrong for a ragged last chunk
+(ROADMAP C6).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import get_model as ref_get_model
+from repro.models.blueprint import init_params as ref_init_params
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models import get_model
+from repro_torch.models.blueprint import count_params, init_params
+
+B, S = 2, 64
+TOL = 0.1
+
+
+def _flat(tree, path=""):
+    """{path: leaf} of a tree of dicts and lists (either package's)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, f"{path}/{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _flat(sub, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+@pytest.fixture(scope="module")
+def granite():
+    cfg = ref_get_config("granite-3-2b", smoke=True)
+    ref = ref_get_model(cfg)
+    ref_params = ref_init_params(ref.blueprint(), jax.random.PRNGKey(0))
+    model = get_model(get_config("granite-3-2b", smoke=True))
+    params = lm_params_from_numpy(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params),
+        "cpu", model.blueprint())
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
+    return cfg, ref, ref_params, model, params, toks.astype(np.int32)
+
+
+def test_params_carry_over_exactly(granite):
+    cfg, ref, ref_params, model, params, toks = granite
+    ref_flat, flat = _flat(ref_params), _flat(params)
+    assert flat.keys() == ref_flat.keys()
+    for k, t in flat.items():
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(np.asarray(ref_flat[k], np.float32),
+                                      t.float().numpy())
+
+
+def test_prefill_matches_reference(granite):
+    cfg, ref, ref_params, model, params, toks = granite
+    want = np.asarray(ref.prefill(ref_params, jnp.array(toks)))
+    got = model.prefill(params, torch.from_numpy(toks).long())
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_decode_steps_match_reference(granite):
+    cfg, ref, ref_params, model, params, toks = granite
+    ref_cache = ref.init_cache(B, 16)
+    cache = model.init_cache(B, 16, device="cpu")
+    for t in range(6):
+        pos = np.full((B,), t, np.int32)
+        want, ref_cache = ref.decode_step(ref_params, ref_cache,
+                                          jnp.array(toks[:, t:t + 1]),
+                                          jnp.array(pos))
+        got, cache = model.decode_step(
+            params, cache, torch.from_numpy(toks[:, t:t + 1]).long(),
+            torch.from_numpy(pos))
+        assert got.shape == (B, 1, cfg.padded_vocab)
+        np.testing.assert_allclose(got.numpy()[..., :cfg.vocab],
+                                   np.asarray(want)[..., :cfg.vocab],
+                                   atol=TOL, rtol=TOL)
+        assert (got[..., cfg.vocab:] == -1e30).all()
+    # the in-place cache holds what the reference's functional one holds
+    for ref_kv, kv in zip(ref_cache, cache):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(kv[name].float().numpy(),
+                                       np.asarray(ref_kv[name], np.float32),
+                                       atol=TOL, rtol=TOL)
+
+
+def test_decode_matches_prefill(granite):
+    """The port's own check (tests/test_archs.py's, tolerance and all):
+    teacher-forced decode reproduces prefill's last-position logits."""
+    cfg, ref, ref_params, model, params, toks = granite
+    full = model.prefill(params, torch.from_numpy(toks[:1, :8]).long())
+    cache = model.init_cache(1, 16, device="cpu")
+    for t in range(8):
+        logits, cache = model.decode_step(
+            params, cache, torch.from_numpy(toks[:1, t:t + 1]).long(),
+            torch.full((1,), t))
+    np.testing.assert_allclose(logits[:, 0, :cfg.vocab].numpy(),
+                               full[:, :cfg.vocab].numpy(), atol=0.55,
+                               rtol=0.1)
+
+
+DENSE = sorted(n for n, m in ARCHS.items()
+               if m.CONFIG.family in ("dense", "vlm"))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_blueprint_matches_reference(arch):
+    """Every attention-and-dense-FF config: same leaves, shapes, axes,
+    init rules and dtypes, smoke and full (the full one is never
+    allocated)."""
+    for smoke in (True, False):
+        ref_bp = _flat(ref_get_model(ref_get_config(arch, smoke)).blueprint())
+        bp = _flat(get_model(get_config(arch, smoke)).blueprint())
+        assert bp.keys() == ref_bp.keys()
+        for k, l in bp.items():
+            r = ref_bp[k]
+            assert (l.shape, l.axes, l.init, l.scale_dim) == \
+                (r.shape, r.axes, r.init, r.scale_dim), k
+            assert str(l.dtype) == f"torch.{np.dtype(r.dtype).name}", k
+        assert count_params(get_model(get_config(arch, smoke)).blueprint()) \
+            == sum(int(np.prod(r.shape)) for r in ref_bp.values())
+
+
+def test_init_params_follows_the_rules():
+    model = get_model(get_config("granite-3-2b", smoke=True))
+    bp = model.blueprint()
+    p = init_params(bp, torch.Generator().manual_seed(0), "cpu")
+    assert (p["ln_f"]["scale"] == 1).all()
+    w = p["stack"][0]["mlp"]["wi"].float()       # fan-in d_model = 128
+    assert w.shape == (2, 128, 512)
+    assert abs(float(w.std()) - 128 ** -0.5) < 0.01
+    again = init_params(bp, torch.Generator().manual_seed(0), "cpu")
+    assert torch.equal(again["embed"], p["embed"])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-1.5-large-398b",
+                                  "xlstm-1.3b", "seamless-m4t-large-v2"])
+def test_unported_models_raise_naming_the_roadmap(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(get_config(arch, smoke=True)).blueprint()
+
+
+def test_loss_fn_is_not_ported(granite):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        granite[3].loss_fn(granite[4], {})

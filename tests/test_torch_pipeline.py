@@ -63,6 +63,13 @@ def test_port_imports_nothing_of_jax_or_the_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "need = {f'repro_torch.{m}' for m in ("
+        "'configs.granite_3_2b', 'models.blueprint', 'models.layers', "
+        "'models.transformer', 'models.registry', 'core.faults', "
+        "'serve.engine', 'launch.serve', 'kernels.build', "
+        "'kernels.rmsnorm.rmsnorm', "
+        "'kernels.flash_attention.flash_attention')}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.convert import to_numpy, to_tensors
 from repro_torch.core.passes.pipeline import PassConfig, run_pipeline
+from repro_torch.kernels import build
 from repro_torch.kernels.simt_exec import simt_exec as sx
 from repro_torch.volt_bench.suite import BENCHES
 
@@ -55,8 +56,8 @@ def test_cuda_tensor_never_falls_back(monkeypatch):
     b = BENCHES["cfd_like"]
     bufs, sc, params = b.make(np.random.default_rng(0))
     ck = run_pipeline(b.handle.build(None), "cfd_like", PassConfig())
-    monkeypatch.setattr(sx, "_nvcc", lambda: (_ for _ in ()).throw(
+    monkeypatch.setattr(build, "nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
-    monkeypatch.setattr(sx, "BUILD_DIR", sx.BUILD_DIR / "never")
+    monkeypatch.setattr(build, "BUILD_ROOT", build.BUILD_ROOT / "never")
     with pytest.raises(RuntimeError, match="nvcc"):
         sx.simt_launch(ck.fn, params, to_tensors(bufs, "cuda"), sc)
