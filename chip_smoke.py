@@ -1,24 +1,33 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Two paths of the port, each at full size:
+Three paths of the port, each at full size:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
     plain torch version on the card and the map kernels against a numpy
     reference, and the whole-buffer ``compile_torch`` backend on the card;
-  * the LM serving path on granite-3-2b at full width and depth (random
-    weights from ``--seed``): ``LM.prefill`` on 4 prompts of 2048 tokens,
-    whose 81 RMSNorms and 40 attentions go through the rmsnorm and
-    flash_attention kernels, and ``ServeEngine`` answering 16 requests.
-    Each kernel is held against its plain version at the path's shapes,
-    decode is held against prefill, and a depth-2 model on the card
-    against the same model on the CPU.
+  * the dense LM serving path on granite-3-2b at full width and depth
+    (random weights from ``--seed``): ``LM.prefill`` on 4 prompts of 2048
+    tokens, whose 81 RMSNorms and 40 attentions go through the rmsnorm
+    and flash_attention kernels, and ``ServeEngine`` answering 16
+    requests;
+  * the MoE LM serving path on olmoe-1b-7b at full width and depth
+    (6.9 B params, random weights from ``--seed``, granite's freed
+    first): the same prefill, whose 33 RMSNorms, 16 attentions at head
+    dim 128 and 16 grouped expert FFs go through the rmsnorm,
+    flash_attention and moe_dispatch kernels, and the same engine.
+
+On each LM path every kernel is held against its plain version at the
+path's shapes, decode is held against prefill, and a depth-2 model on
+the card against the same model on the CPU. The MoE path also prints the
+share of expert assignments the capacity drops (layer 0, prefill and
+decode) and the tokens routed apart by card and CPU.
 
 Each kernel's launches are counted on each path (counts set to 0 just
 before, read just after): a record's ``launches_by_path`` gives each
-path's own count (``compiler``; ``prefill`` and ``serve``) and
-``launches`` their sum. Each kernel is timed, and the script prints one
-JSON line of kernel records and a last line
+path's own count (``compiler``; ``<model>/prefill`` and
+``<model>/serve``) and ``launches`` their sum. Each kernel is timed, and
+the script prints one JSON line of kernel records and a last line
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--seed N] [--reps N]
@@ -39,18 +48,27 @@ check lines print both):
   * rmsnorm rtol = atol = 1e-5 in float32 and 2e-2 in bf16 (those of
     tests/test_kernels.py); outputs of randn rows and scales have a
     median |y| of about 0.45, one bf16 ulp at most 0.0078 of |y|.
-  * flash_attention at the path's shape (4, 32, 2048, 64), causal:
-    bf16 rtol 1e-2, atol 2e-3; float32 rtol = atol = 2e-5. With randn
-    q, k, v the softmax weights of a row of n keys act as about n / e
-    equal ones, so |o| is about (e / n) ** 0.5: a median over all
-    elements of about 0.035, up to about 4 in the first rows. The rtol covers one bf16 ulp (at most
+  * flash_attention at the paths' shapes (4, 32, 2048, 64) and
+    (4, 16, 2048, 128), causal: bf16 rtol 1e-2, atol 2e-3; float32
+    rtol = atol = 2e-5. With randn q, k, v the softmax weights of a row
+    of n keys act as about n / e equal ones, so |o| is about
+    (e / n) ** 0.5: a median over all elements of about 0.035, up to
+    about 4 in the first rows. The rtol covers one bf16 ulp (at most
     0.0078 of |o|, as both sides round one float32 result) and the atol
     sits well below the median |o|, so a dropped or doubled key tile or a
     wrong scale in a late row fails.
+  * moe_dispatch at (64, 1280, 2048) and (64, 1, 2048), f 1024, bf16:
+    rtol 1e-2 (one bf16 ulp of the output, both sides round one float32
+    result), atol 2e-3, well below the median |y| printed beside it.
   * decode against prefill (64 teacher-forced steps, full depth):
     atol 0.2, rtol 0, inside tests/test_archs.py's atol 0.55, rtol 0.1;
-    the logits have a standard deviation of about 1 and the two paths
-    measured 0.098 apart on the H100.
+    the logits have a standard deviation of about 1 and granite's two
+    paths measured 0.098 apart on the H100. olmoe runs both paths at a
+    capacity factor of 8, so that neither drops an assignment (at the
+    real factor the two paths drop differently by design), and is held
+    at test_archs.py's tolerance: bf16 near-ties between the 8th and 9th
+    of 64 experts route about one (token, layer) in seven apart on the
+    two paths (printed; 149 of 1,024 on the H100, error 0.203).
   * the depth-2 model on the card against the CPU: atol = rtol = 0.1 on
     the logits (tests/test_torch_lm.py).
 
@@ -87,8 +105,10 @@ from repro_torch.volt_bench import suite  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention as fa  # noqa: E402
+from repro_torch.kernels.moe_dispatch import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm as rn  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.blueprint import (count_params, init_params,  # noqa
                                           tree_map)
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
@@ -286,21 +306,38 @@ CASES = [("vecadd", 256), ("saxpy", 256), ("blackscholes", 256),
 
 
 # --------------------------------------------------------------------------
-# the LM serving path: granite-3-2b at full width and depth
+# the LM serving paths: granite-3-2b and olmoe-1b-7b at full width and depth
 # --------------------------------------------------------------------------
 
-LM_ARCH = "granite-3-2b"
+LM_ARCH, MOE_ARCH = "granite-3-2b", "olmoe-1b-7b"
 PREFILL_B, PREFILL_S = 4, 2048       # 8192 rows for each RMSNorm
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 512, 16, 16
 RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 FA_TOL = {torch.bfloat16: (1e-2, 2e-3), torch.float32: (2e-5, 2e-5)}
+MOE_TOL = (1e-2, 2e-3)               # rtol, atol; bf16
 DECODE_ATOL = 0.2
+ROUTED_APART_TOL = (0.1, 0.55)       # rtol, atol of tests/test_archs.py
+NO_DROP_CAPACITY = 8.0               # C >= T at T = 64: nothing dropped
+KERNELS = {"simt_exec": sx, "rmsnorm": rn, "flash_attention": fa,
+           "moe_dispatch": md}
 LM_SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/rmsnorm.py:23"),
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/flash_attention.py:113")}
+        "src/repro/kernels/flash_attention/flash_attention.py:113"),
+    "moe_dispatch": (
+        "src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch.cu",
+        "src/repro/kernels/moe_dispatch/moe_dispatch.py:38")}
+
+
+def _zero_counts() -> None:
+    for m in KERNELS.values():
+        m.LAUNCHES = 0
+
+
+def _counts() -> dict:
+    return {k: m.LAUNCHES for k, m in KERNELS.items()}
 
 
 def _rms_inputs(g, dev, N, d, dtype):
@@ -313,6 +350,13 @@ def _library_rmsnorm(x, s):
     return F.rms_norm(x, (x.shape[1],), s, 1e-6)
 
 
+def _library_moe(x, wi, wo):
+    """The yardstick, three calls in bf16: bmm, silu times mul, bmm."""
+    f = wo.shape[1]
+    h = torch.bmm(x, wi)
+    return torch.bmm(F.silu(h[..., :f]) * h[..., f:], wo)
+
+
 def _qkv(g, dev, cfg, B, S, dtype):
     """q, k, v as the layer hands them to the kernel: (B, H, S, D) views
     of (B, S, H, D) projections, K/V with the config's KV heads."""
@@ -321,9 +365,26 @@ def _qkv(g, dev, cfg, B, S, dtype):
                  .to(dtype).transpose(1, 2) for h in (H, Hkv, Hkv))
 
 
+def _fa_checks(g, dev, cfg, errs):
+    S = PREFILL_S
+    for dt, (rtol, atol) in FA_TOL.items():
+        q, k, v = _qkv(g, dev, cfg, PREFILL_B, S, dt)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        e = _compare(f"flash_attention({S}, {cfg.head_dim})",
+                     {"o": fa.flash_attention(q, k, v, causal=True)},
+                     {"o": want}, rtol, atol)
+        errs[("flash_attention", cfg.head_dim, dt)] = e
+        print(f"check flash_attention ({PREFILL_B}, {cfg.n_heads}, {S}, "
+              f"{cfg.head_dim}) kv heads {cfg.n_kv_heads} causal "
+              f"{str(dt)[6:]} vs plain max abs err {e:.3g} (rtol {rtol}, "
+              f"atol {atol}; median |o| "
+              f"{float(want.float().abs().median()):.3g})")
+        del q, k, v, want
+
+
 def lm_kernel_checks(dev, cfg, seed):
-    """Each kernel against its plain version on the card, at the path's
-    shapes; returns the max abs errors by (kernel, shape, dtype)."""
+    """Each kernel against its plain version on the card, at the dense
+    path's shapes; returns the max abs errors by (kernel, shape, dtype)."""
     g = torch.Generator(dev).manual_seed(seed)
     errs = {}
     for N in (PREFILL_B * PREFILL_S, SERVE_SLOTS):
@@ -336,20 +397,38 @@ def lm_kernel_checks(dev, cfg, seed):
             print(f"check rmsnorm ({N}, {cfg.d_model}) {str(dt)[6:]} vs "
                   f"plain max abs err {e:.3g} (tol {tol}; median |y| "
                   f"{float(want.float().abs().median()):.3g})")
-    S = PREFILL_S
-    for dt, (rtol, atol) in FA_TOL.items():
-        q, k, v = _qkv(g, dev, cfg, PREFILL_B, S, dt)
-        want = fa.flash_attention_plain(q, k, v, causal=True)
-        e = _compare(f"flash_attention({S})",
-                     {"o": fa.flash_attention(q, k, v, causal=True)},
-                     {"o": want}, rtol, atol)
-        errs[("flash_attention", S, dt)] = e
-        print(f"check flash_attention ({PREFILL_B}, {cfg.n_heads}, {S}, "
-              f"{cfg.head_dim}) kv heads {cfg.n_kv_heads} causal "
-              f"{str(dt)[6:]} vs plain max abs err {e:.3g} (rtol {rtol}, "
-              f"atol {atol}; median |o| "
+    _fa_checks(g, dev, cfg, errs)
+    return errs
+
+
+def _moe_shapes(cfg):
+    """The expert FF's capacity at the prefill and the engine's decode."""
+    return {n: MOE.capacity(T, cfg.moe_top_k, cfg.moe_experts,
+                            cfg.moe_capacity)
+            for n, T in (("prefill", PREFILL_B * PREFILL_S),
+                         ("decode", SERVE_SLOTS))}
+
+
+def moe_kernel_checks(dev, cfg, layer0, seed):
+    """flash_attention at olmoe's head dim and the expert FF at the
+    path's capacities (layer 0's weights, x drawn as the unit-RMS output
+    of an RMSNorm), each against its plain version."""
+    g = torch.Generator(dev).manual_seed(seed)
+    errs = {}
+    _fa_checks(g, dev, cfg, errs)
+    rtol, atol = MOE_TOL
+    for name, C in _moe_shapes(cfg).items():
+        x = torch.randn(cfg.moe_experts, C, cfg.d_model, generator=g,
+                        device=dev).bfloat16()
+        want = md.grouped_expert_ff_plain(x, layer0["wi"], layer0["wo"])
+        e = _compare(f"moe_dispatch({C})", {"y": md.grouped_expert_ff(
+            x, layer0["wi"], layer0["wo"])}, {"y": want}, rtol, atol)
+        errs[("moe_dispatch", name, torch.bfloat16)] = e
+        print(f"check moe_dispatch ({cfg.moe_experts}, {C}, {cfg.d_model})"
+              f" f {cfg.moe_d_ff} bf16 vs plain max abs err {e:.3g} (rtol "
+              f"{rtol}, atol {atol}; median |y| "
               f"{float(want.float().abs().median()):.3g})")
-        del q, k, v, want
+        del x, want
     return errs
 
 
@@ -382,30 +461,11 @@ def _kernel_row(name, shape, fn, plain_fn, lib_fn, nbytes, ops, ops_rate,
           f"{plain_ms:.4f} ms  library {library_ms:.4f} ms  card after the "
           f"events: {clocks.splitlines()[0]} (sm, max sm, power, temp)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "device_ms": dev_ms}
 
 
-def lm_kernel_times(dev, cfg, reps, by_path, errs):
-    """Timing rows at the path's shapes; the JSON records take the
-    prefill shape in bf16."""
-    g = torch.Generator(dev).manual_seed(7)
-    d = cfg.d_model
-    records = []
-    for N in (PREFILL_B * PREFILL_S, SERVE_SLOTS):
-        # four input sets in turn (134 MB at 8192 rows), so that a call
-        # does not find its 33.5 MB input in the 50 MB L2 cache
-        sets = itertools.cycle([_rms_inputs(g, dev, N, d, torch.bfloat16)
-                                for _ in range(4)])
-        row = _kernel_row(
-            "rmsnorm", f"({N}, {d}) bf16",
-            lambda: rn.rmsnorm(*next(sets)),
-            lambda: rn.rmsnorm_plain(*next(sets)),
-            lambda: _library_rmsnorm(*next(sets)),
-            2 * N * d * 2 + d * 2, 4 * N * d, F32_OPS_PER_S, reps,
-            {p: n["rmsnorm"] for p, n in by_path.items()})
-        if N == PREFILL_B * PREFILL_S:
-            records.append({"name": "rmsnorm", **row, "max_abs_err":
-                            errs[("rmsnorm", N, torch.bfloat16)]})
+def _fa_row(g, dev, cfg, reps, errs):
     B, S, H, D = PREFILL_B, PREFILL_S, cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(g, dev, cfg, B, S, torch.bfloat16)
     nbytes = sum(t.numel() * 2 for t in (q, k, v, q))
@@ -417,16 +477,62 @@ def lm_kernel_times(dev, cfg, reps, by_path, errs):
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                enable_gqa=True),
         nbytes, 4 * B * H * D * pairs, BF16_OPS_PER_S, reps,
-        {p: n["flash_attention"] for p, n in by_path.items()})
-    records.append({"name": "flash_attention", **row, "max_abs_err":
-                    errs[("flash_attention", S, torch.bfloat16)]})
-    for r in records:
-        src, replaces = LM_SOURCES[r["name"]]
-        per_path = {p: n[r["name"]] for p, n in by_path.items()}
-        r.update(route="cuda", source=src, replaces=replaces,
-                 launches=sum(per_path.values()),
-                 launches_by_path=per_path)
+        f"{cfg.n_layers} a prefill")
+    return {**row, "max_abs_err": errs[("flash_attention", D,
+                                        torch.bfloat16)]}
+
+
+def lm_kernel_times(dev, cfg, reps, errs):
+    """Timing rows at the dense path's shapes; the records take the
+    prefill shape in bf16."""
+    g = torch.Generator(dev).manual_seed(7)
+    d = cfg.d_model
+    records = {}
+    for N in (PREFILL_B * PREFILL_S, SERVE_SLOTS):
+        # four input sets in turn (134 MB at 8192 rows), so that a call
+        # does not find its 33.5 MB input in the 50 MB L2 cache
+        sets = itertools.cycle([_rms_inputs(g, dev, N, d, torch.bfloat16)
+                                for _ in range(4)])
+        row = _kernel_row(
+            "rmsnorm", f"({N}, {d}) bf16",
+            lambda: rn.rmsnorm(*next(sets)),
+            lambda: rn.rmsnorm_plain(*next(sets)),
+            lambda: _library_rmsnorm(*next(sets)),
+            2 * N * d * 2 + d * 2, 4 * N * d, F32_OPS_PER_S, reps,
+            f"{2 * cfg.n_layers + 1} a prefill or decode step")
+        if N == PREFILL_B * PREFILL_S:
+            records["rmsnorm"] = {**row, "max_abs_err":
+                                  errs[("rmsnorm", N, torch.bfloat16)]}
+    records["flash_attention"] = _fa_row(g, dev, cfg, reps, errs)
     return records
+
+
+def moe_kernel_times(dev, cfg, layer0, reps, errs):
+    """Timing rows of the expert FF at the prefill and decode capacities
+    (layer 0's weights: 805 MB, far past the L2 cache) and of attention
+    at head dim 128. The bound: 6 E C d f FLOP of bf16 products, or each
+    input read and the output written once."""
+    g = torch.Generator(dev).manual_seed(8)
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+    wi, wo = layer0["wi"], layer0["wo"]
+    rows = {}
+    for name, C in _moe_shapes(cfg).items():
+        x = torch.randn(E, C, d, generator=g, device=dev).bfloat16()
+        nbytes = 2 * (2 * x.numel() + wi.numel() + wo.numel())
+        rows[name] = {**_kernel_row(
+            "moe_dispatch", f"({E}, {C}, {d}) f {f} bf16 ({name})",
+            lambda: md.grouped_expert_ff(x, wi, wo),
+            lambda: md.grouped_expert_ff_plain(x, wi, wo),
+            lambda: _library_moe(x, wi, wo),
+            nbytes, 6 * E * C * d * f, BF16_OPS_PER_S, reps,
+            f"{cfg.n_layers} a prefill or decode step"), "shape": [E, C, d, f],
+            "max_abs_err": errs[("moe_dispatch", name, torch.bfloat16)]}
+        del x
+    print("library for moe_dispatch: three calls in bf16 (bmm, silu times "
+          "mul, bmm)")
+    record = {**rows["prefill"], "decode": rows["decode"],
+              "library": "torch.bmm, F.silu * mul, torch.bmm (bf16)"}
+    return record, _fa_row(g, dev, cfg, reps, errs)
 
 
 def _breakdown(fn, wall_ms: float, label: str) -> None:
@@ -460,40 +566,90 @@ def _sync_s(fn):
     return out, time.perf_counter() - t0
 
 
-def lm_phase(dev, seed: int, reps: int):
-    """The LM serving path, checked and timed; returns the kernels'
-    records."""
-    cfg = get_config(LM_ARCH)
+def _routed(fn):
+    """``fn()`` and the expert indices (T, k) of every MoE layer it ran,
+    in order."""
+    seen, route = [], MOE.route
+
+    def record(p, xt, top_k):
+        out = route(p, xt, top_k)
+        seen.append(out[2])
+        return out
+
+    MOE.route = record
+    try:
+        return fn(), seen
+    finally:
+        MOE.route = route
+
+
+def _apart(a, b) -> int:
+    """Tokens whose expert sets differ between two (T, k) routings."""
+    return int((a.sort(dim=1).values.cpu()
+                != b.sort(dim=1).values.cpu()).any(dim=1).sum())
+
+
+def _first_moe_dropped(fn, cfg) -> float:
+    """The share of expert assignments dropped by capacity at the first
+    MoE layer that ``fn()`` runs, from that layer's own input."""
+    seen, moe_ff = [], MOE.moe_ff
+
+    def record(p, x, **kw):
+        seen.append((p, x))
+        return moe_ff(p, x, **kw)
+
+    MOE.moe_ff = record
+    try:
+        fn()
+    finally:
+        MOE.moe_ff = moe_ff
+    p, x = seen[0]
+    return MOE.dropped_share(p, x, n_experts=cfg.moe_experts,
+                             top_k=cfg.moe_top_k,
+                             capacity_factor=cfg.moe_capacity)
+
+
+def _init(dev, cfg, seed):
     model = get_model(cfg)
     bp = model.blueprint()
     params, secs = _sync_s(lambda: init_params(
         bp, torch.Generator(dev).manual_seed(seed)))
+    moe = (f", {cfg.moe_experts} experts of d_ff {cfg.moe_d_ff}, top-"
+           f"{cfg.moe_top_k}, capacity factor {cfg.moe_capacity}"
+           if cfg.moe_experts else "")
     print(f"lm {cfg.name}: {count_params(bp)} params, {cfg.n_layers} "
           f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
-          f"({cfg.n_kv_heads} kv) x {cfg.head_dim}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}; init on the card {secs:.2f} s")
-    errs = lm_kernel_checks(dev, cfg, seed)
+          f"({cfg.n_kv_heads} kv) x {cfg.head_dim}, d_ff {cfg.d_ff}"
+          f"{moe}, vocab {cfg.vocab}; init on the card {secs:.2f} s")
+    return model, params
 
-    # the path, counted: one prefill of 4 x 2048 tokens ...
+
+def serve_path(dev, cfg, model, params, seed):
+    """The path, counted (counts set to 0 just before each part, read
+    just after): one prefill of 4 x 2048 tokens, then the engine
+    answering 16 requests; then prefill and decode speed, and where their
+    time goes. Returns the tokens, the engine, the rng, the counts by
+    path and the decode step's inputs."""
+    L, arch = cfg.n_layers, cfg.name
+    moe_layers = L if cfg.moe_experts else 0
     toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
                          generator=torch.Generator(dev).manual_seed(seed),
                          device=dev)
-    rn.LAUNCHES = fa.LAUNCHES = sx.LAUNCHES = 0
+    _zero_counts()
     logits, first_s = _sync_s(lambda: model.prefill(params, toks))
-    per_prefill = {"rmsnorm": rn.LAUNCHES, "flash_attention": fa.LAUNCHES}
-    want = {"rmsnorm": 2 * cfg.n_layers + 1,
-            "flash_attention": cfg.n_layers}
-    if per_prefill != want or sx.LAUNCHES:
-        raise AssertionError(f"prefill launched {per_prefill}, simt_exec "
-                             f"{sx.LAUNCHES}; expected {want}")
+    per_prefill = _counts()
+    want = {"simt_exec": 0, "rmsnorm": 2 * L + 1, "flash_attention": L,
+            "moe_dispatch": moe_layers}
+    if per_prefill != want:
+        raise AssertionError(f"{arch} prefill launched {per_prefill}; "
+                             f"expected {want}")
     if (logits.shape != (PREFILL_B, cfg.padded_vocab)
             or not torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                              "not finite or of the wrong shape")
-    print(f"prefill main path: launches per call {per_prefill}; first "
-          f"call {first_s:.3f} s")
+    print(f"{arch} prefill main path: launches per call {per_prefill}; "
+          f"first call {first_s:.3f} s")
 
-    # ... and the engine answering 16 requests
     rng = np.random.default_rng(seed)
     eng = ServeEngine(model, params, slots=SERVE_SLOTS,
                       max_seq=SERVE_MAX_SEQ)
@@ -502,56 +658,75 @@ def lm_phase(dev, seed: int, reps: int):
         max_new=SERVE_NEW) for i in range(SERVE_REQUESTS)]
     for r in reqs:
         eng.submit(r)
-    rn.LAUNCHES = fa.LAUNCHES = sx.LAUNCHES = 0
+    _zero_counts()
     _, serve_s = _sync_s(eng.run_until_drained)
-    per_serve = {"rmsnorm": rn.LAUNCHES, "flash_attention": fa.LAUNCHES}
+    per_serve = _counts()
     bad = [(r.rid, r.error, len(r.out)) for r in reqs
            if not r.done or r.error or len(r.out) != SERVE_NEW]
-    if bad or per_serve["rmsnorm"] < 1 or sx.LAUNCHES:
+    if (bad or per_serve["rmsnorm"] < 1 or per_serve["simt_exec"]
+            or (per_serve["moe_dispatch"] < 1) != (moe_layers == 0)):
         raise AssertionError(f"serving: failed requests {bad}, launches "
-                             f"{per_serve}, simt_exec {sx.LAUNCHES}")
+                             f"{per_serve}")
     prompt_toks = sum(len(r.prompt) for r in reqs)
     gen = SERVE_REQUESTS * SERVE_NEW
-    print(f"serve main path: {SERVE_REQUESTS} requests ({prompt_toks} "
-          f"prompt tokens, {gen} generated) on {SERVE_SLOTS} slots in "
-          f"{serve_s:.3f} s, {gen / serve_s:.1f} generated tokens/s; "
-          f"launches {per_serve}")
-    by_path = {"prefill": per_prefill, "serve": per_serve}
+    print(f"{arch} serve main path: {SERVE_REQUESTS} requests "
+          f"({prompt_toks} prompt tokens, {gen} generated) on "
+          f"{SERVE_SLOTS} slots in {serve_s:.3f} s, {gen / serve_s:.1f} "
+          f"generated tokens/s; launches {per_serve}")
+    by_path = {f"{arch}/prefill": per_prefill, f"{arch}/serve": per_serve}
 
-    # prefill and decode speed, after the counted runs
     times = [_sync_s(lambda: model.prefill(params, toks))[1]
              for _ in range(3)]
     pre_s = statistics.median(times)
-    print(f"prefill {PREFILL_B} x {PREFILL_S}: {pre_s * 1e3:.1f} ms "
+    print(f"{arch} prefill {PREFILL_B} x {PREFILL_S}: {pre_s * 1e3:.1f} ms "
           f"(median of 3), {PREFILL_B * PREFILL_S / pre_s:.0f} tokens/s")
     step_toks = torch.from_numpy(rng.integers(0, cfg.vocab,
                                               (SERVE_SLOTS, 1))).to(dev)
     step_pos = torch.full((SERVE_SLOTS,), 100, device=dev)
-    step = [_sync_s(lambda: model.decode_step(params, eng.cache, step_toks,
-                                              step_pos))[1]
-            for _ in range(10)]
-    step_ms = statistics.median(step) * 1e3
-    print(f"decode_step {SERVE_SLOTS} slots, cache {SERVE_MAX_SEQ}: "
+
+    def step():
+        return model.decode_step(params, eng.cache, step_toks, step_pos)
+
+    step_ms = statistics.median(_sync_s(step)[1] for _ in range(10)) * 1e3
+    print(f"{arch} decode_step {SERVE_SLOTS} slots, cache {SERVE_MAX_SEQ}: "
           f"{step_ms:.2f} ms (median of 10), "
           f"{SERVE_SLOTS / step_ms * 1e3:.1f} tokens/s")
     _breakdown(lambda: model.prefill(params, toks), pre_s * 1e3,
-               f"prefill {PREFILL_B} x {PREFILL_S}")
-    _breakdown(lambda: model.decode_step(params, eng.cache, step_toks,
-                                         step_pos), step_ms,
-               f"decode_step {SERVE_SLOTS} slots")
+               f"{arch} prefill {PREFILL_B} x {PREFILL_S}")
+    _breakdown(step, step_ms, f"{arch} decode_step {SERVE_SLOTS} slots")
+    return toks, eng, rng, by_path, step
+
+
+def _decode_vs_prefill(dev, model, params, prompt, cfg):
+    """Teacher-forced decode over the prompt against prefill's last
+    logits, and the (token, layer) pairs whose experts the two paths
+    chose apart."""
+    full, pre_routes = _routed(lambda: model.prefill(params, prompt))
+    cache = model.init_cache(1, prompt.shape[1], device=dev)
+    apart = 0
+    for t in range(prompt.shape[1]):
+        (last, cache), routes = _routed(lambda: model.decode_step(
+            params, cache, prompt[:, t:t + 1], torch.full((1,), t,
+                                                          device=dev)))
+        apart += sum(_apart(pr[t:t + 1], r)
+                     for pr, r in zip(pre_routes, routes))
+    return last[:, 0, :cfg.vocab], full[:, :cfg.vocab], apart
+
+
+def lm_phase(dev, seed: int, reps: int):
+    """The dense LM serving path on granite-3-2b, checked and timed;
+    returns its kernels' records and its counts by path."""
+    cfg = get_config(LM_ARCH)
+    model, params = _init(dev, cfg, seed)
+    errs = lm_kernel_checks(dev, cfg, seed)
+    toks, eng, rng, by_path, _ = serve_path(dev, cfg, model, params, seed)
 
     # decode matches prefill at full width (tests/test_archs.py's check)
-    prompt = toks[:1, :64]
-    full = model.prefill(params, prompt)
-    cache = model.init_cache(1, 64, device=dev)
-    for t in range(64):
-        last, cache = model.decode_step(params, cache, prompt[:, t:t + 1],
-                                        torch.full((1,), t, device=dev))
-    e = _compare("decode vs prefill", {"l": last[:, 0, :cfg.vocab]},
-                 {"l": full[:, :cfg.vocab]}, 0.0, DECODE_ATOL)
+    got, want, _ = _decode_vs_prefill(dev, model, params, toks[:1, :64], cfg)
+    e = _compare("decode vs prefill", {"l": got}, {"l": want}, 0.0,
+                 DECODE_ATOL)
     print(f"check decode (64 steps) vs prefill logits max abs err {e:.3g} "
-          f"(atol {DECODE_ATOL}, rtol 0; logits std "
-          f"{float(full[:, :cfg.vocab].std()):.3g})")
+          f"(atol {DECODE_ATOL}, rtol 0; logits std {float(want.std()):.3g})")
 
     # the card (kernels) against the CPU (plain versions), depth 2
     m2 = get_model(dataclasses.replace(cfg, n_layers=2))
@@ -563,9 +738,58 @@ def lm_phase(dev, seed: int, reps: int):
                  {"l": want2[:, :cfg.vocab]}, 0.1, 0.1)
     print(f"check depth-2 prefill (2 x 128) card vs cpu logits max abs err "
           f"{e:.3g} (atol = rtol = 0.1)")
-    del params, eng, cache
+    del params, eng
     torch.cuda.empty_cache()
-    return lm_kernel_times(dev, cfg, min(reps, 10), by_path, errs)
+    return lm_kernel_times(dev, cfg, min(reps, 10), errs), by_path
+
+
+def moe_phase(dev, seed: int, reps: int):
+    """The MoE LM serving path on olmoe-1b-7b, checked and timed;
+    returns its kernels' records and its counts by path."""
+    cfg = get_config(MOE_ARCH)
+    model, params = _init(dev, cfg, seed)
+    layer0 = {k: params["stack"][0]["moe"][k][0] for k in ("wi", "wo")}
+    errs = moe_kernel_checks(dev, cfg, layer0, seed)
+    toks, eng, rng, by_path, step = serve_path(dev, cfg, model, params,
+                                               seed)
+
+    # assignments the capacity drops, at the first layer (untimed)
+    for name, fn in (("prefill", lambda: model.prefill(params, toks)),
+                     ("decode", step)):
+        share = _first_moe_dropped(fn, cfg)
+        print(f"{cfg.name} {name}: {share:.4f} of layer 0's expert "
+              f"assignments dropped by capacity (C = "
+              f"{_moe_shapes(cfg)[name]})")
+
+    # decode matches prefill where neither drops (C >= T at T = 64)
+    m8 = get_model(dataclasses.replace(cfg, moe_capacity=NO_DROP_CAPACITY))
+    got, want, apart = _decode_vs_prefill(dev, m8, params, toks[:1, :64],
+                                          cfg)
+    rtol, atol = ROUTED_APART_TOL
+    e = _compare("decode vs prefill", {"l": got}, {"l": want}, rtol, atol)
+    print(f"check decode (64 steps) vs prefill, capacity factor "
+          f"{NO_DROP_CAPACITY}, logits max abs err {e:.3g} (atol {atol}, "
+          f"rtol {rtol}; logits std {float(want.std()):.3g}); (token, "
+          f"layer) pairs routed apart: {apart} of {64 * cfg.n_layers}")
+
+    # the card (kernels) against the CPU (plain versions), depth 2
+    m2 = get_model(dataclasses.replace(cfg, n_layers=2))
+    p_cpu = init_params(m2.blueprint(), torch.Generator().manual_seed(seed))
+    toks2 = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)))
+    want2, r_cpu = _routed(lambda: m2.prefill(p_cpu, toks2))
+    got2, r_card = _routed(lambda: m2.prefill(
+        tree_map(lambda a: a.to(dev), p_cpu), toks2.to(dev)))
+    apart = [_apart(a, b) for a, b in zip(r_cpu, r_card)]
+    e = _compare("depth-2 card vs cpu", {"l": got2.cpu()[:, :cfg.vocab]},
+                 {"l": want2[:, :cfg.vocab]}, 0.1, 0.1)
+    print(f"check depth-2 prefill (2 x 128) card vs cpu logits max abs err "
+          f"{e:.3g} (atol = rtol = 0.1); tokens whose experts differ "
+          f"between card and cpu, by layer: {apart} of {toks2.numel()}")
+    del p_cpu, eng
+    record, fa128 = moe_kernel_times(dev, cfg, layer0, min(reps, 10), errs)
+    del params, layer0
+    torch.cuda.empty_cache()
+    return {"moe_dispatch": record, "flash_attention_d128": fa128}, by_path
 
 
 def main() -> int:
@@ -600,9 +824,9 @@ def main() -> int:
     for name, (bench, bufs, sc, params, ck) in cases.items():
         srcs[name] = sx.kernel_source(
             ck.fn, params, {k: torch.from_numpy(v) for k, v in bufs.items()})
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         lm_built = {m.KERNEL.kind: pool.submit(m.KERNEL.build)
-                    for m in (rn, fa)}
+                    for m in (rn, fa, md)}
         built = sx.build_many(list(srcs.values()))
         for kind, fut in lm_built.items():
             so, secs = fut.result()
@@ -612,7 +836,7 @@ def main() -> int:
     print(f"build total {time.perf_counter() - t0:.1f} s")
 
     # 3. the main path at full size, counted
-    sx.LAUNCHES = rn.LAUNCHES = fa.LAUNCHES = 0
+    _zero_counts()
     outs, launches = {}, {}
     for name, (bench, bufs, sc, params, ck) in cases.items():
         before = sx.LAUNCHES
@@ -622,7 +846,7 @@ def main() -> int:
     torch.cuda.synchronize()
     total = sx.LAUNCHES
     if (total != len(cases) or min(launches.values()) < 1
-            or rn.LAUNCHES or fa.LAUNCHES):
+            or sum(_counts().values()) != total):
         raise AssertionError(f"main path launched {launches}")
     print(f"main path: {total} CUDA launches {launches}")
 
@@ -708,10 +932,25 @@ def main() -> int:
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library_ms})
 
-    # 6. the LM serving path
+    # 6. the LM serving paths, dense and MoE; each kernel's record counts
+    # its launches on every path
     t0 = time.perf_counter()
-    records += lm_phase(dev, args.seed, args.reps)
-    print(f"lm phase {time.perf_counter() - t0:.1f} s")
+    lm_records, paths = lm_phase(dev, args.seed, args.reps)
+    print(f"lm phase {LM_ARCH} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_records, moe_paths = moe_phase(dev, args.seed, args.reps)
+    print(f"lm phase {MOE_ARCH} {time.perf_counter() - t0:.1f} s")
+    paths.update(moe_paths)
+    lm_records["flash_attention"]["d128"] = moe_records.pop(
+        "flash_attention_d128")
+    lm_records.update(moe_records)
+    for name, r in lm_records.items():
+        src, replaces = LM_SOURCES[name]
+        per_path = {p: n[name] for p, n in paths.items()}
+        records.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": sum(per_path.values()),
+                        "launches_by_path": per_path, **r})
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

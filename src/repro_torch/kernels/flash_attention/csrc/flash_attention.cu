@@ -28,6 +28,12 @@
 //   * q, k and v are read through their strides (the last dimension must
 //     be contiguous); the output is a contiguous (B, H, Sq, D).
 //
+// Head dims 32, 64 and 128. At D = 128 the four float32 tiles come to
+// 74,368 bytes, over the 48 KB of static shared memory, so that
+// instantiation takes the same tiles from dynamic shared memory
+// (fa_kernel_dyn, after cudaFuncSetAttribute); D = 32 and 64 keep their
+// static tiles (fa_kernel). Both run one body, fa_body.
+//
 // The float32 instantiations compile with g++ against the stand-in
 // runtime in tests/cuda_host, which runs them on the CPU.
 #include <cuda_runtime.h>
@@ -39,6 +45,13 @@
 #define VX_LAUNCH(K, G, B, S, ...) \
   K<<<(G), (B), 0, (cudaStream_t)(S)>>>(__VA_ARGS__)
 #endif
+#ifndef VX_LAUNCH_SMEM
+#define VX_LAUNCH_SMEM(K, G, B, M, S, ...) \
+  K<<<(G), (B), (M), (cudaStream_t)(S)>>>(__VA_ARGS__)
+#endif
+#ifndef VX_DYN_SMEM
+#define VX_DYN_SMEM(name) extern __shared__ __align__(16) unsigned char name[]
+#endif
 
 namespace {
 
@@ -46,6 +59,7 @@ constexpr int BQ = 64;         // query rows per CTA
 constexpr int BK = 32;         // keys per tile
 constexpr int kThreads = 256;  // four threads per query row
 constexpr float kMasked = -1e30f;
+constexpr int kStaticD = 64;   // larger head dims take dynamic tiles
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store_f32(float v, float* p) { *p = v; }
@@ -62,18 +76,23 @@ struct Strides {   // elements between batches, heads and rows
   long long b, h, s;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-          int Sq, int Sk, int n_qt, Strides qs, Strides ks, Strides vs,
-          int causal, float sm_scale) {
-  // +1 columns: the 8 rows a warp reads at once fall in distinct banks
-  __shared__ float Qs[BQ][D + 1];
-  __shared__ float Ks[BK][D + 1];
-  __shared__ float Vs[BK][D];
-  __shared__ float Ps[BQ][BK + 1];
+// +1 columns: the 8 rows a warp reads at once fall in distinct banks
+template <int D>
+struct Tiles {
+  float Q[BQ][D + 1];
+  float K[BK][D + 1];
+  float V[BK][D];
+  float P[BQ][BK + 1];
+};
 
+template <typename T, int D>
+__device__ __forceinline__ void
+fa_body(float (&Qs)[BQ][D + 1], float (&Ks)[BK][D + 1],
+        float (&Vs)[BK][D], float (&Ps)[BQ][BK + 1],
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, T* __restrict__ o, int H, int Hkv, int Sq,
+        int Sk, int n_qt, Strides qs, Strides ks, Strides vs, int causal,
+        float sm_scale) {
   // the longest causal tiles first: block 0 takes the last query tile
   const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
   const int bh = (int)(blockIdx.x / n_qt);
@@ -159,17 +178,54 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
+          int Sq, int Sk, int n_qt, Strides qs, Strides ks, Strides vs,
+          int causal, float sm_scale) {
+  __shared__ float Qs[BQ][D + 1];
+  __shared__ float Ks[BK][D + 1];
+  __shared__ float Vs[BK][D];
+  __shared__ float Ps[BQ][BK + 1];
+  fa_body<T, D>(Qs, Ks, Vs, Ps, q, k, v, o, H, Hkv, Sq, Sk, n_qt, qs, ks,
+                vs, causal, sm_scale);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+fa_kernel_dyn(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
+              int Sq, int Sk, int n_qt, Strides qs, Strides ks, Strides vs,
+              int causal, float sm_scale) {
+  VX_DYN_SMEM(smem);
+  Tiles<D>& t = *reinterpret_cast<Tiles<D>*>(smem);
+  fa_body<T, D>(t.Q, t.K, t.V, t.P, q, k, v, o, H, Hkv, Sq, Sk, n_qt, qs,
+                ks, vs, causal, sm_scale);
+}
+
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int Sq, int Sk, long long qsb, long long qsh,
            long long qss, long long ksb, long long ksh, long long kss,
            long long vsb, long long vsh, long long vss, int causal,
            float sm_scale, void* stream) {
   const int n_qt = (Sq + BQ - 1) / BQ;
-  auto kernel = fa_kernel<T, D>;
-  VX_LAUNCH(kernel, B * H * n_qt, kThreads, stream, (const T*)q,
-            (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk, n_qt,
-            Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
-            Strides{vsb, vsh, vss}, causal, sm_scale);
+  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
+  if constexpr (D <= kStaticD) {
+    auto kernel = fa_kernel<T, D>;
+    VX_LAUNCH(kernel, B * H * n_qt, kThreads, stream, (const T*)q,
+              (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk, n_qt, qs, ks,
+              vs, causal, sm_scale);
+  } else {
+    auto kernel = fa_kernel_dyn<T, D>;
+    constexpr int smem = (int)sizeof(Tiles<D>);
+    static const int attr = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != 0) return attr;
+    VX_LAUNCH_SMEM(kernel, B * H * n_qt, kThreads, smem, stream,
+                   (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq,
+                   Sk, n_qt, qs, ks, vs, causal, sm_scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -192,7 +248,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 VX_FA_ENTRY(flash_attention_f32_d32, float, 32)
 VX_FA_ENTRY(flash_attention_f32_d64, float, 64)
+VX_FA_ENTRY(flash_attention_f32_d128, float, 128)
 #ifdef __CUDACC__
 VX_FA_ENTRY(flash_attention_bf16_d32, __nv_bfloat16, 32)
 VX_FA_ENTRY(flash_attention_bf16_d64, __nv_bfloat16, 64)
+VX_FA_ENTRY(flash_attention_bf16_d128, __nv_bfloat16, 128)
 #endif

@@ -32,7 +32,7 @@ from ..build import SourceKernel
 #: launches of the CUDA kernel; the plain version does not count
 LAUNCHES = 0
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128)
 BLOCK_Q = 64
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \

@@ -1,0 +1,118 @@
+"""Mixture-of-Experts FF layer: top-k router, capacity-based sort/gather
+dispatch, grouped expert FF, weighted scatter combine.
+
+Port of ``repro.models.moe``, with the reference's semantics, which are
+those of its code, not of its docstring:
+
+  * the capacity is ``int(max(1, (T*k // E) * cf))``, a floor;
+  * the top-k gate values are renormalized before the capacity drop and
+    never after it, so a dropped assignment's weight is lost;
+  * ties in the top-k go to the lower expert index, as ``lax.top_k``
+    does: a stable descending sort, not ``torch.topk``, whose order on
+    ties is unspecified (bf16 router logits tie often).
+
+The expert FF goes through the moe_dispatch kernel on CUDA tensors and
+its plain version on CPU tensors. Both keep the hidden in float32, where
+the reference's einsums round it to bf16, so the two meet at bf16
+tolerance. Capacity comes from shapes and nothing here reads a value
+back to the host.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..kernels.moe_dispatch.moe_dispatch import grouped_expert_ff
+from .blueprint import leaf
+
+Params = Dict[str, Any]
+
+
+def moe_bp(d: int, n_experts: int, d_ff_expert: int):
+    return {
+        "router": leaf((d, n_experts), ("embed", None), scale_dim=0),
+        "wi": leaf((n_experts, d, 2 * d_ff_expert),
+                   ("experts", "embed", "expert_ff"), scale_dim=1),
+        "wo": leaf((n_experts, d_ff_expert, d),
+                   ("experts", "expert_ff", "embed"), scale_dim=1),
+    }
+
+
+def capacity(T: int, top_k: int, n_experts: int,
+             capacity_factor: float) -> int:
+    """Slots per expert for T tokens (the reference's formula)."""
+    return int(max(1, (T * top_k // n_experts) * capacity_factor))
+
+
+def route(p: Params, xt: torch.Tensor, top_k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xt: (T, d) -> (softmax probs (T, E) float32, renormalized gate
+    values (T, k), expert indices (T, k)), lower index first on ties."""
+    probs = torch.softmax((xt @ p["router"]).float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    return probs, vals / vals.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def dispatch(gate_idx: torch.Tensor, gate_vals: torch.Tensor, T: int,
+             n_experts: int, C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (E*C,) table of token ids and weights. Assignments are sorted
+    stably by expert, so an expert's slots go to its tokens in order;
+    those past C are dropped, and free slots point at the zero row T."""
+    dev = gate_idx.device
+    n = gate_idx.numel()
+    flat_e = gate_idx.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(gate_idx.shape[1])
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sw = flat_e[order], flat_t[order], gate_vals.reshape(-1)[order]
+    idx = torch.arange(n, device=dev)
+    run_start = torch.full((n_experts,), n, device=dev).scatter_reduce(
+        0, se, idx, reduce="amin")
+    pos = idx - run_start[se]
+    # dropped assignments all land in one spill slot past the table
+    dst = torch.where(pos < C, se * C + pos, n_experts * C)
+    table = torch.full((n_experts * C + 1,), T, device=dev)
+    table[dst] = st
+    wtable = torch.zeros(n_experts * C + 1, device=dev)
+    wtable[dst] = sw
+    return table[:-1], wtable[:-1]
+
+
+def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
+           capacity_factor: float = 1.25
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux loss float32)."""
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    probs, gate_vals, gate_idx = route(p, xt, top_k)
+
+    # load-balancing aux loss (Switch-style)
+    ce = torch.zeros(n_experts, device=x.device).index_add_(
+        0, gate_idx.reshape(-1),
+        torch.ones(gate_idx.numel(), device=x.device)) / (T * top_k)
+    aux = n_experts * torch.sum(probs.mean(0) * ce)
+
+    C = capacity(T, top_k, n_experts, capacity_factor)
+    table, wtable = dispatch(gate_idx, gate_vals, T, n_experts, C)
+    xp = torch.cat([xt, xt.new_zeros(1, d)])
+    y = grouped_expert_ff(xp[table].reshape(n_experts, C, d), p["wi"],
+                          p["wo"])
+    yflat = y.reshape(n_experts * C, d).float() * wtable[:, None]
+    out = torch.zeros(T + 1, d, device=x.device).index_add_(0, table, yflat)
+    return out[:T].reshape(B, S, d).to(x.dtype), aux
+
+
+def dropped_share(p: Params, x: torch.Tensor, *, n_experts: int,
+                  top_k: int, capacity_factor: float = 1.25) -> float:
+    """The share of the T*k expert assignments of x (B, S, d) that the
+    capacity drops. Reads the result back to the host: for reports, not
+    for the layer."""
+    T = x.shape[0] * x.shape[1]
+    _, _, gate_idx = route(p, x.reshape(T, -1), top_k)
+    C = capacity(T, top_k, n_experts, capacity_factor)
+    per_expert = torch.zeros(n_experts, device=x.device).index_add_(
+        0, gate_idx.reshape(-1), torch.ones(gate_idx.numel(),
+                                            device=x.device))
+    return float((per_expert - C).clamp_min(0).sum()) / (T * top_k)

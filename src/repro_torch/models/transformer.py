@@ -1,4 +1,5 @@
-"""Unified LM assembly: the dense attention path of the reference's LM.
+"""Unified LM assembly: the attention paths of the reference's LM, with
+dense or MoE feed-forward.
 
 Port of ``repro.models.transformer``. A model is a stack of identical
 *periods*; a period is a short list of layers. Params of a period are
@@ -18,10 +19,12 @@ and ``attn_unroll_kv`` are the reference's XLA lowering choices; the
 port reads none of them, and prefill's attention always goes through the
 flash_attention kernel.
 
-Only what granite-style dense models run is ported: attention mixers
-with dense feed-forward. The other mixers, MoE feed-forward, the
-encoder-decoder stack and the training loss raise ``NotImplementedError``
-naming their ROADMAP item.
+Ported: attention mixers with dense feed-forward (granite-style) or MoE
+feed-forward (olmoe-style, ``models/moe.py``, with an optional shared
+MLP). As in the reference, an MoE layer runs sequentially even under
+``parallel_block``, and its load-balancing loss is dropped outside
+training. The other mixers, the encoder-decoder stack and the training
+loss raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 
 from ..device import resolve_device
 from . import layers as L
+from . import moe as MOE
 from .blueprint import Leaf, leaf, tree_map
 
 Params = Any
@@ -88,7 +92,11 @@ class LM:
             bp["ln2"] = L.rmsnorm_bp(c.d_model)
             bp["mlp"] = L.mlp_bp(c.d_model, c.d_ff, c.gated_mlp)
         elif kind.ff == "moe":
-            raise _not_ported("MoE feed-forward", "A6/B4 (models/moe.py)")
+            bp["ln2"] = L.rmsnorm_bp(c.d_model)
+            bp["moe"] = MOE.moe_bp(c.d_model, c.moe_experts, c.moe_d_ff)
+            if c.moe_shared_ff:
+                bp["shared_mlp"] = L.mlp_bp(c.d_model, c.moe_d_ff,
+                                            c.gated_mlp)
         return bp
 
     def blueprint(self):
@@ -125,8 +133,22 @@ class LM:
             # Cohere-style: attn and FF read the same normed input
             return x + mix + L.mlp(p["mlp"], h, c.gated_mlp)
         x = x + mix
+        return self._ff(kind, p, x)
+
+    def _ff(self, kind: LayerKind, p, x):
+        """The layer's feed-forward residual, sequential after the
+        mixer."""
+        c = self.cfg
         if kind.ff == "dense":
             x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), c.gated_mlp)
+        elif kind.ff == "moe":
+            h2 = L.rmsnorm(p["ln2"], x)
+            y, _ = MOE.moe_ff(p["moe"], h2, n_experts=c.moe_experts,
+                              top_k=c.moe_top_k,
+                              capacity_factor=c.moe_capacity)
+            if c.moe_shared_ff:
+                y = y + L.mlp(p["shared_mlp"], h2, c.gated_mlp)
+            x = x + y
         return x
 
     def _run_stack(self, stack_params, x, positions, *, kinds, causal):
@@ -189,9 +211,7 @@ class LM:
         o = L.attention_decode(q, kc, vc, pos + 1)
         # sequential even under parallel_block, as the reference decodes
         x = x + torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
-        if kind.ff == "dense":
-            x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), c.gated_mlp)
-        return x
+        return self._ff(kind, p, x)
 
     # -- prefill ------------------------------------------------------------------
     def prefill(self, params, tokens):

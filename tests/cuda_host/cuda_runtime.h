@@ -2,10 +2,12 @@
 // kernels use, so that their emitted source compiles with g++ and runs on
 // the CPU: one std::thread per CUDA thread, the blocks of a grid in turn,
 // std::barrier for __syncthreads and the block-wide votes. The float32
-// instantiations of the hand-written kernels (rmsnorm, flash_attention)
-// run on it too: warp shuffles and __syncwarp are block-wide exchanges,
-// so every thread of the block must reach them, as those kernels do. It
-// checks the code's semantics, not its speed.
+// instantiations of the hand-written kernels (rmsnorm, flash_attention,
+// moe_dispatch) run on it too: warp shuffles and __syncwarp are
+// block-wide exchanges, so every thread of the block must reach them, as
+// those kernels do. Dynamic shared memory is one buffer, sized by the
+// launch and shared by the threads of the block that runs. It checks the
+// code's semantics, not its speed.
 #pragma once
 
 #include <algorithm>
@@ -24,7 +26,9 @@
 #define __shared__ static
 
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct alignas(16) float4 { float x, y, z, w; };
 typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, gridDim, blockDim;
@@ -34,6 +38,7 @@ inline std::barrier<>* bar = nullptr;
 inline int acc_or = 0, acc_and = 1;
 inline unsigned acc_ballot = 0;
 inline float xchg[1024];
+inline std::vector<float4> dyn_smem;
 }  // namespace vx_host
 
 inline void __syncthreads() { vx_host::bar->arrive_and_wait(); }
@@ -99,13 +104,23 @@ using std::max;
 using std::min;
 
 inline int cudaGetLastError() { return 0; }
+template <typename F>
+inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 
 // kernel<<<grid, block, 0, stream>>>(args) is rewritten to this call; the
 // hand-written kernels launch through VX_LAUNCH, which comes to the same
 #define VX_LAUNCH(K, G, B, S, ...) \
   vx_host_launch((G), (B), [&] { K(__VA_ARGS__); })
+// with M bytes of dynamic shared memory, which VX_DYN_SMEM names
+#define VX_LAUNCH_SMEM(K, G, B, M, S, ...) \
+  vx_host_launch((G), (B), [&] { K(__VA_ARGS__); }, (M))
+#define VX_DYN_SMEM(name) \
+  unsigned char* name = reinterpret_cast<unsigned char*>( \
+      vx_host::dyn_smem.data())
 
-inline void vx_host_launch(int grid, int block, std::function<void()> body) {
+inline void vx_host_launch(int grid, int block, std::function<void()> body,
+                           size_t smem_bytes = 0) {
+  vx_host::dyn_smem.assign((smem_bytes + 15) / 16, float4{});
   gridDim.x = grid;
   blockDim.x = block;
   for (int b = 0; b < grid; ++b) {

@@ -55,7 +55,8 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", [
     (1, 4, 4, 128, 128, 64), (2, 8, 2, 300, 300, 64),
-    (1, 4, 1, 77, 77, 32), (1, 2, 2, 50, 190, 32)])
+    (1, 4, 1, 77, 77, 32), (1, 2, 2, 50, 190, 32),
+    (1, 4, 4, 200, 200, 128), (2, 4, 1, 64, 130, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, Hkv, Sq, Sk, D,
@@ -83,7 +84,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         RN.rmsnorm(torch.ones(8, 4, device=cuda).T, torch.ones(8,
                                                               device=cuda))
-    q = torch.ones(1, 2, 16, 128, device=cuda)
+    q = torch.ones(1, 2, 16, 96, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention(q, q, q)
     q = torch.ones(1, 2, 16, 64, device=cuda)

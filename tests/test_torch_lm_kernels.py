@@ -59,7 +59,8 @@ def test_rmsnorm_plain_matches_pallas(shape, dtype):
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 128, 64), (2, 1, 256, 64),
-                                   (1, 1, 128, 128), (2, 2, 192, 32)])
+                                   (1, 1, 128, 128), (2, 2, 192, 32),
+                                   (1, 2, 128, 128), (1, 1, 192, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_plain_matches_pallas(shape, dtype, causal):
@@ -167,6 +168,8 @@ def test_rmsnorm_source_matches_plain_on_host(shape, host_libs):
     (2, 4, 2, 64, 64, 64, True),      # one full tile, D = 64
     (1, 2, 2, 50, 90, 32, False),     # Sq != Sk, every key
     (1, 1, 1, 130, 130, 64, True),    # three query tiles, ragged keys
+    (1, 2, 1, 70, 70, 128, True),     # D = 128: the dynamic-memory tiles
+    (1, 1, 1, 40, 100, 128, False),   # D = 128, Sq != Sk, every key
 ])
 def test_flash_attention_source_matches_plain_on_host(B, H, Hkv, Sq, Sk, D,
                                                       causal, host_libs):

@@ -3,7 +3,8 @@
 backpressure, deadlines, retry of transient faults), on the port's LM.
 
 The model is granite-3-2b's smoke variant on the CPU with the JAX
-package's own ``init_params`` output carried over. Decode is argmax, so
+package's own ``init_params`` output carried over (olmoe-1b-7b's too,
+for the comparison with the reference's engine). Decode is argmax, so
 token lists are compared exactly, against the port's manual greedy
 decode through ``LM.decode_step``, and the port's engine is held against
 the JAX package's ``ServeEngine`` serving the same requests with the same
@@ -15,6 +16,7 @@ Measured on the seed below: 32 calls, 28 token choices, three of them
 near ties (gaps 0.016, 0.031, 0.031) where both still chose alike.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -35,17 +37,24 @@ TOL = 0.1
 GAP = 0.1
 
 
-@pytest.fixture(scope="module")
-def both_models():
+def _both(arch, tie_router=False):
     """(reference LM, its params, config, port LM, the same params)."""
-    ref = ref_get_model(ref_get_config("granite-3-2b", smoke=True))
+    ref = ref_get_model(ref_get_config(arch, smoke=True))
     ref_params = ref_init_params(ref.blueprint(), jax.random.PRNGKey(0))
-    cfg = get_config("granite-3-2b", smoke=True)
+    if tie_router:
+        for layer in ref_params["stack"]:
+            layer["moe"]["router"] = jnp.zeros_like(layer["moe"]["router"])
+    cfg = get_config(arch, smoke=True)
     model = get_model(cfg)
     params = lm_params_from_numpy(
         jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params),
         "cpu", model.blueprint())
     return ref, ref_params, cfg, model, params
+
+
+@pytest.fixture(scope="module")
+def both_models():
+    return _both("granite-3-2b")
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +131,19 @@ def _record(eng, to_numpy):
 
 
 def test_engine_matches_reference_engine(both_models):
-    ref, ref_params, cfg, model, params = both_models
+    _engine_matches_reference_engine(*both_models)
+
+
+def test_olmoe_engine_matches_reference_engine():
+    """olmoe-1b-7b's smoke LM, its router zeroed as in
+    ``test_torch_moe.py`` (bf16 near-ties would route tokens apart): every
+    step's tokens and positions equal, logits at TOL. The engine feeds
+    token 0 to its idle slots, and at C = 1 those take expert capacity as
+    in the reference (ROADMAP C8)."""
+    _engine_matches_reference_engine(*_both("olmoe-1b-7b", tie_router=True))
+
+
+def _engine_matches_reference_engine(ref, ref_params, cfg, model, params):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(2, 6))
                             ).astype(np.int32) for _ in range(7)]
