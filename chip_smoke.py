@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Three paths of the port, each at full size:
+Four paths of the port, each at full width:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
@@ -15,12 +15,26 @@ Three paths of the port, each at full size:
     (6.9 B params, random weights from ``--seed``, granite's freed
     first): the same prefill, whose 33 RMSNorms, 16 attentions at head
     dim 128 and 16 grouped expert FFs go through the rmsnorm,
-    flash_attention and moe_dispatch kernels, and the same engine.
+    flash_attention and moe_dispatch kernels, and the same engine;
+  * the hybrid LM serving path on jamba-1.5-large-398b at full width,
+    its depth cut to four layers, one of each kind (mamba with dense FF,
+    mamba with MoE FF, attention with dense FF, mamba with MoE FF:
+    23.0 B params, random weights from ``--seed``, olmoe's freed first):
+    the same prefill, whose 9 RMSNorms at d 8192, one attention (64
+    heads, 8 KV heads of 128), 2 grouped expert FFs (16 experts of f
+    24576) and 3 x 8 selective scans (one a layer and chunk of 256) go
+    through the rmsnorm, flash_attention, moe_dispatch and selective_scan
+    kernels, and the same engine. Its kernel checks and timings run
+    before its params exist: the plain expert FF holds float32 copies of
+    a layer's experts (38.7 GB).
 
 On each LM path every kernel is held against its plain version at the
-path's shapes, decode is held against prefill, and a depth-2 model on
-the card against the same model on the CPU. The MoE path also prints the
-share of expert assignments the capacity drops (layer 0, prefill and
+path's shapes, decode is held against prefill, and a short model on the
+card against the same model on the CPU (depth 2 at full width for
+granite and olmoe; for jamba one period of its smoke config, 8 layers at
+d_model 128, the only place where widths are cut: at full width the CPU
+would need 46 GB and minutes). The MoE paths also print the share of
+expert assignments the capacity drops (the first MoE layer, prefill and
 decode) and the tokens routed apart by card and CPU.
 
 Each kernel's launches are counted on each path (counts set to 0 just
@@ -31,6 +45,11 @@ the script prints one JSON line of kernel records and a last line
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--seed N] [--reps N]
+
+jamba's one-chip cut: every width as published, the period shortened
+from 8 layers to 4 (``n_layers`` 72 -> 4, ``attn_every_k`` 8 -> 4, both
+printed). Attention is one layer in four, not one in eight, so it takes
+a larger share of prefill than in a deployment.
 
 It needs a CUDA device and the CUDA toolkit (nvcc), and exits non-zero
 without a result when either is missing or any check fails.
@@ -48,8 +67,8 @@ check lines print both):
   * rmsnorm rtol = atol = 1e-5 in float32 and 2e-2 in bf16 (those of
     tests/test_kernels.py); outputs of randn rows and scales have a
     median |y| of about 0.45, one bf16 ulp at most 0.0078 of |y|.
-  * flash_attention at the paths' shapes (4, 32, 2048, 64) and
-    (4, 16, 2048, 128), causal: bf16 rtol 1e-2, atol 2e-3; float32
+  * flash_attention at the paths' shapes (4, 32, 2048, 64),
+    (4, 16, 2048, 128) and (4, 64, 2048, 128) with 8 KV heads, causal: bf16 rtol 1e-2, atol 2e-3; float32
     rtol = atol = 2e-5. With randn q, k, v the softmax weights of a row
     of n keys act as about n / e equal ones, so |o| is about
     (e / n) ** 0.5: a median over all elements of about 0.035, up to
@@ -57,10 +76,17 @@ check lines print both):
     0.0078 of |o|, as both sides round one float32 result) and the atol
     sits well below the median |o|, so a dropped or doubled key tile or a
     wrong scale in a late row fails.
-  * moe_dispatch at (64, 1280, 2048) and (64, 1, 2048), f 1024, bf16:
-    rtol 1e-2 (one bf16 ulp of the output, both sides round one float32
-    result), atol 2e-3, well below the median |y| printed beside it.
-  * decode against prefill (64 teacher-forced steps, full depth):
+  * moe_dispatch at (64, 1280, 2048) and (64, 1, 2048), f 1024, and at
+    (16, 1280, 8192) and (16, 1, 8192), f 24576, bf16: rtol 1e-2 (one
+    bf16 ulp of the output, both sides round one float32 result), atol
+    2e-3, well below the median |y| printed beside it.
+  * selective_scan at (4, 256, 16384, 16), the chunk the path scans:
+    float32 rtol = atol = 1e-5 (the same float32 recurrence, the dot
+    product summed in another order), bf16 rtol 1e-2 (one bf16 ulp of
+    the output), atol 1e-5; the same for a call chained through its
+    state h against one call. dA in (0.5, 0.99), dBx and Cm at scale 0.1
+    as tests/test_kernels.py draws them: |y| about 0.05.
+  * decode against prefill (64 teacher-forced steps, the path's depth):
     atol 0.2, rtol 0, inside tests/test_archs.py's atol 0.55, rtol 0.1;
     the logits have a standard deviation of about 1 and granite's two
     paths measured 0.098 apart on the H100. olmoe runs both paths at a
@@ -69,8 +95,13 @@ check lines print both):
     at test_archs.py's tolerance: bf16 near-ties between the 8th and 9th
     of 64 experts route about one (token, layer) in seven apart on the
     two paths (printed; 149 of 1,024 on the H100, error 0.203).
+    jamba, at capacity factor 8 too, is printed with its random routers
+    (0.63 apart on the H100: a token routed apart moves the logits) and
+    held at atol 0.2, rtol 0 with its routers zeroed, where both paths
+    route every token alike.
   * the depth-2 model on the card against the CPU: atol = rtol = 0.1 on
-    the logits (tests/test_torch_lm.py).
+    the logits (tests/test_torch_lm.py); jamba's 8-layer smoke period,
+    its routers zeroed, atol 0.2, rtol 0.1 (tests/test_torch_ssm.py).
 
 Each kernel is timed twice: CUDA events around a batch of wrapper calls,
 and the device time of its kernel from a torch.profiler trace.
@@ -81,6 +112,8 @@ import argparse
 import dataclasses
 import itertools
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -88,8 +121,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import numpy as np
-import torch
+# the allocator grows segments in place instead of caching freed blocks
+# whole: the paths' models and their float32 init draws (26 GB for one of
+# jamba's expert leaves) follow each other on one card
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -107,6 +145,8 @@ from repro_torch.kernels.flash_attention import \
     flash_attention as fa  # noqa: E402
 from repro_torch.kernels.moe_dispatch import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels.selective_scan import \
+    selective_scan as ss  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.blueprint import (count_params, init_params,  # noqa
@@ -309,17 +349,22 @@ CASES = [("vecadd", 256), ("saxpy", 256), ("blackscholes", 256),
 # the LM serving paths: granite-3-2b and olmoe-1b-7b at full width and depth
 # --------------------------------------------------------------------------
 
-LM_ARCH, MOE_ARCH = "granite-3-2b", "olmoe-1b-7b"
+LM_ARCH, MOE_ARCH, HYBRID_ARCH = ("granite-3-2b", "olmoe-1b-7b",
+                                  "jamba-1.5-large-398b")
+#: jamba on one card: every width, one layer of each kind
+HYBRID_CUT = {"n_layers": 4, "attn_every_k": 4}
 PREFILL_B, PREFILL_S = 4, 2048       # 8192 rows for each RMSNorm
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 512, 16, 16
 RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 FA_TOL = {torch.bfloat16: (1e-2, 2e-3), torch.float32: (2e-5, 2e-5)}
 MOE_TOL = (1e-2, 2e-3)               # rtol, atol; bf16
+SCAN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
+SMOKE_TOL = (0.1, 0.2)               # rtol, atol; jamba's smoke period
 DECODE_ATOL = 0.2
 ROUTED_APART_TOL = (0.1, 0.55)       # rtol, atol of tests/test_archs.py
 NO_DROP_CAPACITY = 8.0               # C >= T at T = 64: nothing dropped
 KERNELS = {"simt_exec": sx, "rmsnorm": rn, "flash_attention": fa,
-           "moe_dispatch": md}
+           "moe_dispatch": md, "selective_scan": ss}
 LM_SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/rmsnorm.py:23"),
@@ -328,7 +373,17 @@ LM_SOURCES = {
         "src/repro/kernels/flash_attention/flash_attention.py:113"),
     "moe_dispatch": (
         "src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch.cu",
-        "src/repro/kernels/moe_dispatch/moe_dispatch.py:38")}
+        "src/repro/kernels/moe_dispatch/moe_dispatch.py:38"),
+    "selective_scan": (
+        "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+        "src/repro/kernels/selective_scan/selective_scan.py:59")}
+
+
+def _count(cfg, mixer=None, ff=None) -> int:
+    """Layers of the model with this mixer (or this feed-forward)."""
+    period = cfg.layer_pattern()
+    return cfg.n_layers // len(period) * sum(
+        k.mixer == mixer or k.ff == ff for k in period)
 
 
 def _zero_counts() -> None:
@@ -409,26 +464,32 @@ def _moe_shapes(cfg):
                          ("decode", SERVE_SLOTS))}
 
 
-def moe_kernel_checks(dev, cfg, layer0, seed):
-    """flash_attention at olmoe's head dim and the expert FF at the
-    path's capacities (layer 0's weights, x drawn as the unit-RMS output
-    of an RMSNorm), each against its plain version."""
-    g = torch.Generator(dev).manual_seed(seed)
-    errs = {}
-    _fa_checks(g, dev, cfg, errs)
+def _moe_checks(g, dev, cfg, wi, wo, errs):
+    """The expert FF against its plain version at the path's capacities
+    (x drawn as the unit-RMS output of an RMSNorm)."""
     rtol, atol = MOE_TOL
     for name, C in _moe_shapes(cfg).items():
         x = torch.randn(cfg.moe_experts, C, cfg.d_model, generator=g,
                         device=dev).bfloat16()
-        want = md.grouped_expert_ff_plain(x, layer0["wi"], layer0["wo"])
+        want = md.grouped_expert_ff_plain(x, wi, wo)
         e = _compare(f"moe_dispatch({C})", {"y": md.grouped_expert_ff(
-            x, layer0["wi"], layer0["wo"])}, {"y": want}, rtol, atol)
+            x, wi, wo)}, {"y": want}, rtol, atol)
         errs[("moe_dispatch", name, torch.bfloat16)] = e
         print(f"check moe_dispatch ({cfg.moe_experts}, {C}, {cfg.d_model})"
               f" f {cfg.moe_d_ff} bf16 vs plain max abs err {e:.3g} (rtol "
               f"{rtol}, atol {atol}; median |y| "
               f"{float(want.float().abs().median()):.3g})")
         del x, want
+
+
+def moe_kernel_checks(dev, cfg, layer0, seed):
+    """flash_attention at olmoe's head dim and the expert FF at the
+    path's capacities (layer 0's weights), each against its plain
+    version."""
+    g = torch.Generator(dev).manual_seed(seed)
+    errs = {}
+    _fa_checks(g, dev, cfg, errs)
+    _moe_checks(g, dev, cfg, layer0["wi"], layer0["wo"], errs)
     return errs
 
 
@@ -439,16 +500,18 @@ def _smi(query: str) -> str:
 
 
 def _kernel_row(name, shape, fn, plain_fn, lib_fn, nbytes, ops, ops_rate,
-                reps, launches):
-    """Times one kernel at one shape: events, profiler device time, the
-    plain version, the library call; the bound from bytes and ops. The
-    card's SM clock and power draw are read right after the events, while
-    it is still loaded."""
-    ms = _median_ms(fn, reps)
+                reps, launches, batch=10, calls=20):
+    """Times one kernel at one shape: events (``reps`` batches of
+    ``batch`` calls), profiler device time (``calls`` calls), the plain
+    version, the library call where there is one (``lib_fn`` None: no
+    single torch call computes the function); the bound from bytes and
+    ops. The card's SM clock and power draw are read right after the
+    events, while it is still loaded."""
+    ms = _median_ms(fn, reps, batch)
     clocks = _smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
-    dev_ms, _, per_call = _device_ms(fn)
+    dev_ms, _, per_call = _device_ms(fn, calls)
     plain_ms = _median_ms(plain_fn, reps, batch=1)
-    library_ms = _median_ms(lib_fn, reps)
+    library_ms = None if lib_fn is None else _median_ms(lib_fn, reps, batch)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ops_rate * 1e3
     bound_ms = max(bytes_ms, ops_ms)
@@ -458,8 +521,10 @@ def _kernel_row(name, shape, fn, plain_fn, lib_fn, nbytes, ops, ops_rate,
                        f"{dev_ms:.4f} ms ({per_call:g} records/call)")
           + f"  bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, "
           f"{ops:.4g} ops)  share {bound_ms / ms:.3f}  plain "
-          f"{plain_ms:.4f} ms  library {library_ms:.4f} ms  card after the "
-          f"events: {clocks.splitlines()[0]} (sm, max sm, power, temp)")
+          f"{plain_ms:.4f} ms  library "
+          + ("none" if library_ms is None else f"{library_ms:.4f} ms")
+          + f"  card after the events: {clocks.splitlines()[0]} (sm, max "
+          "sm, power, temp)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "device_ms": dev_ms}
@@ -477,7 +542,7 @@ def _fa_row(g, dev, cfg, reps, errs):
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                enable_gqa=True),
         nbytes, 4 * B * H * D * pairs, BF16_OPS_PER_S, reps,
-        f"{cfg.n_layers} a prefill")
+        f"{_count(cfg, 'attn')} a prefill")
     return {**row, "max_abs_err": errs[("flash_attention", D,
                                         torch.bfloat16)]}
 
@@ -507,31 +572,39 @@ def lm_kernel_times(dev, cfg, reps, errs):
     return records
 
 
-def moe_kernel_times(dev, cfg, layer0, reps, errs):
+def _moe_rows(dev, cfg, wi, wo, reps, errs, launches, prefill_batch=10):
     """Timing rows of the expert FF at the prefill and decode capacities
-    (layer 0's weights: 805 MB, far past the L2 cache) and of attention
-    at head dim 128. The bound: 6 E C d f FLOP of bf16 products, or each
-    input read and the output written once."""
+    (one layer's weights: far past the L2 cache). The bound: 6 E C d f
+    FLOP of bf16 products, or each input read and the output written
+    once. Returns the prefill row with the decode row in it."""
     g = torch.Generator(dev).manual_seed(8)
     E, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
-    wi, wo = layer0["wi"], layer0["wo"]
     rows = {}
     for name, C in _moe_shapes(cfg).items():
         x = torch.randn(E, C, d, generator=g, device=dev).bfloat16()
         nbytes = 2 * (2 * x.numel() + wi.numel() + wo.numel())
+        batch = prefill_batch if name == "prefill" else 10
         rows[name] = {**_kernel_row(
             "moe_dispatch", f"({E}, {C}, {d}) f {f} bf16 ({name})",
             lambda: md.grouped_expert_ff(x, wi, wo),
             lambda: md.grouped_expert_ff_plain(x, wi, wo),
             lambda: _library_moe(x, wi, wo),
-            nbytes, 6 * E * C * d * f, BF16_OPS_PER_S, reps,
-            f"{cfg.n_layers} a prefill or decode step"), "shape": [E, C, d, f],
+            nbytes, 6 * E * C * d * f, BF16_OPS_PER_S, reps, launches,
+            batch=batch, calls=2 * batch), "shape": [E, C, d, f],
             "max_abs_err": errs[("moe_dispatch", name, torch.bfloat16)]}
         del x
     print("library for moe_dispatch: three calls in bf16 (bmm, silu times "
           "mul, bmm)")
-    record = {**rows["prefill"], "decode": rows["decode"],
-              "library": "torch.bmm, F.silu * mul, torch.bmm (bf16)"}
+    return {**rows["prefill"], "decode": rows["decode"],
+            "library": "torch.bmm, F.silu * mul, torch.bmm (bf16)"}
+
+
+def moe_kernel_times(dev, cfg, layer0, reps, errs):
+    """Timing rows of the expert FF (layer 0's weights: 805 MB) and of
+    attention at head dim 128."""
+    record = _moe_rows(dev, cfg, layer0["wi"], layer0["wo"], reps, errs,
+                       f"{cfg.n_layers} a prefill or decode step")
+    g = torch.Generator(dev).manual_seed(9)
     return record, _fa_row(g, dev, cfg, reps, errs)
 
 
@@ -617,10 +690,15 @@ def _init(dev, cfg, seed):
     moe = (f", {cfg.moe_experts} experts of d_ff {cfg.moe_d_ff}, top-"
            f"{cfg.moe_top_k}, capacity factor {cfg.moe_capacity}"
            if cfg.moe_experts else "")
+    mamba = (f", mamba d_inner {cfg.ssm_d_inner} d_state "
+             f"{cfg.ssm_d_state} conv {cfg.ssm_d_conv} chunk {cfg.ssm_chunk}"
+             if cfg.family == "hybrid" else "")
+    layers = " ".join(f"{k.mixer}/{k.ff}" for k in model.period)
     print(f"lm {cfg.name}: {count_params(bp)} params, {cfg.n_layers} "
-          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
-          f"({cfg.n_kv_heads} kv) x {cfg.head_dim}, d_ff {cfg.d_ff}"
-          f"{moe}, vocab {cfg.vocab}; init on the card {secs:.2f} s")
+          f"layers (period {layers}), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv) x {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}{moe}{mamba}, vocab {cfg.vocab}; init on the "
+          f"card {secs:.2f} s")
     return model, params
 
 
@@ -631,15 +709,18 @@ def serve_path(dev, cfg, model, params, seed):
     time goes. Returns the tokens, the engine, the rng, the counts by
     path and the decode step's inputs."""
     L, arch = cfg.n_layers, cfg.name
-    moe_layers = L if cfg.moe_experts else 0
+    moe_layers = _count(cfg, ff="moe")
     toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
                          generator=torch.Generator(dev).manual_seed(seed),
                          device=dev)
     _zero_counts()
     logits, first_s = _sync_s(lambda: model.prefill(params, toks))
     per_prefill = _counts()
-    want = {"simt_exec": 0, "rmsnorm": 2 * L + 1, "flash_attention": L,
-            "moe_dispatch": moe_layers}
+    want = {"simt_exec": 0, "rmsnorm": 2 * L + 1,
+            "flash_attention": _count(cfg, "attn"),
+            "moe_dispatch": moe_layers,
+            "selective_scan": _count(cfg, "mamba") * math.ceil(
+                PREFILL_S / cfg.ssm_chunk)}
     if per_prefill != want:
         raise AssertionError(f"{arch} prefill launched {per_prefill}; "
                              f"expected {want}")
@@ -664,6 +745,7 @@ def serve_path(dev, cfg, model, params, seed):
     bad = [(r.rid, r.error, len(r.out)) for r in reqs
            if not r.done or r.error or len(r.out) != SERVE_NEW]
     if (bad or per_serve["rmsnorm"] < 1 or per_serve["simt_exec"]
+            or per_serve["flash_attention"] or per_serve["selective_scan"]
             or (per_serve["moe_dispatch"] < 1) != (moe_layers == 0)):
         raise AssertionError(f"serving: failed requests {bad}, launches "
                              f"{per_serve}")
@@ -792,6 +874,169 @@ def moe_phase(dev, seed: int, reps: int):
     return {"moe_dispatch": record, "flash_attention_d128": fa128}, by_path
 
 
+def _scan_inputs(g, dev, shape, dtype):
+    """dA in (0.5, 0.99), dBx and Cm at scale 0.1, as tests/test_kernels.py
+    draws them."""
+    B, S, d, n = shape
+    dA = torch.rand(B, S, d, n, generator=g, device=dev).mul_(0.49).add_(0.5)
+    dBx = torch.randn(B, S, d, n, generator=g, device=dev).mul_(0.1)
+    Cm = torch.randn(B, S, n, generator=g, device=dev).mul_(0.1)
+    return [t.to(dtype) for t in (dA, dBx, Cm)]
+
+
+def scan_kernel(dev, cfg, seed, reps):
+    """selective_scan at the chunk the path scans, (B, chunk, d_inner, n):
+    against its plain version in float32 and bf16, from a given state h,
+    and a call chained through h against one call; then the timing row in
+    float32, the path's dtype (each call reads and writes h). The bound:
+    dA, dBx, Cm and h read, y and h written once; 4 FLOP per state a
+    step."""
+    g = torch.Generator(dev).manual_seed(seed)
+    shape = (PREFILL_B, cfg.ssm_chunk, cfg.ssm_d_inner, cfg.ssm_d_state)
+    B, S, d, n = shape
+    err = 0.0
+    for dt, (rtol, atol) in SCAN_TOL.items():
+        dA, dBx, Cm = _scan_inputs(g, dev, shape, dt)
+        h0 = torch.randn(B, d, n, generator=g, device=dev)
+        h, want_h = h0.clone(), h0.clone()
+        want = ss.selective_scan_plain(dA, dBx, Cm, want_h)
+        e = _compare(f"selective_scan{shape}", {
+            "y": ss.selective_scan(dA, dBx, Cm, h), "h": h},
+            {"y": want, "h": want_h}, rtol, atol)
+        one = ss.selective_scan(dA, dBx, Cm)
+        h = torch.zeros(B, d, n, device=dev)
+        parts = [ss.selective_scan(*(t[:, a:b].contiguous()
+                                     for t in (dA, dBx, Cm)), h)
+                 for a, b in ((0, S // 2), (S // 2, S))]
+        e2 = _compare("selective_scan chained", {"y": torch.cat(parts, 1)},
+                      {"y": one}, rtol, atol)
+        print(f"check selective_scan {shape} {str(dt)[6:]} from a state vs "
+              f"plain max abs err {e:.3g}; two calls chained through h vs "
+              f"one call {e2:.3g} (rtol {rtol}, atol {atol}; median |y| "
+              f"{float(want.float().abs().median()):.3g})")
+        if dt == torch.float32:
+            err = e
+        del dA, dBx, Cm, want, one, parts
+    dA, dBx, Cm = _scan_inputs(g, dev, shape, torch.float32)
+    h = torch.zeros(B, d, n, device=dev)
+    nbytes = 4 * (dA.numel() + dBx.numel() + Cm.numel() + B * S * d
+                  + 2 * h.numel())
+    row = _kernel_row(
+        "selective_scan", f"({B}, {S}, {d}, {n}) float32 with h",
+        lambda: ss.selective_scan(dA, dBx, Cm, h),
+        lambda: ss.selective_scan_plain(dA, dBx, Cm, h), None, nbytes,
+        4 * B * S * d * n, F32_OPS_PER_S, reps,
+        f"{_count(cfg, 'mamba')} x {math.ceil(PREFILL_S / S)} a prefill")
+    return {**row, "max_abs_err": err, "shape": list(shape)}
+
+
+def hybrid_moe(dev, cfg, seed, reps):
+    """The expert FF at jamba's width, before the model's params exist:
+    one layer's 16 experts drawn as ``init_params`` draws them (normal
+    over the square root of the fan-in, bf16), one expert at a time;
+    checked against the plain version at both capacities, then timed
+    (prefill in batches of one call: about a second each)."""
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+    g = torch.Generator(dev).manual_seed(seed)
+    wi = torch.empty(E, d, 2 * f, dtype=torch.bfloat16, device=dev)
+    wo = torch.empty(E, f, d, dtype=torch.bfloat16, device=dev)
+    for e in range(E):
+        wi[e] = torch.randn(d, 2 * f, generator=g, device=dev).mul_(
+            d ** -0.5).bfloat16()
+        wo[e] = torch.randn(f, d, generator=g, device=dev).mul_(
+            f ** -0.5).bfloat16()
+    errs = {}
+    _moe_checks(g, dev, cfg, wi, wo, errs)
+    print(f"moe_dispatch slicing of f {f}: " + ", ".join(
+        f"C = {C}: {md.slicing(E, C, f)} (slices, width)"
+        for C in _moe_shapes(cfg).values()))
+    record = _moe_rows(dev, cfg, wi, wo, reps, errs,
+                       f"{_count(cfg, ff='moe')} a prefill or decode step",
+                       prefill_batch=1)
+    del wi, wo
+    torch.cuda.empty_cache()
+    return record
+
+
+def hybrid_phase(dev, seed: int, reps: int):
+    """The hybrid LM serving path on jamba-1.5-large-398b at full width,
+    cut to one layer of each kind; checked and timed. Its kernels are
+    checked and timed first, before its params exist. Returns its
+    kernels' records and its counts by path."""
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, **HYBRID_CUT)
+    print(f"{HYBRID_ARCH} cut for one card: " + ", ".join(
+        f"{k} {getattr(full, k)} -> {v}" for k, v in HYBRID_CUT.items())
+        + "; every width as published")
+    errs = lm_kernel_checks(dev, cfg, seed)
+    records = lm_kernel_times(dev, cfg, min(reps, 10), errs)
+    records["moe_dispatch"] = hybrid_moe(dev, cfg, seed, min(reps, 3))
+    records["selective_scan"] = scan_kernel(dev, cfg, seed, min(reps, 10))
+    torch.cuda.empty_cache()
+
+    model, params = _init(dev, cfg, seed)
+    toks, eng, rng, by_path, step = serve_path(dev, cfg, model, params,
+                                               seed)
+    first = [k.ff for k in model.period].index("moe")
+    for name, fn in (("prefill", lambda: model.prefill(params, toks)),
+                     ("decode", step)):
+        share = _first_moe_dropped(fn, cfg)
+        print(f"{cfg.name} {name}: {share:.4f} of layer {first}'s expert "
+              f"assignments dropped by capacity (C = "
+              f"{_moe_shapes(cfg)[name]})")
+
+    # decode matches prefill where neither drops (C >= T at T = 64): with
+    # the random routers (printed: a token routed apart on the two paths
+    # moves the logits), then held with the routers zeroed, where both
+    # paths route every token to experts 0 and 1
+    m8 = get_model(dataclasses.replace(cfg, moe_capacity=NO_DROP_CAPACITY))
+    moe_layers = _count(cfg, ff="moe")
+    got, want, apart = _decode_vs_prefill(dev, m8, params, toks[:1, :64],
+                                          cfg)
+    print(f"decode (64 steps) vs prefill, capacity factor "
+          f"{NO_DROP_CAPACITY}, random routers: logits max abs err "
+          f"{float((got - want).abs().max()):.3g} (logits std "
+          f"{float(want.std()):.3g}); (token, layer) pairs routed apart: "
+          f"{apart} of {64 * moe_layers}")
+    tied = dict(params, stack=[
+        dict(layer, moe=dict(layer["moe"], router=torch.zeros_like(
+            layer["moe"]["router"]))) if "moe" in layer else layer
+        for layer in params["stack"]])
+    got, want, apart = _decode_vs_prefill(dev, m8, tied, toks[:1, :64], cfg)
+    e = _compare("decode vs prefill", {"l": got}, {"l": want}, 0.0,
+                 DECODE_ATOL)
+    print(f"check decode (64 steps) vs prefill, capacity factor "
+          f"{NO_DROP_CAPACITY}, routers zeroed, logits max abs err {e:.3g} "
+          f"(atol {DECODE_ATOL}, rtol 0; logits std "
+          f"{float(want.std()):.3g}); pairs routed apart: {apart}")
+    del params, tied, eng, step
+    torch.cuda.empty_cache()
+
+    # the card (kernels) against the CPU (plain versions): one period of
+    # the smoke config, its routers zeroed (widths cut: the CPU would
+    # need 46 GB at full width)
+    sm = get_config(HYBRID_ARCH, smoke=True)
+    sm = dataclasses.replace(sm, n_layers=len(sm.layer_pattern()))
+    m2 = get_model(sm)
+    p_cpu = init_params(m2.blueprint(), torch.Generator().manual_seed(seed))
+    for layer in p_cpu["stack"]:
+        if "moe" in layer:
+            layer["moe"]["router"].zero_()
+    toks2 = torch.from_numpy(rng.integers(0, sm.vocab, (2, 128)))
+    want2 = m2.prefill(p_cpu, toks2)
+    _zero_counts()
+    got2 = m2.prefill(tree_map(lambda a: a.to(dev), p_cpu), toks2.to(dev))
+    torch.cuda.synchronize()
+    rtol, atol = SMOKE_TOL
+    e = _compare("smoke period card vs cpu", {"l": got2.cpu()[:, :sm.vocab]},
+                 {"l": want2[:, :sm.vocab]}, rtol, atol)
+    print(f"check {sm.name} one period ({sm.n_layers} layers, d_model "
+          f"{sm.d_model}, routers zeroed) prefill (2 x 128) card vs cpu "
+          f"logits max abs err {e:.3g} (atol {atol}, rtol {rtol}); card "
+          f"launches {_counts()}")
+    return records, by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -824,9 +1069,9 @@ def main() -> int:
     for name, (bench, bufs, sc, params, ck) in cases.items():
         srcs[name] = sx.kernel_source(
             ck.fn, params, {k: torch.from_numpy(v) for k, v in bufs.items()})
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         lm_built = {m.KERNEL.kind: pool.submit(m.KERNEL.build)
-                    for m in (rn, fa, md)}
+                    for m in (rn, fa, md, ss)}
         built = sx.build_many(list(srcs.values()))
         for kind, fut in lm_built.items():
             so, secs = fut.result()
@@ -932,8 +1177,8 @@ def main() -> int:
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library_ms})
 
-    # 6. the LM serving paths, dense and MoE; each kernel's record counts
-    # its launches on every path
+    # 6. the LM serving paths, dense, MoE and hybrid; each kernel's record
+    # counts its launches on every path
     t0 = time.perf_counter()
     lm_records, paths = lm_phase(dev, args.seed, args.reps)
     print(f"lm phase {LM_ARCH} {time.perf_counter() - t0:.1f} s")
@@ -944,6 +1189,13 @@ def main() -> int:
     lm_records["flash_attention"]["d128"] = moe_records.pop(
         "flash_attention_d128")
     lm_records.update(moe_records)
+    t0 = time.perf_counter()
+    hybrid_records, hybrid_paths = hybrid_phase(dev, args.seed, args.reps)
+    print(f"lm phase {HYBRID_ARCH} {time.perf_counter() - t0:.1f} s")
+    paths.update(hybrid_paths)
+    for name in ("rmsnorm", "flash_attention", "moe_dispatch"):
+        lm_records[name]["jamba"] = hybrid_records.pop(name)
+    lm_records.update(hybrid_records)
     for name, r in lm_records.items():
         src, replaces = LM_SOURCES[name]
         per_path = {p: n[name] for p, n in paths.items()}

@@ -69,7 +69,8 @@ def init_params(bp: Tree, generator: torch.Generator,
                   else (l.shape[-2] if len(l.shape) >= 2 else l.shape[-1]))
         w = torch.randn(l.shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
-        return (w * (1.0 / math.sqrt(max(1, fan_in)))).to(device, l.dtype)
+        # in place: a leaf of a large expert layer is 26 GB in float32
+        return w.mul_(1.0 / math.sqrt(max(1, fan_in))).to(device, l.dtype)
 
     return tree_map(one, bp)
 

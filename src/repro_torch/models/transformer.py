@@ -1,30 +1,33 @@
-"""Unified LM assembly: the attention paths of the reference's LM, with
-dense or MoE feed-forward.
+"""Unified LM assembly: the attention and mamba paths of the reference's
+LM, with dense or MoE feed-forward.
 
 Port of ``repro.models.transformer``. A model is a stack of identical
 *periods*; a period is a short list of layers. Params of a period are
 stacked on a leading axis, as in the reference, and a Python loop over
 that axis takes the place of ``lax.scan``.
 
-Decode carries a per-period cache tree (KV pages for attention layers),
-stacked the same way. Unlike the reference, ``decode_step`` writes the
-new keys and values into the cache in place (one indexed store per
-layer instead of a one-hot select over the whole cache) and returns the
-same cache object. A step that fails part-way and is run again with the
-same tokens and positions writes the same rows, so a retry is
-idempotent.
+Decode carries a per-period cache tree (KV pages for attention layers,
+the conv and SSM states for mamba layers), stacked the same way. Unlike
+the reference, ``decode_step`` updates the cache in place and returns
+the same cache object: it writes the new keys and values (one indexed
+store per layer instead of a one-hot select over the whole cache) and
+advances the recurrent states. A step that fails part-way and is run
+again with the same tokens and positions writes the same KV rows, so for
+KV pages a retry is idempotent; a recurrent state it advanced is not
+rolled back.
 
 The config's ``attn_impl``, ``attn_chunk``, ``attn_skip_masked_blocks``
 and ``attn_unroll_kv`` are the reference's XLA lowering choices; the
 port reads none of them, and prefill's attention always goes through the
 flash_attention kernel.
 
-Ported: attention mixers with dense feed-forward (granite-style) or MoE
-feed-forward (olmoe-style, ``models/moe.py``, with an optional shared
-MLP). As in the reference, an MoE layer runs sequentially even under
-``parallel_block``, and its load-balancing loss is dropped outside
-training. The other mixers, the encoder-decoder stack and the training
-loss raise ``NotImplementedError`` naming their ROADMAP item.
+Ported: attention and mamba mixers (``models/ssm.py``, jamba-style
+hybrids) with dense feed-forward (granite-style) or MoE feed-forward
+(olmoe-style, ``models/moe.py``, with an optional shared MLP). As in the
+reference, an MoE layer runs sequentially even under ``parallel_block``,
+and its load-balancing loss is dropped outside training. The xLSTM
+mixers, the encoder-decoder stack and the training loss raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 from ..device import resolve_device
 from . import layers as L
 from . import moe as MOE
+from . import ssm as SSM
 from .blueprint import Leaf, leaf, tree_map
 
 Params = Any
@@ -63,8 +67,7 @@ def _stack_bp(bp, n: int):
                        else l.scale_dim + 1), bp)
 
 
-_MIXER_ITEM = {"mamba": "A6/B5 (models/ssm.py)",
-               "mlstm": "A6 (models/xlstm.py)",
+_MIXER_ITEM = {"mlstm": "A6 (models/xlstm.py)",
                "slstm": "A6 (models/xlstm.py)",
                "attn_cross": "A11 (encoder-decoder)"}
 
@@ -82,12 +85,16 @@ class LM:
     # -- blueprints -----------------------------------------------------------
     def _layer_bp(self, kind: LayerKind):
         c = self.cfg
-        if kind.mixer != "attn":
+        bp: Dict[str, Any] = {"ln1": L.rmsnorm_bp(c.d_model)}
+        if kind.mixer == "attn":
+            bp["attn"] = L.attn_bp(c.d_model, c.n_heads, c.n_kv_heads,
+                                   c.head_dim)
+        elif kind.mixer == "mamba":
+            bp["mamba"] = SSM.mamba_bp(c.d_model, c.ssm_d_inner,
+                                       c.ssm_d_state, c.ssm_d_conv)
+        else:
             raise _not_ported(f"the {kind.mixer} mixer",
                               _MIXER_ITEM.get(kind.mixer, "A6"))
-        bp: Dict[str, Any] = {"ln1": L.rmsnorm_bp(c.d_model),
-                              "attn": L.attn_bp(c.d_model, c.n_heads,
-                                                c.n_kv_heads, c.head_dim)}
         if kind.ff == "dense":
             bp["ln2"] = L.rmsnorm_bp(c.d_model)
             bp["mlp"] = L.mlp_bp(c.d_model, c.d_ff, c.gated_mlp)
@@ -125,10 +132,15 @@ class LM:
                      causal: bool):
         c = self.cfg
         h = L.rmsnorm(p["ln1"], x)
-        mix = L.gqa_attention(
-            p["attn"], h, positions, n_heads=c.n_heads,
-            n_kv=c.n_kv_heads, causal=causal, rope_theta=c.rope_theta,
-            use_rope=(c.pos != "none"))
+        if kind.mixer == "mamba":
+            mix = SSM.mamba_scan_chunked(p["mamba"], h,
+                                         d_state=c.ssm_d_state,
+                                         chunk=c.ssm_chunk)
+        else:
+            mix = L.gqa_attention(
+                p["attn"], h, positions, n_heads=c.n_heads,
+                n_kv=c.n_kv_heads, causal=causal, rope_theta=c.rope_theta,
+                use_rope=(c.pos != "none"))
         if c.parallel_block and kind.ff == "dense":
             # Cohere-style: attn and FF read the same normed input
             return x + mix + L.mlp(p["mlp"], h, c.gated_mlp)
@@ -166,10 +178,17 @@ class LM:
     # -- decode -----------------------------------------------------------------
     def _layer_cache(self, kind: LayerKind, B: int, S_max: int, device):
         c = self.cfg
+        n = self.n_periods
+        if kind.mixer == "mamba":
+            return {"conv": torch.zeros((n, B, c.ssm_d_conv - 1,
+                                         c.ssm_d_inner),
+                                        dtype=torch.bfloat16, device=device),
+                    "ssm": torch.zeros((n, B, c.ssm_d_inner, c.ssm_d_state),
+                                       dtype=torch.float32, device=device)}
         if kind.mixer != "attn":
             raise _not_ported(f"the {kind.mixer} decode cache",
                               _MIXER_ITEM.get(kind.mixer, "A6"))
-        shape = (self.n_periods, B, S_max, c.n_kv_heads, c.head_dim)
+        shape = (n, B, S_max, c.n_kv_heads, c.head_dim)
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
@@ -178,6 +197,14 @@ class LM:
         ``device`` says otherwise."""
         dev = resolve_device(device)
         return [self._layer_cache(k, B, S_max, dev) for k in self.period]
+
+    def recurrent_state(self, cache):
+        """The cache's recurrent leaves (those of mamba layers), each
+        (n_periods, B, ...): state that a decode step advances for every
+        slot it runs, where KV pages only gain a row. Empty for a model
+        of attention layers only."""
+        return [t for kind, layer in zip(self.period, cache)
+                if kind.mixer == "mamba" for t in layer.values()]
 
     def decode_step(self, params, cache, tokens, pos, enc_out=None):
         """tokens: (B,1) int; pos: (B,) current lengths.
@@ -200,6 +227,10 @@ class LM:
     def _decode_layer(self, kind: LayerKind, p, cache, x, positions, pos):
         c = self.cfg
         h = L.rmsnorm(p["ln1"], x)
+        if kind.mixer == "mamba":
+            mix, _ = SSM.mamba_decode_step(p["mamba"], h, cache,
+                                           d_state=c.ssm_d_state)
+            return self._ff(kind, p, x + mix)
         q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
         k = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wk"])
         v = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wv"])

@@ -14,10 +14,22 @@ sites) are retried with deterministic jittered backoff before the
 affected requests are failed. The engine itself never dies.
 
 The model runs where its params are (the card in a deployment, the CPU
-in the tests). ``decode_step`` is a plain call and writes the KV cache
-in place; the ``serve.decode`` site fires before it, so a retry after an
+in the tests). ``decode_step`` is a plain call and updates the cache in
+place; the ``serve.decode`` site fires before it, so a retry after an
 injected fault runs on unchanged state, and a rerun of a step that
-failed part-way writes the same cache rows.
+failed part-way writes the same KV rows.
+
+Recurrent state (the mamba layers' conv and SSM states) differs from KV
+rows: every slot that a step runs is advanced, and a slot's state holds
+everything the slot has seen. So, unlike the reference (ROADMAP C9), the
+engine zeroes a slot's recurrent state when it starts to feed a prompt
+into it, and a prompt-feed step, which runs filler tokens in every
+other slot, leaves the other slots' recurrent state as it found it: it
+copies their rows of the recurrent leaves before the step and writes
+them back after. Each request then gets the tokens it would get alone,
+where an MoE layer's capacity drops nothing (the slots of a step still
+compete for expert capacity, ROADMAP C7 and C8). A model of attention
+layers only has no recurrent leaves and copies nothing.
 """
 from __future__ import annotations
 
@@ -68,6 +80,7 @@ class ServeEngine:
         self.queue: "collections.deque[Request]" = collections.deque()
         self.active: List[Optional[Request]] = [None] * slots
         self.cache = model.init_cache(slots, max_seq, device=self.device)
+        self._recurrent = model.recurrent_state(self.cache)
         self.pos = np.zeros((slots,), np.int32)
         self.last_tok = np.zeros((slots,), np.int32)
         self.telemetry: Dict[str, int] = collections.defaultdict(int)
@@ -146,13 +159,24 @@ class ServeEngine:
                 f"({self.max_seq})")
         # feed all but the last prompt token through decode_step;
         # step() feeds the last one and samples the first new token.
-        # Restarting from pos 0 rewrites the same KV rows, so a retry
-        # after a mid-prefill transient is idempotent.
+        # Restarting from pos 0 with a zero recurrent state rewrites the
+        # same KV rows and states, so a retry after a mid-prefill
+        # transient is idempotent.
         self.pos[s] = 0
+        for t in self._recurrent:
+            t[:, s].zero_()
+        others = torch.tensor([o for o in range(self.slots) if o != s],
+                              dtype=torch.long, device=self.device
+                              ) if self._recurrent else None
         for t in req.prompt[:-1]:
             tok = np.zeros((self.slots, 1), np.int32)
             tok[s, 0] = int(t)
-            self._decode(tok, self.pos)
+            kept = [r[:, others] for r in self._recurrent]
+            try:
+                self._decode(tok, self.pos)
+            finally:
+                for r, k in zip(self._recurrent, kept):
+                    r[:, others] = k
             self.pos[s] += 1
         self.last_tok[s] = int(req.prompt[-1])
 

@@ -45,7 +45,10 @@ def _inputs(dev, shape, dtype, seed=0):
 @pytest.mark.parametrize("shape", [
     (4, 128, 64, 32), (2, 256, 32, 64), (8, 128, 128, 16),   # Pallas sweep
     (8, 1, 2048, 1024), (3, 40, 128, 64), (2, 130, 100, 300),
-    (64, 17, 256, 96)])
+    (64, 17, 256, 96),
+    # f past the first kernel's 3552, sliced: C = 1 (decode), C > 1
+    (2, 1, 64, 4000), (16, 1, 256, 3000), (4, 1, 1024, 24576),
+    (3, 40, 128, 3600), (2, 20, 100, 2050)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_expert_ff_kernel_matches_plain(cuda, shape, dtype):
     x, wi, wo = _inputs(cuda, shape, dtype)
@@ -67,9 +70,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                              wi, wo)
     with pytest.raises(ValueError, match="one CUDA device"):
         MD.grouped_expert_ff(x, wi.cpu(), wo)
-    big = _inputs(cuda, (1, 2, 16, 4000), torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        MD.grouped_expert_ff(*big)
+    odd = torch.zeros(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MD.grouped_expert_ff(odd, wi, wo)
     before = MD.LAUNCHES
     empty = MD.grouped_expert_ff(x[:, :0], wi, wo)
     assert empty.shape == (2, 0, 16) and MD.LAUNCHES == before

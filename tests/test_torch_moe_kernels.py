@@ -8,7 +8,8 @@ The CUDA kernel against its plain version, on a card, is in
 Tolerances are those of ``tests/test_kernels.py``: 1e-5 in float32 and
 3e-2 in bfloat16 (both sides compute in float32 and round the output to
 bf16 once). The host run of the CUDA source is held to the plain version
-at 1e-5: the same float32 sums in another order.
+at 1e-5: the same float32 sums in another order (the down product summed
+over slices of the hidden columns, each slice over chunks).
 """
 import ctypes
 import shutil
@@ -69,6 +70,29 @@ def test_plain_ragged_capacity_matches_oracle(C, dtype):
            grouped_expert_ff_ref(jx, jwi, jwo), TOL[dtype])
 
 
+@pytest.mark.parametrize("C", [1, 40])
+def test_plain_wide_expert_matches_oracle(C):
+    """An expert wider than the first kernel took (f > 3552): jamba's
+    experts are 24576 wide."""
+    (jx, x), (jwi, wi), (jwo, wo) = _inputs((2, C, 16, 3600),
+                                            torch.float32, 4)
+    _close(MD.grouped_expert_ff(x, wi, wo),
+           grouped_expert_ff_ref(jx, jwi, jwo), TOL[torch.float32])
+
+
+@pytest.mark.parametrize("E,C,f,want", [
+    (16, 1, 24576, (16, 1536)),     # jamba decode: 256 CTAs
+    (64, 1, 1024, (4, 256)),        # olmoe decode: 256 CTAs
+    (16, 1280, 24576, (1, 24576)),  # jamba prefill: 1280 CTAs already
+    (64, 1280, 1024, (1, 1024)),    # olmoe prefill
+    (8, 40, 64, (1, 256)),          # smoke prefill: f is one slice
+    (2, 1, 300, (2, 256))])
+def test_slicing_covers_f_and_fills_the_grid(E, C, f, want):
+    n, fs = MD.slicing(E, C, f)
+    assert (n, fs) == want
+    assert (n - 1) * fs < f <= n * fs
+
+
 def test_zero_capacity_gives_an_empty_output():
     x = torch.zeros(4, 0, 16)
     y = MD.grouped_expert_ff(x, torch.zeros(4, 16, 8), torch.zeros(4, 4, 16))
@@ -121,16 +145,55 @@ def host_lib(tmp_path_factory):
     return lib
 
 
+def _host_run(lib, x, wi, wo, n_slices, fs):
+    """The kernel's output, its workspace filled with NaN first: a row
+    the kernel forgot to write would show."""
+    E, C, d = x.shape
+    f = wo.shape[1]
+    ws = torch.full((n_slices, E, C, d), float("nan"))
+    y = torch.full_like(x, float("nan"))
+    err = lib.moe_ff_f32(x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+                         ws.data_ptr(), y.data_ptr(), E, C, d, f, fs,
+                         n_slices, None)
+    return err, y
+
+
 @pytest.mark.parametrize("shape", [
     (4, 128, 64, 32), (2, 256, 32, 64), (8, 128, 128, 16),   # Pallas sweep
     (3, 1, 64, 48), (2, 40, 128, 64), (2, 130, 64, 48),      # ragged C
     (2, 17, 70, 300),     # d past one k tile, f past one 256-column chunk
 ])
 def test_source_matches_plain_on_host(shape, host_lib):
+    """At the wrapper's own slicing."""
     (_, x), (_, wi), (_, wo) = _inputs(shape, torch.float32, 3)
-    y = torch.full_like(x, float("nan"))
     E, C, d, f = shape
-    err = host_lib.moe_ff_f32(x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
-                              y.data_ptr(), E, C, d, f, None)
+    err, y = _host_run(host_lib, x, wi, wo, *MD.slicing(E, C, f))
     assert err == 0
     _close(y, MD.grouped_expert_ff_plain(x, wi, wo).numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("shape,n_slices,fs", [
+    ((3, 1, 72, 600), 3, 256),      # C = 1: several slices, a short last
+    ((1, 1, 40, 2100), 9, 256),     # C = 1: many slices
+    ((1, 1, 24, 2100), 1, 2100),    # C = 1: one slice of two chunks
+    ((2, 40, 24, 3600), 4, 1024),   # C = 40: several slices
+    ((1, 20, 24, 1100), 1, 1100),   # C = 20: one slice of two chunks
+    ((1, 3, 24, 1100), 2, 768),     # a slice of one chunk, the last short
+])
+def test_source_slices_match_plain_on_host(shape, n_slices, fs, host_lib):
+    """Slicings the wrapper picks for other grids, and slices longer than
+    one chunk of hidden columns (1024 at C > 1, 2048 at C = 1), with
+    f > 3552 and d not a multiple of the 8-column loads."""
+    (_, x), (_, wi), (_, wo) = _inputs(shape, torch.float32, 8)
+    err, y = _host_run(host_lib, x, wi, wo, n_slices, fs)
+    assert err == 0
+    _close(y, MD.grouped_expert_ff_plain(x, wi, wo).numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("n_slices,fs", [(2, 500), (3, 600), (1, 1000)])
+def test_source_refuses_a_slicing_that_does_not_cover_f(n_slices, fs,
+                                                        host_lib):
+    """Too few slices, one slice too many, one slice too narrow."""
+    (_, x), (_, wi), (_, wo) = _inputs((1, 3, 8, 1100), torch.float32, 9)
+    err, _ = _host_run(host_lib, x, wi, wo, n_slices, fs)
+    assert err != 0

@@ -70,7 +70,9 @@ def test_port_imports_nothing_of_jax_or_the_reference():
         "'kernels.rmsnorm.rmsnorm', "
         "'kernels.flash_attention.flash_attention', "
         "'configs.olmoe_1b_7b', 'models.moe', "
-        "'kernels.moe_dispatch.moe_dispatch')}\n"
+        "'kernels.moe_dispatch.moe_dispatch', "
+        "'configs.jamba_1_5_large_398b', 'models.ssm', "
+        "'kernels.selective_scan.selective_scan')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

@@ -14,7 +14,15 @@ its logits agree at ``TOL`` (that of ``test_torch_lm.py``; measured
 (twice the measured error, rounded up) the two choose the same token.
 Measured on the seed below: 32 calls, 28 token choices, three of them
 near ties (gaps 0.016, 0.031, 0.031) where both still chose alike.
+
+A hybrid model carries recurrent state, which every decode step advances
+for every slot. jamba's smoke LM (one period, capacity factor 8 so that
+no step drops an assignment) gives each request its solo tokens in the
+port's engine, served in a batch or after another request in a reused
+slot; the reference's engine does not (ROADMAP C9).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -360,3 +368,115 @@ def test_launcher_serves_on_the_cpu(capsys):
                 "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 3 and all(l.startswith("[serve] req") for l in lines)
+
+
+# --------------------------------------------------------------------------
+# recurrent state: jamba's smoke LM, one period
+# --------------------------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+#: one period; at capacity factor 8 an engine of 1 slot or of 4 or more
+#: drops no assignment (C = 1 for one token's two experts, C = 8 >= T
+#: for T = 4 tokens; at T = 2 the floor gives C = 1, ROADMAP C7)
+NO_DROPS = dict(n_layers=8, moe_capacity=8.0)
+
+
+@pytest.fixture(scope="module")
+def jamba_models():
+    """(reference LM, its params, port LM, the same params, prompts)."""
+    ref = ref_get_model(dataclasses.replace(
+        ref_get_config(JAMBA, smoke=True), **NO_DROPS))
+    ref_params = ref_init_params(ref.blueprint(), jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(get_config(JAMBA, smoke=True), **NO_DROPS)
+    model = get_model(cfg)
+    params = lm_params_from_numpy(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params),
+        "cpu", model.blueprint())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 7))
+                            ).astype(np.int32) for _ in range(3)]
+    return ref, ref_params, model, params, prompts
+
+
+def _arrangements(engine, request, model, params, prompts):
+    """Each request's tokens: alone in a fresh 1-slot engine, one after
+    another in a reused 1-slot engine, and together on 4 slots."""
+    def serve(slots, groups):
+        outs = []
+        for group in groups:
+            eng = engine(model, params, slots=slots, max_seq=32)
+            reqs = [request(rid=i, prompt=prompts[i], max_new=4)
+                    for i in group]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_drained()
+            outs += [r.out for r in reqs]
+        return outs
+
+    every = list(range(len(prompts)))
+    return (serve(1, [[i] for i in every]), serve(1, [every]),
+            serve(4, [every]))
+
+
+def test_jamba_requests_get_their_solo_tokens(jamba_models):
+    *_, model, params, prompts = jamba_models
+    solo, reused, batch = _arrangements(ServeEngine, Request, model, params,
+                                        prompts)
+    assert reused == solo
+    assert batch == solo
+
+
+def test_reference_engine_leaks_recurrent_state(jamba_models):
+    """ROADMAP C9, on the reference's engine as it is: a request after
+    another in a reused slot inherits its recurrent state, and a prompt
+    fed into one slot advances every other slot's."""
+    ref, ref_params, *_, prompts = jamba_models
+    solo, reused, batch = _arrangements(RefServeEngine, RefRequest, ref,
+                                        ref_params, prompts)
+    assert reused[0] == solo[0]
+    assert reused[1:] != solo[1:]
+    assert batch != solo
+
+
+def test_prompt_feed_keeps_other_slots_states(jamba_models):
+    """Admitting a request zeroes its slot's recurrent rows before the
+    feed and leaves every other slot's rows as they were; an
+    attention-only model has no recurrent leaves to copy."""
+    *_, model, params, prompts = jamba_models
+    eng = ServeEngine(model, params, slots=3, max_seq=32)
+    assert len(eng._recurrent) == 2 * 7
+    for t in eng._recurrent:
+        t.normal_()
+    before = [t.clone() for t in eng._recurrent]
+    seen = []
+    decode = eng._decode
+
+    def spy(toks, pos):
+        seen.append([t[:, 1].clone() for t in eng._recurrent])
+        return decode(toks, pos)
+
+    eng._decode = spy
+    eng._prefill(1, Request(rid=0, prompt=prompts[0], max_new=2))
+    assert len(seen) == len(prompts[0]) - 1
+    assert all((t == 0).all() for t in seen[0])
+    for t, b in zip(eng._recurrent, before):
+        assert torch.equal(t[:, [0, 2]], b[:, [0, 2]])
+        assert not torch.equal(t[:, 1], b[:, 1])
+    granite = ServeEngine(*_both("granite-3-2b")[3:], slots=2, max_seq=16)
+    assert granite._recurrent == []
+
+
+def test_jamba_transient_faults_are_retried_on_clean_state(jamba_models):
+    *_, model, params, prompts = jamba_models
+    solo = _arrangements(ServeEngine, Request, model, params, prompts)[0]
+    with faults.inject("serve.prefill", prob=0.5, seed=3) as pre, \
+            faults.inject("serve.decode", prob=0.3, seed=4):
+        eng = ServeEngine(model, params, slots=4, max_seq=32, retries=8,
+                          backoff_ms=0.05)
+        reqs = [Request(rid=i, prompt=p, max_new=4)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+    assert pre.fired > 0
+    assert [r.out for r in reqs] == solo
