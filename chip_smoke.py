@@ -40,7 +40,11 @@ decode) and the tokens routed apart by card and CPU.
 Each kernel's launches are counted on each path (counts set to 0 just
 before, read just after): a record's ``launches_by_path`` gives each
 path's own count (``compiler``; ``<model>/prefill`` and
-``<model>/serve``) and ``launches`` their sum. Each kernel is timed, and
+``<model>/serve``) and ``launches`` their sum. flash_attention and
+moe_dispatch also count by route (``launches_by_route``: tensor_cores or
+cuda_cores, on each path); every launch of theirs on the three prefill
+paths must take the tensor cores. nvcc's ``-Xptxas -v`` registers and
+spills of the tensor-core kernels are printed after the build. Each kernel is timed, and
 the script prints one JSON line of kernel records and a last line
 ``{"ok": true, "device": {...}}``.
 
@@ -68,18 +72,27 @@ check lines print both):
     tests/test_kernels.py); outputs of randn rows and scales have a
     median |y| of about 0.45, one bf16 ulp at most 0.0078 of |y|.
   * flash_attention at the paths' shapes (4, 32, 2048, 64),
-    (4, 16, 2048, 128) and (4, 64, 2048, 128) with 8 KV heads, causal: bf16 rtol 1e-2, atol 2e-3; float32
-    rtol = atol = 2e-5. With randn q, k, v the softmax weights of a row
-    of n keys act as about n / e equal ones, so |o| is about
-    (e / n) ** 0.5: a median over all elements of about 0.035, up to
-    about 4 in the first rows. The rtol covers one bf16 ulp (at most
-    0.0078 of |o|, as both sides round one float32 result) and the atol
-    sits well below the median |o|, so a dropped or doubled key tile or a
-    wrong scale in a late row fails.
+    (4, 16, 2048, 128) and (4, 64, 2048, 128) with 8 KV heads, causal:
+    bf16 rtol 1e-2, atol 2e-3; float32 rtol = atol = 2e-5. With randn q,
+    k, v the softmax weights of a row of n keys act as about n / e equal
+    ones, so |o| is about (e / n) ** 0.5: a median over all elements of
+    about 0.035, up to about 4 in the first rows. The rtol covers one
+    bf16 ulp (at most 0.0078 of |o|) and the atol sits well below the
+    median |o|, so a dropped or doubled key tile or a wrong scale in a
+    late row fails. The plain version rounds one float32 result; the
+    bf16 route (tensor cores) also rounds the softmax weights P between
+    its two products, into two bf16 parts hi + lo that carry P to about
+    2^-16, so its output too is within about one ulp of the float32
+    result. (P in one bf16 part, 2^-8, misses this tolerance where a few
+    keys carry a row's weight, as in the first rows of a causal head.)
   * moe_dispatch at (64, 1280, 2048) and (64, 1, 2048), f 1024, and at
     (16, 1280, 8192) and (16, 1, 8192), f 24576, bf16: rtol 1e-2 (one
-    bf16 ulp of the output, both sides round one float32 result), atol
-    2e-3, well below the median |y| printed beside it.
+    bf16 ulp of the output), atol 2e-3, well below the median |y|
+    printed beside it. The plain version rounds one float32 result; at
+    C > 1 the bf16 route (tensor cores) also rounds the hidden
+    silu(g) * u between its two products, into two bf16 parts hi + lo
+    (about 2^-16); at C = 1 (CUDA cores) the hidden stays float32. (The
+    hidden in one bf16 part misses this tolerance at these widths.)
   * selective_scan at (4, 256, 16384, 16), the chunk the path scans:
     float32 rtol = atol = 1e-5 (the same float32 recurrence, the dot
     product summed in another order), bf16 rtol 1e-2 (one bf16 ulp of
@@ -114,6 +127,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -386,13 +400,43 @@ def _count(cfg, mixer=None, ff=None) -> int:
         k.mixer == mixer or k.ff == ff for k in period)
 
 
+#: launches of the two-route kernels by route, on each counted path
+ROUTE_COUNTS: dict = {}
+ROUTED = {"flash_attention": fa, "moe_dispatch": md}
+
+
 def _zero_counts() -> None:
     for m in KERNELS.values():
         m.LAUNCHES = 0
+    for m in ROUTED.values():
+        m.LAUNCHES_BY_ROUTE.update(dict.fromkeys(m.LAUNCHES_BY_ROUTE, 0))
 
 
 def _counts() -> dict:
     return {k: m.LAUNCHES for k, m in KERNELS.items()}
+
+
+def _route_counts() -> dict:
+    return {k: dict(m.LAUNCHES_BY_ROUTE) for k, m in ROUTED.items()}
+
+
+def _ptxas_lines(kernel) -> list:
+    """Registers and spills of each tensor-core entry in the kernel's
+    nvcc log (built with -Xptxas=-v)."""
+    out, name = [], None
+    for line in kernel.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(fa_tc_kernel|moe_up_tc|moe_down_tc)(ILi(\d+))?",
+                          m.group(1))
+            name = None if k is None else k.group(1) + (
+                f"<{k.group(3)}>" if k.group(3) else "")
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            out.append(f"{name}: {line.split('Used ')[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 def _rms_inputs(g, dev, N, d, dtype):
@@ -716,6 +760,13 @@ def serve_path(dev, cfg, model, params, seed):
     _zero_counts()
     logits, first_s = _sync_s(lambda: model.prefill(params, toks))
     per_prefill = _counts()
+    routes = _route_counts()
+    for name, by_route in routes.items():
+        if by_route != {"tensor_cores": per_prefill[name], "cuda_cores": 0}:
+            raise AssertionError(f"{arch} prefill: {name} launched "
+                                 f"{by_route} by route; every launch must "
+                                 "take the tensor cores")
+    ROUTE_COUNTS[f"{arch}/prefill"] = routes
     want = {"simt_exec": 0, "rmsnorm": 2 * L + 1,
             "flash_attention": _count(cfg, "attn"),
             "moe_dispatch": moe_layers,
@@ -728,8 +779,8 @@ def serve_path(dev, cfg, model, params, seed):
             or not torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                              "not finite or of the wrong shape")
-    print(f"{arch} prefill main path: launches per call {per_prefill}; "
-          f"first call {first_s:.3f} s")
+    print(f"{arch} prefill main path: launches per call {per_prefill}, by "
+          f"route {routes}; first call {first_s:.3f} s")
 
     rng = np.random.default_rng(seed)
     eng = ServeEngine(model, params, slots=SERVE_SLOTS,
@@ -742,6 +793,7 @@ def serve_path(dev, cfg, model, params, seed):
     _zero_counts()
     _, serve_s = _sync_s(eng.run_until_drained)
     per_serve = _counts()
+    ROUTE_COUNTS[f"{arch}/serve"] = _route_counts()
     bad = [(r.rid, r.error, len(r.out)) for r in reqs
            if not r.done or r.error or len(r.out) != SERVE_NEW]
     if (bad or per_serve["rmsnorm"] < 1 or per_serve["simt_exec"]
@@ -754,7 +806,8 @@ def serve_path(dev, cfg, model, params, seed):
     print(f"{arch} serve main path: {SERVE_REQUESTS} requests "
           f"({prompt_toks} prompt tokens, {gen} generated) on "
           f"{SERVE_SLOTS} slots in {serve_s:.3f} s, {gen / serve_s:.1f} "
-          f"generated tokens/s; launches {per_serve}")
+          f"generated tokens/s; launches {per_serve}, by route "
+          f"{ROUTE_COUNTS[f'{arch}/serve']}")
     by_path = {f"{arch}/prefill": per_prefill, f"{arch}/serve": per_serve}
 
     times = [_sync_s(lambda: model.prefill(params, toks))[1]
@@ -1079,6 +1132,9 @@ def main() -> int:
     for name, (so, secs) in zip(srcs, built):
         print(f"build {name:13s} {so.name[:12]} nvcc {secs:.1f} s")
     print(f"build total {time.perf_counter() - t0:.1f} s")
+    for m in ROUTED.values():
+        for line in _ptxas_lines(m.KERNEL):
+            print(f"ptxas {line}")
 
     # 3. the main path at full size, counted
     _zero_counts()
@@ -1199,10 +1255,12 @@ def main() -> int:
     for name, r in lm_records.items():
         src, replaces = LM_SOURCES[name]
         per_path = {p: n[name] for p, n in paths.items()}
+        by_route = {} if name not in ROUTED else {"launches_by_route": {
+            p: n[name] for p, n in ROUTE_COUNTS.items()}}
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(per_path.values()),
-                        "launches_by_path": per_path, **r})
+                        "launches_by_path": per_path, **by_route, **r})
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,12 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-#: sm_90a: the H100's target with wgmma and setmaxnreg
+#: headers shared by the hand-written kernels (``sm90.cuh``)
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: sm_90a: the H100's target with wgmma and setmaxnreg; ptxas prints each
+#: kernel's registers and spills into the build log
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 
 def source_key(src: str, headers: Sequence[Path], flags: Sequence[str]
@@ -42,11 +45,13 @@ def nvcc() -> str:
 
 
 def build_many(kind: str, sources: List[str], *, flags: Sequence[str],
-               include: Path, headers: Sequence[Path] = ()
+               include: Sequence[Path], headers: Sequence[Path] = ()
                ) -> List[Tuple[Path, float]]:
     """Build every source not built yet, one nvcc process each, all
-    started together. Returns each shared library with the seconds its
-    nvcc took (0.0 where it was built already), in order."""
+    started together, with ``-I`` for each directory of ``include``;
+    ``headers`` are the files the sources include, hashed into the key.
+    Returns each shared library with the seconds its nvcc took (0.0
+    where it was built already), in order."""
     build_dir = BUILD_ROOT / kind
     build_dir.mkdir(parents=True, exist_ok=True)
     outs, procs = [], {}
@@ -60,7 +65,8 @@ def build_many(kind: str, sources: List[str], *, flags: Sequence[str],
         cu = build_dir / f"{key}.cu"
         cu.write_text(src)
         tmp = build_dir / f"{key}.{os.getpid()}.tmp.so"
-        cmd = [nvcc(), *flags, "-I", str(include), "-o", str(tmp), str(cu)]
+        cmd = [nvcc(), *flags, *(f"-I{d}" for d in include), "-o", str(tmp),
+               str(cu)]
         log = build_dir / f"{key}.log"
         with open(log, "w") as f:
             procs[so] = (tmp, log, subprocess.Popen(
@@ -86,16 +92,38 @@ def build_many(kind: str, sources: List[str], *, flags: Sequence[str],
 class SourceKernel:
     """A kernel library built from one ``.cu`` file of the checkout, at
     first use. ``argtypes`` gives the ctypes signature of each exported C
-    function; every function returns ``cudaGetLastError()`` as an int."""
+    function; every function returns ``cudaGetLastError()`` as an int.
+    ``headers`` are the files the source includes: their bytes are part
+    of the build key and their directories are on the include path."""
 
     def __init__(self, kind: str, cu: Path,
-                 argtypes: Dict[str, List[type]]) -> None:
+                 argtypes: Dict[str, List[type]], *,
+                 headers: Sequence[Path] = ()) -> None:
         self.kind, self.cu, self.argtypes = kind, cu, argtypes
+        self.headers = tuple(headers)
         self._lib = None
+
+    def includes(self) -> List[Path]:
+        """The ``-I`` directories: the source's own, then its headers'."""
+        dirs = [self.cu.parent]
+        for h in self.headers:
+            if h.parent not in dirs:
+                dirs.append(h.parent)
+        return dirs
+
+    def key(self) -> str:
+        return source_key(self.cu.read_text(), self.headers, BASE_FLAGS)
 
     def build(self) -> Tuple[Path, float]:
         return build_many(self.kind, [self.cu.read_text()],
-                          flags=BASE_FLAGS, include=self.cu.parent)[0]
+                          flags=BASE_FLAGS, include=self.includes(),
+                          headers=self.headers)[0]
+
+    def build_log(self) -> str:
+        """What nvcc printed when it built this library (ptxas's
+        registers and spills among it); '' where there is no log."""
+        log = BUILD_ROOT / self.kind / f"{self.key()}.log"
+        return log.read_text() if log.exists() else ""
 
     def lib(self):
         if self._lib is None:

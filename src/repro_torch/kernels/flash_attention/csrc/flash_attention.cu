@@ -1,5 +1,10 @@
-// Attention forward with an online softmax: one CTA per (batch, head,
-// 64-row query tile).
+// Attention forward with an online softmax, in two routes:
+//   * tensor cores (bf16, head dim 64 or 128, rows of 16-byte multiples):
+//     fa_tc_kernel, one CTA per (batch, head, 64-row query tile);
+//   * CUDA cores (float32, bf16 at head dim 32 or with rows the copies
+//     cannot take): fa_kernel, one CTA per (batch, head, 64-row tile).
+// The wrapper (flash_attention.py: route) picks the entry from the dtype,
+// the head dim and the row alignment; nothing is tried and given up.
 //
 // Replaces repro/kernels/flash_attention/flash_attention.py:
 // flash_attention (_fa_kernel): softmax(q k^T / sqrt(D), causal mask
@@ -7,32 +12,74 @@
 // the output in q's type.
 //
 // Bound: operations. At S = 2048, D = 64 a query row does 2 * S * D
-// multiply-adds against 4 * D bytes of its own q and o; the tensor cores
-// would make it bound by bytes only at a few hundred FLOP per byte, and
-// this kernel does not use them. The simple design: the query tile stays
-// in shared memory, 32-key tiles of K and V are loaded into shared memory
-// in turn, and four threads share a query row. Each thread computes 8
-// scores of the row, the row's max and sum are reduced over the four
-// threads by warp shuffles, the probabilities go through shared memory,
-// and each thread keeps 1/4 of the row's output accumulator in
-// registers. All arithmetic is float32 on the CUDA cores; wgmma, TMA and
-// a pipeline of tiles are later changes.
+// multiply-adds against 4 * D bytes of its own q and o, far past the
+// H100's 295 bf16 FLOP per byte of device memory: only the tensor cores
+// reach the bound.
 //
-// What differs from the TPU kernel, on purpose:
+// The tensor-core route (sm90.cuh has the wgmma and copy helpers and the
+// tile layout). One warpgroup of 128 threads takes 64 query rows; two
+// CTAs share an SM at D = 128 and three at D = 64 (233 and 165
+// registers a thread), so that one CTA's softmax runs while another's
+// products keep the tensor cores busy:
+//   * q's rows are copied once into shared memory; K and V come in tiles
+//     of 64 keys through a ring of two stages, the next tile's copies in
+//     flight while the current one is used: 41 KB of dynamic shared
+//     memory at D = 64, 81 KB at D = 128. Copies are cp.async, 16 bytes
+//     a thread, written to the 128-byte-swizzled layout (rows past the
+//     end zero-filled): they read q, k and v through their strides and
+//     mask ragged rows one by one, where TMA would need a tensor map
+//     made on the host for every call. TMA's gain, copies that cost no
+//     thread instructions, matters once a producer warp is split off (a
+//     later change).
+//   * S = Q K^T by wgmma m64n64k16 from shared memory (K K-major), into
+//     32 float32 registers a thread.
+//   * the online softmax runs on that fragment: a row's max and sum are
+//     reduced over the 4 threads that hold it (__shfl_xor_sync), 2^x by
+//     ex2.approx with the scale pre-multiplied by log2 e. The causal and
+//     k >= Sk mask is applied only on tiles that cross the diagonal or
+//     the end; tiles above the diagonal are never loaded.
+//   * P stays in registers: the accumulator fragment of S is the A
+//     fragment of O += P V (the register form, RS), so P needs no shared
+//     tile, no proxy fence and no barrier. V is read MN-major (the
+//     transpose bit). P goes in as two bf16 parts, hi = bf16(P) and
+//     lo = bf16(P - hi), two products into one accumulator. hi alone (8
+//     significant bits: an error up to 2^-8 of each weight) puts the
+//     output more than rtol 1e-2 + atol 2e-3 from the float32 softmax in
+//     rows whose weight sits on a few keys, as in the first rows of a
+//     causal head (tests/test_torch_lm_kernels.py holds a rounding model
+//     of both); hi + lo carries P to about 2^-16. It costs half again the
+//     tensor work.
+//   * the epilogue divides by max(l, 1e-20), casts and stores the rows
+//     below Sq.
+// The longest causal query tiles are launched first (blockIdx.x from the
+// last tile down across all heads); heads that share a KV head are
+// adjacent, so their K/V tiles meet in L2.
+//
+// The CUDA-core route: the query tile stays in shared memory, 32-key
+// tiles of K and V are loaded into shared memory in turn, and four
+// threads share a query row. Each thread computes 8 scores of the row,
+// the row's max and sum are reduced over the four threads by warp
+// shuffles, the probabilities go through shared memory, and each thread
+// keeps 1/4 of the row's output accumulator in registers, float32 on
+// the CUDA cores.
+//
+// What both routes change from the TPU kernel, on purpose:
 //   * A causal loop bound in place of @pl.when: key tiles past the last
 //     query row of the tile are never loaded.
 //   * Any Sq and Sk: rows past Sq are not stored, keys past Sk are masked
-//     to -1e30 (as attention_chunked masks a short last chunk).
+//     (as attention_chunked masks a short last chunk).
 //   * K and V may have fewer heads than q (Hkv dividing H): head h reads
 //     KV head h / (H / Hkv), so the 4x copy of _repeat_kv is not made.
 //   * q, k and v are read through their strides (the last dimension must
 //     be contiguous); the output is a contiguous (B, H, Sq, D).
 //
-// Head dims 32, 64 and 128. At D = 128 the four float32 tiles come to
-// 74,368 bytes, over the 48 KB of static shared memory, so that
-// instantiation takes the same tiles from dynamic shared memory
+// Head dims 32, 64 and 128 on the CUDA cores. At D = 128 the four float32
+// tiles come to 74,368 bytes, over the 48 KB of static shared memory, so
+// that instantiation takes the same tiles from dynamic shared memory
 // (fa_kernel_dyn, after cudaFuncSetAttribute); D = 32 and 64 keep their
-// static tiles (fa_kernel). Both run one body, fa_body.
+// static tiles (fa_kernel). Both run one body, fa_body. D = 32 stays on
+// the CUDA cores in bf16 too: its 64-byte rows would need a second
+// swizzle mode, and no path of the port uses it.
 //
 // The float32 instantiations compile with g++ against the stand-in
 // runtime in tests/cuda_host, which runs them on the CPU.
@@ -40,6 +87,7 @@
 #ifdef __CUDACC__
 #include <cuda_bf16.h>
 #endif
+#include "sm90.cuh"
 
 #ifndef VX_LAUNCH
 #define VX_LAUNCH(K, G, B, S, ...) \
@@ -229,28 +277,234 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+#ifdef __CUDACC__
+// ---- the tensor-core route: bf16, D = 64 or 128 -------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int TC_BQ = 64;         // query rows per CTA: one warpgroup
+constexpr int TC_THREADS = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct TcTiles {
+  static constexpr int BK = 64;                  // keys a tile
+  static constexpr int Q_BYTES = TC_BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;     // one of K, V
+  // Q, two stages of K and V, and room to align the start to 1024: 41 KB
+  // at D = 64, 81 KB at D = 128
+  static constexpr int SMEM = Q_BYTES + 2 * 2 * KV_BYTES + 1024;
+  // CTAs an SM holds, as registers allow
+  static constexpr int MIN_CTAS = D == 64 ? 3 : 2;
+};
+
+// R rows of D bf16 from src (ld elements apart) into the column blocks of
+// 64 at dst; rows from ``valid`` on are zero-filled and not read
+template <int R, int D>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const bf16* src,
+                                          long long ld, int valid,
+                                          int tid) {
+  constexpr int CPR = D / 8;      // 16-byte chunks a row
+  static_assert(R * CPR % TC_THREADS == 0, "whole passes of the CTA");
+#pragma unroll
+  for (int i = 0; i < R * CPR / TC_THREADS; ++i) {
+    const int c = tid + i * TC_THREADS;
+    const int r = c / CPR, ch = c % CPR;
+    const bool in = r < valid;
+    sm90::cp_async16(dst + (ch >> 3) * (R * 128) + sm90::swz(r, ch & 7),
+                     src + (in ? r * ld + ch * 8 : 0), in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, TcTiles<D>::MIN_CTAS)
+fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+             int Hkv, int Sq, int Sk, int n_bh, Strides qs, Strides ks,
+             Strides vs, int causal, float scale_log2) {
+  using TL = TcTiles<D>;
+  constexpr int BK = TL::BK;
+  VX_DYN_SMEM(smem);
+  const uint32_t sq = sm90::align1024(smem);
+  const uint32_t skv = sq + TL::Q_BYTES;   // stage s: K, then V
+  // the longest causal tiles first, over all heads
+  const int qt = (int)(gridDim.x / n_bh) - 1 - (int)(blockIdx.x / n_bh);
+  const int bh = (int)(blockIdx.x % n_bh);
+  const int h = bh % H, b = bh / H;
+  const int hk = h / (H / Hkv);
+  const int q0 = qt * TC_BQ;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int r0 = q0 + tid / 32 * 16 + lane / 4;   // rows r0 and r0 + 8
+  const int kv_end = causal ? min(Sk, min(q0 + TC_BQ, Sq)) : Sk;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  copy_rows<TC_BQ, D>(sq, q + b * qs.b + h * qs.h + q0 * qs.s, qs.s,
+                      Sq - q0, tid);
+  copy_rows<BK, D>(skv, kb, ks.s, kv_end, tid);
+  copy_rows<BK, D>(skv + TL::KV_BYTES, vb, vs.s, kv_end, tid);
+  sm90::cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    const uint32_t sk = skv + (t & 1) * 2 * TL::KV_BYTES;
+    const uint32_t sv = sk + TL::KV_BYTES;
+    if (t + 1 < n_tiles) {   // the stage the last tile used
+      const uint32_t nk = skv + ((t + 1) & 1) * 2 * TL::KV_BYTES;
+      const int left = kv_end - k0 - BK;
+      copy_rows<BK, D>(nk, kb + (k0 + BK) * ks.s, ks.s, left, tid);
+      copy_rows<BK, D>(nk + TL::KV_BYTES, vb + (k0 + BK) * vs.s, vs.s,
+                       left, tid);
+    }
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();   // this tile (and q) have landed
+    sm90::fence_async_smem();
+    __syncthreads();
+
+    // S = Q K^T
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::Mma<BK, 0>::ss(
+          s, sm90::desc(sq + (kk >> 2) * (TC_BQ * 128) + (kk & 3) * 32, 16,
+                        1024),
+          sm90::desc(sk + (kk >> 2) * (BK * 128) + (kk & 3) * 32, 16, 1024),
+          1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int col = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        const int row = r0 + ((i >> 1) & 1) * 8;
+        if (col >= Sk || (causal && col > row)) s[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float corr[2], base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r] * scale_log2);
+      corr[r] = mn == -INFINITY ? 1.f : sm90::ex2(m[r] - mn);
+      base[r] = mn == -INFINITY ? 0.f : mn;
+      m[r] = mn;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = sm90::ex2(fmaf(s[i], scale_log2, -base[(i >> 1) & 1]));
+      sum[(i >> 1) & 1] += s[i];
+    }
+    // each thread keeps its part of l; the quad's parts meet at the end
+    l[0] = l[0] * corr[0] + sum[0];
+    l[1] = l[1] * corr[1] + sum[1];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    // P as the A fragments of the next product, split into bf16 high and
+    // low parts: hi + lo carries P to about 2^-16
+    uint32_t hi[BK / 16][4], lo[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        sm90::split_bf16(s[8 * kk + 2 * w], s[8 * kk + 2 * w + 1],
+                         hi[kk][w], lo[kk][w]);
+
+    // O += P V
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = sm90::desc(sv + kk * 2048, BK * 128, 1024);
+      sm90::Mma<D, 1>::rs(acc, hi[kk], dv, 1);
+      sm90::Mma<D, 1>::rs(acc, lo[kk], dv, 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    __syncthreads();   // the stage is free for the tile after next
+  }
+
+  bf16* ob = o + ((long long)b * H + h) * Sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.f / fmaxf(l[r], 1e-20f);
+    const int row = r0 + 8 * r;
+    if (row < Sq) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(ob + (long long)row * D + j * 8 +
+                                     (lane & 3) * 2) =
+            sm90::pack_bf16(acc[4 * j + 2 * r] * inv,
+                            acc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int Hkv, int Sq, int Sk, long long qsb, long long qsh,
+              long long qss, long long ksb, long long ksh, long long kss,
+              long long vsb, long long vsh, long long vss, int causal,
+              float sm_scale, void* stream) {
+  const int n_qt = (Sq + TC_BQ - 1) / TC_BQ;
+  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
+  auto kernel = fa_tc_kernel<D>;
+  constexpr int smem = TcTiles<D>::SMEM;
+  static const int attr = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != 0) return attr;
+  VX_LAUNCH_SMEM(kernel, B * H * n_qt, TC_THREADS, smem, stream,
+                 (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
+                 H, Hkv, Sq, Sk, B * H, qs, ks, vs, causal,
+                 sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__
+
 }  // namespace
 
 // q: (B, H, Sq, D), k and v: (B, Hkv, Sk, D), each read through its
 // strides (in elements, last dimension contiguous); o: contiguous
-// (B, H, Sq, D). B * H * ceil(Sq / 64) < 2^31, Sq, Sk >= 1.
-#define VX_FA_ENTRY(NAME, T, D)                                            \
+// (B, H, Sq, D). B * H * ceil(Sq / 64) < 2^31, Sq, Sk >= 1. The
+// tensor-core entries (_tc_) also need q, k, v and their strides in
+// elements to be 16-byte aligned.
+#define VX_FA_ENTRY(NAME, LAUNCH, T, D)                                    \
   extern "C" int NAME(const void* q, const void* k, const void* v,        \
                       void* o, int B, int H, int Hkv, int Sq, int Sk,     \
                       long long qsb, long long qsh, long long qss,        \
                       long long ksb, long long ksh, long long kss,        \
                       long long vsb, long long vsh, long long vss,        \
                       int causal, float sm_scale, void* stream) {         \
-    return launch<T, D>(q, k, v, o, B, H, Hkv, Sq, Sk, qsb, qsh, qss,     \
+    return LAUNCH<T, D>(q, k, v, o, B, H, Hkv, Sq, Sk, qsb, qsh, qss,     \
                         ksb, ksh, kss, vsb, vsh, vss, causal, sm_scale,   \
                         stream);                                          \
   }
 
-VX_FA_ENTRY(flash_attention_f32_d32, float, 32)
-VX_FA_ENTRY(flash_attention_f32_d64, float, 64)
-VX_FA_ENTRY(flash_attention_f32_d128, float, 128)
+VX_FA_ENTRY(flash_attention_f32_d32, launch, float, 32)
+VX_FA_ENTRY(flash_attention_f32_d64, launch, float, 64)
+VX_FA_ENTRY(flash_attention_f32_d128, launch, float, 128)
 #ifdef __CUDACC__
-VX_FA_ENTRY(flash_attention_bf16_d32, __nv_bfloat16, 32)
-VX_FA_ENTRY(flash_attention_bf16_d64, __nv_bfloat16, 64)
-VX_FA_ENTRY(flash_attention_bf16_d128, __nv_bfloat16, 128)
+VX_FA_ENTRY(flash_attention_bf16_d32, launch, __nv_bfloat16, 32)
+VX_FA_ENTRY(flash_attention_bf16_d64, launch, __nv_bfloat16, 64)
+VX_FA_ENTRY(flash_attention_bf16_d128, launch, __nv_bfloat16, 128)
+VX_FA_ENTRY(flash_attention_bf16_tc_d64, launch_tc, __nv_bfloat16, 64)
+VX_FA_ENTRY(flash_attention_bf16_tc_d128, launch_tc, __nv_bfloat16, 128)
 #endif

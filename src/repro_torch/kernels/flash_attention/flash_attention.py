@@ -2,11 +2,22 @@
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py:
 flash_attention`` (the Pallas TPU kernel ``_fa_kernel``).
-``csrc/flash_attention.cu`` holds the kernel and its note: one CTA per
-(batch, head, 64-row query tile), float32 on the CUDA cores, bound by
-operations, causal key tiles past the diagonal never loaded. It is built
-with nvcc at first use into ``build/flash_attention/<sha256>.so`` and
-launched through ctypes on the current stream.
+``csrc/flash_attention.cu`` holds the kernels and their note: bound by
+operations, causal key tiles past the diagonal never loaded, in two
+routes that ``route`` picks from the dtype, the head dim and the rows'
+alignment:
+
+  * ``tensor_cores``: bf16 at head dim 64 or 128 with 16-byte aligned
+    rows. One CTA per (batch, head, 64-row query tile), products by
+    wgmma (bf16 in, float32 accumulators), P carried between the two
+    products as two bf16 parts (hi + lo, about 16 bits);
+  * ``cuda_cores``: everything else (float32; bf16 at head dim 32 or
+    with unaligned rows). One CTA per (batch, head, 64-row query tile),
+    float32 on the CUDA cores.
+
+It is built with nvcc at first use into
+``build/flash_attention/<sha256>.so`` and launched through ctypes on the
+current stream.
 
 The public layout is the JAX kernel's, q (B, H, Sq, D), with two
 widenings: k and v may have Hkv heads, Hkv dividing H (head h reads KV
@@ -27,12 +38,17 @@ from pathlib import Path
 
 import torch
 
-from ..build import SourceKernel
+from ..build import CSRC, SourceKernel
 
-#: launches of the CUDA kernel; the plain version does not count
+#: launches of the CUDA kernels; the plain version does not count
 LAUNCHES = 0
-#: head dims the kernel is instantiated for
+#: the same launches by route (``route``)
+LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0}
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 128)
+#: head dims the tensor-core route takes (bf16)
+TC_HEAD_DIMS = (64, 128)
+#: query rows a CTA takes (both routes)
 BLOCK_Q = 64
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -42,8 +58,37 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = SourceKernel(
     "flash_attention",
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    {f"flash_attention_{t}_d{d}": _ARGS
-     for t in _SUFFIX.values() for d in HEAD_DIMS})
+    {**{f"flash_attention_{t}_d{d}": _ARGS
+        for t in _SUFFIX.values() for d in HEAD_DIMS},
+     **{f"flash_attention_bf16_tc_d{d}": _ARGS for d in TC_HEAD_DIMS}},
+    headers=[CSRC / "sm90.cuh"])
+
+
+def route(dtype: torch.dtype, head_dim: int, rows_aligned: bool = True
+          ) -> str:
+    """The route a CUDA launch takes: ``tensor_cores`` for bf16 at a head
+    dim of ``TC_HEAD_DIMS`` whose q, k, v rows start on 16 bytes (their
+    pointers and strides; the copies move 16 bytes a thread), else
+    ``cuda_cores``."""
+    if (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+            and rows_aligned):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def entry(dtype: torch.dtype, head_dim: int, rows_aligned: bool = True
+          ) -> str:
+    """The exported C function a CUDA launch calls."""
+    tc = route(dtype, head_dim, rows_aligned) == "tensor_cores"
+    return (f"flash_attention_{_SUFFIX[dtype]}{'_tc' if tc else ''}"
+            f"_d{head_dim}")
+
+
+def _rows_aligned(*ts: torch.Tensor) -> bool:
+    """Every row of each (B, H, S, D) tensor starts on 16 bytes."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st * t.element_size() % 16 == 0
+                       for st in t.stride()[:3]) for t in ts)
 
 
 def _shapes(q, k, v):
@@ -98,6 +143,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel: the last dimension of "
                          "q, k and v must be contiguous")
+    aligned = _rows_aligned(q, k, v)
+    way = route(q.dtype, D, aligned)
     n_blocks = B * H * -(-Sq // BLOCK_Q)
     if Sk == 0 or n_blocks >= 2**31:
         raise ValueError(f"flash_attention kernel: Sk = {Sk}, "
@@ -107,10 +154,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        KERNEL.call(f"flash_attention_{_SUFFIX[q.dtype]}_d{D}",
+        KERNEL.call(entry(q.dtype, D, aligned),
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     out.data_ptr(), B, H, Hkv, Sq, Sk,
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                     int(causal), 1.0 / math.sqrt(D), stream)
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[way] += 1
     return out

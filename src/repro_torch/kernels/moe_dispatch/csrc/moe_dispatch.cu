@@ -1,13 +1,54 @@
 // Grouped SwiGLU expert feed-forward: for every expert e and capacity row,
 //   y[e] = (silu(x[e] @ wi[e][:, :f]) * (x[e] @ wi[e][:, f:])) @ wo[e],
-// float32 inside, stored in x's type.
+// float32 sums, stored in x's type.
 //
 // Replaces repro/kernels/moe_dispatch/moe_dispatch.py:grouped_expert_ff
 // (the Pallas TPU kernel, grid (E, C / 128), the (128, 2f) hidden tile in
 // VMEM). That tile is 1 MB in float32 at olmoe's f = 1024 and 25 MB at
 // jamba's f = 24576, far past what a CTA can hold, so the kernel is
-// thought through again. Two kernels, one call:
+// thought through again. Two routes; the wrapper (moe_dispatch.py:
+// route) picks one from the dtype and the shapes:
 //
+// The tensor-core route (bf16, C > 1, d and f multiples of 8: rows of
+// 16-byte multiples), moe_ff_bf16_tc. At prefill the function is bound
+// by operations, 6 E C d f FLOP, which only the tensor cores reach. A
+// 128-row hidden tile is 6.3 MB in bf16 at f = 24576; keeping it on chip
+// would force the down product's partial outputs through a float32
+// workspace per f-slice (4 E C d bytes a slice, more than the hidden
+// itself). So the route runs two grouped GEMMs and passes the hidden
+// through device memory once:
+//   * moe_up_tc: one CTA per (expert, 128-column block of f, 128-row
+//     block of C), the row blocks of one column block adjacent in launch
+//     order so that they share its weight tile in L2. Two warpgroups of
+//     64 rows keep the gate and up sums of 128 columns (two 64-register
+//     accumulators a thread) and step over K = d 64 at a time; x is
+//     K-major, wi (E, d, 2f) MN-major (the transpose bit). The epilogue
+//     writes h = silu(g) * u as two bf16 parts, hi = bf16(h) and
+//     lo = bf16(h - hi), into h (E, C, 2f): hi in its first f columns.
+//   * moe_down_tc: one CTA per (expert, 128-column block of d, 128-row
+//     block), hi @ wo + lo @ wo over K = f into one accumulator, wo
+//     (E, f, d) MN-major and read once for both; y stored in bf16.
+//   Why two parts: h rounded to bf16 alone (8 significant bits: an error
+//   up to 2^-8 of each term) puts some of y more than rtol 1e-2 +
+//   atol 2e-3 from the float32 function at the paths' widths
+//   (tests/test_torch_moe_kernels.py holds a rounding model of both);
+//   hi + lo carries h to about 2^-16. It costs a third more tensor work (the down product
+//   twice) and 4 E C f bytes each way, 4 GB at jamba's prefill (1.2 ms
+//   at 3.35 TB/s against a 25 ms bound).
+//   Each stage of the ring holds three 16 KB tiles in the 128-byte-
+//   swizzled layout of sm90.cuh (x and wi's gate and up tiles, or h's two
+//   parts and wo's tile), copied by cp.async (16 bytes a thread; rows
+//   past C, k past d or f and columns past the end zero-filled, so any C,
+//   d, f that are multiples of 8 are taken); four stages, 192 KB, with
+//   two stages of copies in flight ahead of the stage that wgmma
+//   m64n128k16 reads and one wgmma group left in flight across the next
+//   stage's barrier. TMA would spend no thread instructions on the
+//   copies; that matters once a producer warp is split off (a later
+//   change). No split-K, no atomics: the result does not depend on the
+//   order in which CTAs run.
+//
+// The CUDA-core route (float32, decode's C = 1, and rows the copies
+// cannot take), moe_ff_f32 and moe_ff_bf16. Two kernels, one call:
 //   * moe_ff_partial: one CTA per (expert, slice of the hidden columns,
 //     block of BM capacity rows); the row blocks of one expert slice are
 //     adjacent in launch order, so the CTAs that run together share its
@@ -42,12 +83,10 @@
 // Rows past C are zero on the way in and not stored; the column loops
 // are masked.
 //
-// Bound: at prefill operations, 6 E C d f FLOP; at decode bytes, every
-// expert's weights read once. This kernel uses the CUDA cores, not the
-// tensor cores, so at prefill it runs far below the bf16 bound; each CTA
-// reads its expert slice's weights from L2, ceil(C / 16) times in all.
-// At decode every expert's weights are read even where an expert holds
-// no token. wgmma, TMA and skipping empty experts are later changes.
+// Bound: at decode bytes, every expert's weights read once; this route
+// reads them at 16 bytes a thread. At decode every expert's weights are
+// read even where an expert holds no token; skipping empty experts is a
+// later change.
 //
 // The float32 instantiations compile with g++ against the stand-in
 // runtime in tests/cuda_host, which runs them on the CPU.
@@ -55,6 +94,7 @@
 #ifdef __CUDACC__
 #include <cuda_bf16.h>
 #endif
+#include "sm90.cuh"
 
 #ifndef VX_LAUNCH
 #define VX_LAUNCH(K, G, B, S, ...) \
@@ -348,6 +388,218 @@ int launch(const void* x, const void* wi, const void* wo, void* ws, void* y,
   return (int)cudaGetLastError();
 }
 
+
+#ifdef __CUDACC__
+// ---- the tensor-core route: bf16, C > 1, d and f multiples of 8 ---------
+
+using bf16 = __nv_bfloat16;
+constexpr int TC_BM = 128;       // capacity rows a CTA: two warpgroups
+constexpr int TC_BN = 128;       // output columns a CTA
+constexpr int TC_BK = 64;        // k a stage: one 128-byte row
+constexpr int TC_THREADS = 256;
+constexpr int A_BYTES = TC_BM * TC_BK * 2;   // 16 KB
+constexpr int B_BYTES = TC_BK * TC_BN * 2;   // 16 KB
+constexpr int B_BLOCK = TC_BK * 128;         // its 64-column blocks: 8 KB
+
+// the A tile: rows < ``rows`` and k < ``kn`` of src (ld elements a row),
+// K-major
+__device__ __forceinline__ void copy_a(uint32_t dst, const bf16* src,
+                                       long long ld, int rows, int kn,
+                                       int tid) {
+#pragma unroll
+  for (int i = 0; i < TC_BM * 8 / TC_THREADS; ++i) {
+    const int c = tid + i * TC_THREADS;
+    const int r = c >> 3, ch = c & 7;
+    const bool in = r < rows && ch * 8 < kn;
+    sm90::cp_async16(dst + sm90::swz(r, ch),
+                     src + (in ? r * ld + ch * 8 : 0), in);
+  }
+}
+
+// a B tile: k rows < ``kn`` and columns < ``cols`` of src, MN-major, as
+// two blocks of 64 columns
+__device__ __forceinline__ void copy_b(uint32_t dst, const bf16* src,
+                                       long long ld, int kn, int cols,
+                                       int tid) {
+#pragma unroll
+  for (int i = 0; i < TC_BK * (TC_BN / 8) / TC_THREADS; ++i) {
+    const int c = tid + i * TC_THREADS;
+    const int r = c >> 4, ch = c & 15;
+    const bool in = r < kn && ch * 8 < cols;
+    sm90::cp_async16(dst + (ch >> 3) * B_BLOCK + sm90::swz(r, ch & 7),
+                     src + (in ? r * ld + ch * 8 : 0), in);
+  }
+}
+
+// acc[j] = sum over i of A_i B_j, over K: A_i's rows from a[i] (lda
+// apart, ``rows`` of them), B_j's k rows from b[j] (ldb apart, ``cols``
+// columns); a ring of STAGES stages at smem, copies two stages ahead
+template <int NA, int NB, int STAGES>
+__device__ __forceinline__ void
+mainloop(float (&acc)[NB][64], uint32_t smem, const bf16* const (&a)[NA],
+         long long lda, int rows, const bf16* const (&b)[NB],
+         long long ldb, int cols, int K, int tid) {
+  static_assert(STAGES >= 3, "two stages ahead and one read");
+  constexpr int STAGE = NA * A_BYTES + NB * B_BYTES;
+  const int nk = (K + TC_BK - 1) / TC_BK;
+  const int wg = tid / 128;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+  auto load = [&](int kt) {
+    const uint32_t st = smem + (kt % STAGES) * STAGE;
+    const int k0 = kt * TC_BK;
+#pragma unroll
+    for (int i = 0; i < NA; ++i)
+      copy_a(st + i * A_BYTES, a[i] + k0, lda, rows, K - k0, tid);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      copy_b(st + NA * A_BYTES + j * B_BYTES, b[j] + k0 * ldb, ldb, K - k0,
+             cols, tid);
+  };
+  for (int kt = 0; kt < STAGES - 2; ++kt) {
+    if (kt < nk) load(kt);
+    sm90::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    sm90::cp_async_wait<STAGES - 3>();   // stage kt has landed
+    sm90::fence_async_smem();
+    // every copy of stage kt is visible; every warpgroup has waited for
+    // its products of stage kt - 2, whose buffer the next copy reuses
+    __syncthreads();
+    if (kt + STAGES - 2 < nk) load(kt + STAGES - 2);
+    sm90::cp_async_commit();
+    const uint32_t st = smem + (kt % STAGES) * STAGE;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const uint64_t da =
+            sm90::desc(st + i * A_BYTES + wg * 64 * 128 + kk * 32, 16, 1024);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          sm90::Mma<128, 1>::ss(
+              acc[j], da,
+              sm90::desc(st + NA * A_BYTES + j * B_BYTES + kk * 2048,
+                         B_BLOCK, 1024),
+              1);
+      }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+  }
+  sm90::wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NB; ++j) sm90::fence_regs(acc[j]);
+}
+
+constexpr int STAGES = 4;        // 4 x 48 KB: x and wi's gate and up
+                                 // tiles, or h's two parts and wo's tile
+constexpr int SMEM = STAGES * 3 * A_BYTES + 1024;
+static_assert(A_BYTES == B_BYTES, "three 16 KB tiles a stage");
+
+// h[e, rows, cols] = silu(x wi_gate) * (x wi_up), as bf16 hi and lo
+// parts: h (E, C, 2f) holds hi in its first f columns, lo in the rest
+__global__ void __launch_bounds__(TC_THREADS, 1)
+moe_up_tc(const bf16* __restrict__ x, const bf16* __restrict__ wi,
+          bf16* __restrict__ h, int C, int d, int f, int n_mb, int n_nb) {
+  VX_DYN_SMEM(smem);
+  const int mb = (int)(blockIdx.x % n_mb);
+  const int en = (int)(blockIdx.x / n_mb);
+  const int nb = en % n_nb, e = en / n_nb;
+  const int row0 = mb * TC_BM, j0 = nb * TC_BN, tid = threadIdx.x;
+  const bf16* we = wi + (long long)e * d * 2 * f + j0;
+  const bf16* const a[1] = {x + ((long long)e * C + row0) * d};
+  const bf16* const b[2] = {we, we + f};
+  float acc[2][64];
+  mainloop<1, 2, STAGES>(acc, sm90::align1024(smem), a, d, C - row0, b,
+                         2LL * f, f - j0, d, tid);
+  const int lane = tid % 32;
+  const int r0 = row0 + tid / 128 * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  bf16* he = h + (long long)e * C * 2 * f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= C) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = j0 + 8 * j + 2 * (lane & 3);
+      if (col >= f) continue;
+      float v[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float g = acc[0][4 * j + 2 * r + c];
+        v[c] = g / (1.f + expf(-g)) * acc[1][4 * j + 2 * r + c];
+      }
+      uint32_t hi, lo;
+      sm90::split_bf16(v[0], v[1], hi, lo);
+      bf16* hr = he + (long long)row * 2 * f + col;
+      *reinterpret_cast<uint32_t*>(hr) = hi;
+      *reinterpret_cast<uint32_t*>(hr + f) = lo;
+    }
+  }
+}
+
+// y[e, rows, cols] = (h_hi + h_lo) wo, bf16
+__global__ void __launch_bounds__(TC_THREADS, 1)
+moe_down_tc(const bf16* __restrict__ h, const bf16* __restrict__ wo,
+            bf16* __restrict__ y, int C, int d, int f, int n_mb,
+            int n_nb) {
+  VX_DYN_SMEM(smem);
+  const int mb = (int)(blockIdx.x % n_mb);
+  const int en = (int)(blockIdx.x / n_mb);
+  const int nb = en % n_nb, e = en / n_nb;
+  const int row0 = mb * TC_BM, n0 = nb * TC_BN, tid = threadIdx.x;
+  const bf16* he = h + ((long long)e * C + row0) * 2 * f;
+  const bf16* const a[2] = {he, he + f};
+  const bf16* const b[1] = {wo + (long long)e * f * d + n0};
+  float acc[1][64];
+  mainloop<2, 1, STAGES>(acc, sm90::align1024(smem), a, 2LL * f, C - row0,
+                         b, d, d - n0, f, tid);
+  const int lane = tid % 32;
+  const int r0 = row0 + tid / 128 * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  bf16* ye = y + (long long)e * C * d;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= C) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
+      if (col >= d) continue;
+      *reinterpret_cast<uint32_t*>(ye + (long long)row * d + col) =
+          sm90::pack_bf16(acc[0][4 * j + 2 * r], acc[0][4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+int launch_tc(const void* x, const void* wi, const void* wo, void* h,
+              void* y, int E, int C, int d, int f, void* stream) {
+  if (C < 2 || d % 8 || f % 8) return kBadArgs;
+  const int n_mb = (C + TC_BM - 1) / TC_BM;
+  auto up = moe_up_tc;
+  static const int up_attr = (int)cudaFuncSetAttribute(
+      up, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (up_attr != 0) return up_attr;
+  const int n_fb = (f + TC_BN - 1) / TC_BN;
+  VX_LAUNCH_SMEM(up, E * n_fb * n_mb, TC_THREADS, SMEM, stream,
+                 (const bf16*)x, (const bf16*)wi, (bf16*)h, C, d, f, n_mb,
+                 n_fb);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  auto down = moe_down_tc;
+  static const int down_attr = (int)cudaFuncSetAttribute(
+      down, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (down_attr != 0) return down_attr;
+  const int n_db = (d + TC_BN - 1) / TC_BN;
+  VX_LAUNCH_SMEM(down, E * n_db * n_mb, TC_THREADS, SMEM, stream,
+                 (const bf16*)h, (const bf16*)wo, (bf16*)y, C, d, f, n_mb,
+                 n_db);
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__
+
 }  // namespace
 
 // x: (E, C, d), wi: (E, d, 2f), wo: (E, f, d), y: (E, C, d), all
@@ -367,5 +619,14 @@ extern "C" int moe_ff_bf16(const void* x, const void* wi, const void* wo,
                            int fs, int n_slices, void* stream) {
   return launch<__nv_bfloat16>(x, wi, wo, ws, y, E, C, d, f, fs, n_slices,
                                stream);
+}
+
+// The tensor-core route: x, wi, wo, y as above, bf16, C >= 2, d and f
+// multiples of 8; h: (E, C, 2f) bf16 scratch for the hidden's two parts.
+// E * ceil(C / 128) * ceil(max(d, f) / 128) < 2^31.
+extern "C" int moe_ff_bf16_tc(const void* x, const void* wi, const void* wo,
+                              void* h, void* y, int E, int C, int d, int f,
+                              void* stream) {
+  return launch_tc(x, wi, wo, h, y, E, C, d, f, stream);
 }
 #endif

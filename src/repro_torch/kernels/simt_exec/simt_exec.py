@@ -158,7 +158,7 @@ def source_hash(src: str) -> str:
 def build_many(sources: List[str]) -> List[Tuple[Path, float]]:
     """Build every emitted source not built yet, one nvcc each, all at
     once (``kernels.build.build_many``)."""
-    return _build_many("simt", sources, flags=NVCC_FLAGS, include=_CSRC,
+    return _build_many("simt", sources, flags=NVCC_FLAGS, include=[_CSRC],
                        headers=[_HEADER])
 
 

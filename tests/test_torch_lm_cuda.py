@@ -7,9 +7,11 @@ Imports nothing of JAX, so it runs on a machine with a GPU and no JAX:
 
 Skips where ``torch.cuda.is_available()`` is false. Tolerances are those
 of ``tests/test_kernels.py``: rmsnorm 1e-5 in float32 and 2e-2 in
-bfloat16, attention 2e-5 in float32 and 3e-2 in bfloat16. The smoke LM on
-the card against the same LM on the CPU: atol = rtol = 0.1 on the
-logits, as ``tests/test_torch_lm.py`` holds it to the JAX package.
+bfloat16, attention 2e-5 in float32 and 3e-2 in bfloat16; the shapes
+added for the tensor-core route are held at chip_smoke.py's rtol 1e-2,
+atol 2e-3. The smoke LM on the card against the same LM on the CPU:
+atol = rtol = 0.1 on the logits, as ``tests/test_torch_lm.py`` holds it
+to the JAX package.
 """
 import numpy as np
 import pytest
@@ -23,6 +25,8 @@ from repro_torch.models import get_model
 from repro_torch.models.blueprint import init_params, tree_map
 
 TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (2e-2, 3e-2)}
+#: chip_smoke.py's bf16 tolerance for flash_attention: rtol, atol
+CARD_BF16_TOL = (1e-2, 2e-3)
 
 
 @pytest.fixture
@@ -69,11 +73,39 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, Hkv, Sq, Sk, D,
     v = torch.randn(B, Sk, Hkv, D, generator=g, device=cuda).to(dtype)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     before = FA.LAUNCHES
+    routes = dict(FA.LAUNCHES_BY_ROUTE)
     got = FA.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert FA.LAUNCHES == before + 1
+    routes[FA.route(dtype, D)] += 1
+    assert FA.LAUNCHES_BY_ROUTE == routes
     _close(got, FA.flash_attention_plain(q, k, v, causal=causal),
            TOL[dtype][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", [
+    (1, 2, 1, 1000, 1000, 64, True),      # a ragged last query tile
+    (1, 2, 1, 1000, 1000, 128, True),
+    (1, 4, 2, 64, 300, 64, False),        # Sq != Sk, every key
+    (1, 4, 2, 64, 300, 128, False),
+    (1, 64, 8, 512, 512, 128, True)])     # jamba's GQA, 64 / 8 heads
+def test_flash_attention_tensor_cores_match_plain(cuda, B, H, Hkv, Sq, Sk,
+                                                  D, causal):
+    """The bf16 route on the tensor cores, at the card's bf16 tolerance."""
+    g = torch.Generator(cuda).manual_seed(2)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=cuda)
+               .bfloat16().transpose(1, 2)
+               for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+    tc = FA.LAUNCHES_BY_ROUTE["tensor_cores"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES_BY_ROUTE["tensor_cores"] == tc + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ Tolerances are those of ``tests/test_kernels.py``: rmsnorm 1e-5 in
 float32 and 2e-2 in bfloat16; attention 2e-5 in float32 and 3e-2 in
 bfloat16 (both sides round their output to bf16 once). The host runs of
 the CUDA sources are held to the plain version at 1e-5 (rmsnorm) and
-2e-5 (attention): sums in another order, the online softmax.
+2e-5 (attention): sums in another order, the online softmax. The
+tensor-core route's rounding model is held at chip_smoke.py's bf16
+tolerance, rtol 1e-2 and atol 2e-3.
 """
 import ctypes
 import math
@@ -26,10 +28,13 @@ from repro.kernels.flash_attention.ops import flash_attention_op
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.rmsnorm.ops import rmsnorm_op
 from repro.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.build import CSRC
 from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.rmsnorm import rmsnorm as RN
 
 HOST_CUDA = Path(__file__).parent / "cuda_host"
+#: chip_smoke.py's bf16 tolerance for flash_attention: rtol, atol
+CARD_BF16_TOL = (1e-2, 2e-3)
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
@@ -92,13 +97,127 @@ def test_flash_attention_plain_ragged_gqa_matches_oracle(S, causal):
     _close(got, want, 2e-5)
 
 
+def _split_bf16(p: torch.Tensor) -> torch.Tensor:
+    """p as the tensor-core routes carry it: bf16(p) + bf16(p - bf16(p))."""
+    hi = p.bfloat16().float()
+    return hi + (p - hi).bfloat16().float()
+
+
+def _tc_attention_model(q, k, v, causal=True, split=True):
+    """The tensor-core route's arithmetic, written out: float32 scores
+    and softmax weights P, P split into two bf16 parts (or, with
+    ``split`` False, rounded to bf16 alone) before the product with V
+    (float32 sums), the sum l of the unsplit P, the output rounded to
+    bf16 once."""
+    H, Hkv, D = q.shape[1], k.shape[1], q.shape[3]
+    k = k.float().repeat_interleave(H // Hkv, dim=1)
+    v = v.float().repeat_interleave(H // Hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) / math.sqrt(D)
+    if causal:
+        Sq, Sk = q.shape[2], k.shape[2]
+        keep = torch.arange(Sq)[:, None] >= torch.arange(Sk)[None, :]
+        s = s.masked_fill(~keep, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    pb = _split_bf16(p) if split else p.bfloat16().float()
+    o = torch.einsum("bhqk,bhkd->bhqd", pb, v)
+    return (o / p.sum(-1, keepdim=True)).bfloat16()
+
+
+@pytest.mark.parametrize("Sk", [200, 256])
+@pytest.mark.parametrize("D", [64, 128])
+def test_tensor_core_rounding_model_meets_plain_and_oracle(Sk, D):
+    """The route rounds only P (to hi + lo bf16 parts) between its two
+    products; that model stays within the card's bf16 tolerance of the
+    plain version and of the JAX oracle. B = 1, H = 4, Hkv = 2, Sq = 256,
+    causal."""
+    rng = np.random.default_rng(5)
+    q, k, v = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .bfloat16() for s in ((1, 4, 256, D), (1, 2, Sk, D),
+                                     (1, 2, Sk, D))]
+    got = _tc_attention_model(q, k, v)
+    rtol, atol = CARD_BF16_TOL
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    oracle = attention_ref(
+        jnp.array(q.float().numpy(), jnp.bfloat16),
+        jnp.array(np.repeat(k.float().numpy(), 2, axis=1), jnp.bfloat16),
+        jnp.array(np.repeat(v.float().numpy(), 2, axis=1), jnp.bfloat16),
+        causal=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(oracle, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+def test_p_rounded_alone_misses_the_card_tolerance():
+    """Why the route carries two parts: a row whose weight sits on two
+    keys of about equal score, with values that nearly cancel, puts P's
+    bf16 rounding (up to 2^-8 of each weight) past rtol 1e-2 + atol 2e-3
+    of the float32 softmax; hi + lo stays inside."""
+    q = torch.zeros(1, 1, 2, 64)
+    k = torch.zeros(1, 1, 2, 64)
+    v = torch.zeros(1, 1, 2, 64)
+    q[0, 0, 1, 0] = 1.0
+    k[0, 0, 1, 0] = 1.875                   # score 0.234 against 0
+    v[0, 0, 0] = torch.linspace(-4, 4, 64)
+    v[0, 0, 1] = 0.3 - 0.9 * torch.linspace(-4, 4, 64)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    want = FA.flash_attention_plain(q, k, v, causal=True).float()
+    rtol, atol = CARD_BF16_TOL
+    for split, misses in ((False, True), (True, False)):
+        err = (_tc_attention_model(q, k, v, split=split).float()
+               - want).abs()
+        assert bool((err > atol + rtol * want.abs()).any()) == misses
+
+
+def test_split_keeps_sixteen_bits():
+    """hi + lo carries a float to about 2^-16 of itself; hi alone, 2^-8."""
+    p = torch.from_numpy(np.random.default_rng(6).uniform(
+        1e-3, 1.0, 4096).astype(np.float32))
+    assert float(((_split_bf16(p) - p) / p).abs().max()) < 2.0 ** -16
+    assert float(((p.bfloat16().float() - p) / p).abs().max()) > 2.0 ** -10
+
+
+@pytest.mark.parametrize("dtype,D,aligned,want", [
+    (torch.bfloat16, 64, True, "tensor_cores"),    # granite (4, 32, 2048, 64)
+    (torch.bfloat16, 128, True, "tensor_cores"),   # olmoe, jamba: D = 128
+    (torch.bfloat16, 32, True, "cuda_cores"),      # no path uses D = 32
+    (torch.bfloat16, 64, False, "cuda_cores"),     # rows off 16 bytes
+    (torch.float32, 64, True, "cuda_cores"),
+    (torch.float32, 128, True, "cuda_cores")])
+def test_route_names_the_entry(dtype, D, aligned, want):
+    assert FA.route(dtype, D, aligned) == want
+    name = FA.entry(dtype, D, aligned)
+    assert name in FA.KERNEL.argtypes
+    assert ("_tc_" in name) == (want == "tensor_cores")
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 64), (16, 16, 128),
+                                     (64, 8, 128)])
+def test_path_layouts_take_the_tensor_cores(H, Hkv, D):
+    """The three prefill paths' heads (granite, olmoe, jamba) as the layer
+    hands them over, transposed views of (B, S, H, D) projections (S cut
+    to 16 here): their rows start on 16 bytes. One element off, they do
+    not."""
+    q, k, v = (torch.zeros(2, 16, h, D, dtype=torch.bfloat16)
+               .transpose(1, 2) for h in (H, Hkv, Hkv))
+    assert FA._rows_aligned(q, k, v)
+    assert FA.route(q.dtype, D, FA._rows_aligned(q, k, v)) \
+        == "tensor_cores"
+    off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(
+        2, H, 16, D)
+    assert not FA._rows_aligned(off, k, v)
+    assert FA.route(q.dtype, D, FA._rows_aligned(off, k, v)) \
+        == "cuda_cores"
+
+
 def test_plain_versions_do_not_count():
     x = torch.ones(4, 8)
-    before = (RN.LAUNCHES, FA.LAUNCHES)
+    before = (RN.LAUNCHES, FA.LAUNCHES, dict(FA.LAUNCHES_BY_ROUTE))
     RN.rmsnorm(x, torch.ones(8))
     FA.flash_attention(x.view(1, 1, 4, 8), x.view(1, 1, 4, 8),
                        x.view(1, 1, 4, 8))
-    assert (RN.LAUNCHES, FA.LAUNCHES) == before
+    assert (RN.LAUNCHES, FA.LAUNCHES, FA.LAUNCHES_BY_ROUTE) == before
 
 
 def test_wrappers_refuse_bad_shapes():
@@ -136,7 +255,7 @@ def host_libs(tmp_path_factory):
         so = out / f"{mod.KERNEL.kind}.so"
         procs[mod] = (so, subprocess.Popen(
             ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             f"-I{HOST_CUDA}", "-x", "c++", "-o", str(so),
+             f"-I{HOST_CUDA}", f"-I{CSRC}", "-x", "c++", "-o", str(so),
              str(mod.KERNEL.cu)], stderr=subprocess.PIPE, text=True))
     libs = {}
     for mod, (so, p) in procs.items():

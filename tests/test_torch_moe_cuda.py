@@ -6,7 +6,9 @@ Imports nothing of JAX, so it runs on a machine with a GPU and no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_moe_cuda.py
 
 Skips where ``torch.cuda.is_available()`` is false. Tolerances are those
-of ``tests/test_kernels.py``: 1e-5 in float32 and 3e-2 in bfloat16. The
+of ``tests/test_kernels.py``: 1e-5 in float32 and 3e-2 in bfloat16; the
+shapes added for the tensor-core route, drawn as the path draws them,
+are held at chip_smoke.py's rtol 1e-2, atol 2e-3. The
 smoke LM on the card against the same LM on the CPU: atol = rtol = 0.1
 on the logits, as ``tests/test_torch_moe.py`` holds it to the JAX
 package, with the router zeroed so that bf16 near-ties cannot route a
@@ -24,6 +26,8 @@ from repro_torch.models import get_model
 from repro_torch.models.blueprint import init_params, tree_map
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+#: chip_smoke.py's bf16 tolerance for moe_dispatch: rtol, atol
+CARD_BF16_TOL = (1e-2, 2e-3)
 
 
 @pytest.fixture
@@ -53,13 +57,43 @@ def _inputs(dev, shape, dtype, seed=0):
 def test_grouped_expert_ff_kernel_matches_plain(cuda, shape, dtype):
     x, wi, wo = _inputs(cuda, shape, dtype)
     before = MD.LAUNCHES
+    routes = dict(MD.LAUNCHES_BY_ROUTE)
     got = MD.grouped_expert_ff(x, wi, wo)
     torch.cuda.synchronize()
     assert MD.LAUNCHES == before + 1
+    routes[MD.route(dtype, *shape[1:])] += 1
+    assert MD.LAUNCHES_BY_ROUTE == routes
     want = MD.grouped_expert_ff_plain(x, wi, wo)
     assert got.dtype == want.dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (3, 17, 136, 200), (3, 40, 136, 200), (3, 130, 136, 200),
+    (3, 1280, 136, 200),      # d, f multiples of 8, not of 128
+    (4, 40, 256, 96), (64, 17, 256, 96), (2, 130, 128, 200)])
+def test_grouped_expert_ff_tensor_cores_match_plain(cuda, shape):
+    """The bf16 route at C > 1 on the tensor cores, x at unit scale and
+    the weights drawn as init_params draws them, at the card's bf16
+    tolerance."""
+    E, C, d, f = shape
+    g = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn(E, C, d, generator=g, device=cuda).bfloat16()
+    wi = (torch.randn(E, d, 2 * f, generator=g, device=cuda)
+          * d ** -0.5).bfloat16()
+    wo = (torch.randn(E, f, d, generator=g, device=cuda)
+          * f ** -0.5).bfloat16()
+    tc = MD.LAUNCHES_BY_ROUTE["tensor_cores"]
+    got = MD.grouped_expert_ff(x, wi, wo)
+    torch.cuda.synchronize()
+    assert MD.LAUNCHES_BY_ROUTE["tensor_cores"] == tc + 1
+    want = MD.grouped_expert_ff_plain(x, wi, wo)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ Tolerances are those of ``tests/test_kernels.py``: 1e-5 in float32 and
 3e-2 in bfloat16 (both sides compute in float32 and round the output to
 bf16 once). The host run of the CUDA source is held to the plain version
 at 1e-5: the same float32 sums in another order (the down product summed
-over slices of the hidden columns, each slice over chunks).
+over slices of the hidden columns, each slice over chunks). The
+tensor-core route's rounding model is held at chip_smoke.py's bf16
+tolerance, rtol 1e-2 and atol 2e-3.
 """
 import ctypes
 import shutil
@@ -20,14 +22,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.moe_dispatch.ops import grouped_expert_ff_op
 from repro.kernels.moe_dispatch.ref import grouped_expert_ff_ref
+from repro_torch.kernels.build import CSRC
 from repro_torch.kernels.moe_dispatch import moe_dispatch as MD
 
 HOST_CUDA = Path(__file__).parent / "cuda_host"
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+#: chip_smoke.py's bf16 tolerance for moe_dispatch: rtol, atol
+CARD_BF16_TOL = (1e-2, 2e-3)
 
 
 def _inputs(shape, dtype, seed):
@@ -93,6 +99,79 @@ def test_slicing_covers_f_and_fills_the_grid(E, C, f, want):
     assert (n - 1) * fs < f <= n * fs
 
 
+def _path_inputs(shape, seed):
+    """x (E, C, d) at unit scale, as an RMSNorm hands it over, and wi, wo
+    drawn as init_params draws them (normal over the square root of the
+    fan-in), all bf16."""
+    E, C, d, f = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal(s) * scale)
+                             .astype(np.float32)).bfloat16()
+            for s, scale in (((E, C, d), 1.0), ((E, d, 2 * f), d ** -0.5),
+                             ((E, f, d), f ** -0.5))]
+
+
+def _tc_model(x, wi, wo, split=True):
+    """The tensor-core route's arithmetic, written out: float32 sums, the
+    hidden silu(g) * u carried as two bf16 parts hi + lo (or, with
+    ``split`` False, rounded to bf16 alone) between the two products,
+    the output rounded to bf16 once."""
+    f = wo.shape[1]
+    h = torch.bmm(x.float(), wi.float())
+    h = F.silu(h[..., :f]) * h[..., f:]
+    hi = h.bfloat16().float()
+    if split:
+        hi = hi + (h - hi).bfloat16().float()
+    return torch.bmm(hi, wo.float()).bfloat16()
+
+
+@pytest.mark.parametrize("shape", [(4, 40, 256, 96), (2, 130, 128, 200)])
+def test_tensor_core_rounding_model_meets_plain_and_oracle(shape):
+    """The route rounds only the hidden (to hi + lo bf16 parts) between
+    its products; that model stays within the card's bf16 tolerance of
+    the plain version and of the JAX oracle."""
+    x, wi, wo = _path_inputs(shape, 10)
+    got = _tc_model(x, wi, wo)
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(
+        got.float(), MD.grouped_expert_ff_plain(x, wi, wo).float(),
+        rtol=rtol, atol=atol)
+    oracle = grouped_expert_ff_ref(
+        *(jnp.array(t.float().numpy(), jnp.bfloat16) for t in (x, wi, wo)))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(oracle, np.float32), rtol=rtol,
+                               atol=atol)
+
+
+def test_hidden_rounded_alone_misses_the_card_tolerance():
+    """Why the route carries two parts: the hidden rounded to bf16 alone
+    puts some outputs past rtol 1e-2 + atol 2e-3 of the plain version."""
+    x, wi, wo = _path_inputs((8, 256, 512, 256), 11)
+    want = MD.grouped_expert_ff_plain(x, wi, wo).float()
+    rtol, atol = CARD_BF16_TOL
+    err = (_tc_model(x, wi, wo, split=False).float() - want).abs()
+    assert int((err > atol + rtol * want.abs()).sum()) > 0
+    err = (_tc_model(x, wi, wo).float() - want).abs()
+    assert int((err > atol + rtol * want.abs()).sum()) == 0
+
+
+@pytest.mark.parametrize("dtype,shape,want", [
+    (torch.bfloat16, (64, 1280, 2048, 1024), "tensor_cores"),   # olmoe
+    (torch.bfloat16, (16, 1280, 8192, 24576), "tensor_cores"),  # jamba
+    (torch.bfloat16, (64, 1, 2048, 1024), "cuda_cores"),    # olmoe decode
+    (torch.bfloat16, (16, 1, 8192, 24576), "cuda_cores"),   # jamba decode
+    (torch.bfloat16, (2, 130, 100, 300), "cuda_cores"),     # d = 100
+    (torch.bfloat16, (2, 130, 128, 300), "cuda_cores"),     # f % 8 != 0
+    (torch.bfloat16, (3, 130, 136, 200), "tensor_cores"),   # 8 | d, f
+    (torch.float32, (64, 1280, 2048, 1024), "cuda_cores")])
+def test_route_names_the_entry(dtype, shape, want):
+    E, C, d, f = shape
+    assert MD.route(dtype, C, d, f) == want
+    name = MD.entry(dtype, C, d, f)
+    assert name in MD.KERNEL.argtypes
+    assert (name == "moe_ff_bf16_tc") == (want == "tensor_cores")
+
+
 def test_zero_capacity_gives_an_empty_output():
     x = torch.zeros(4, 0, 16)
     y = MD.grouped_expert_ff(x, torch.zeros(4, 16, 8), torch.zeros(4, 4, 16))
@@ -101,9 +180,9 @@ def test_zero_capacity_gives_an_empty_output():
 
 def test_plain_version_does_not_count():
     (_, x), (_, wi), (_, wo) = _inputs((2, 3, 8, 4), torch.float32, 2)
-    before = MD.LAUNCHES
+    before = MD.LAUNCHES, dict(MD.LAUNCHES_BY_ROUTE)
     MD.grouped_expert_ff(x, wi, wo)
-    assert MD.LAUNCHES == before
+    assert (MD.LAUNCHES, MD.LAUNCHES_BY_ROUTE) == before
 
 
 def test_wrapper_refuses_bad_shapes_dtypes_and_devices():
@@ -137,7 +216,8 @@ def host_lib(tmp_path_factory):
     so = tmp_path_factory.mktemp("host_moe") / "moe_dispatch.so"
     p = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-         f"-I{HOST_CUDA}", "-x", "c++", "-o", str(so), str(MD.KERNEL.cu)],
+         f"-I{HOST_CUDA}", f"-I{CSRC}", "-x", "c++", "-o", str(so),
+         str(MD.KERNEL.cu)],
         capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr
     lib = ctypes.CDLL(str(so))
