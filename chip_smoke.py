@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Four paths of the port, each at full width:
+Five paths of the port, each at full width:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
@@ -26,23 +26,36 @@ Four paths of the port, each at full width:
     through the rmsnorm, flash_attention, moe_dispatch and selective_scan
     kernels, and the same engine. Its kernel checks and timings run
     before its params exist: the plain expert FF holds float32 copies of
-    a layer's experts (38.7 GB).
+    a layer's experts (38.7 GB);
+  * the MoE LM serving path on kimi-k2-1t-a32b at full width, its depth
+    cut to one layer, its whole period (attention at head dim 112 with
+    64 heads and 8 KV heads, 384 experts of d_ff 2048, top-8, and a
+    shared FF: 19.4 B params, 38.8 GB, jamba's freed first): the same
+    prefill, whose 3 RMSNorms at d 7168, one attention and one grouped
+    expert FF at (384, 212, 7168) go through the rmsnorm,
+    flash_attention and moe_dispatch kernels, and the same engine, whose
+    expert FF at (384, 1, 7168) reads only the experts that hold a
+    token. The plain expert FF is held against the kernel on 32 of the
+    384 experts at full d and f (all of them in float32 would be 67.6
+    GB) and timed over all 384, 32 a call.
 
 On each LM path every kernel is held against its plain version at the
 path's shapes, decode is held against prefill, and a short model on the
 card against the same model on the CPU (depth 2 at full width for
 granite and olmoe; for jamba one period of its smoke config, 8 layers at
-d_model 128, the only place where widths are cut: at full width the CPU
-would need 46 GB and minutes). The MoE paths also print the share of
-expert assignments the capacity drops (the first MoE layer, prefill and
-decode) and the tokens routed apart by card and CPU.
+d_model 128, and for kimi its smoke config at its published head dim
+112, one layer: the only places where widths are cut, since at full
+width the CPU would need 46 and 39 GB and minutes). The MoE paths also
+print the share of expert assignments the capacity drops (the first MoE
+layer, prefill and decode), the tokens routed apart by card and CPU, and
+the largest |v| and |h| that the tensor-core routes carry in fp16.
 
 Each kernel's launches are counted on each path (counts set to 0 just
 before, read just after): a record's ``launches_by_path`` gives each
 path's own count (``compiler``; ``<model>/prefill`` and
 ``<model>/serve``) and ``launches`` their sum. flash_attention and
 moe_dispatch also count by route (``launches_by_route``: tensor_cores or
-cuda_cores, on each path); every launch of theirs on the three prefill
+cuda_cores, on each path); every launch of theirs on the four prefill
 paths must take the tensor cores. nvcc's ``-Xptxas -v`` registers and
 spills of the tensor-core kernels are printed after the build. Each kernel is timed, and
 the script prints one JSON line of kernel records and a last line
@@ -53,7 +66,8 @@ the script prints one JSON line of kernel records and a last line
 jamba's one-chip cut: every width as published, the period shortened
 from 8 layers to 4 (``n_layers`` 72 -> 4, ``attn_every_k`` 8 -> 4, both
 printed). Attention is one layer in four, not one in eight, so it takes
-a larger share of prefill than in a deployment.
+a larger share of prefill than in a deployment. kimi's: ``n_layers`` 61
+-> 1 (printed), one whole period; two layers would be 73.0 GB.
 
 It needs a CUDA device and the CUDA toolkit (nvcc), and exits non-zero
 without a result when either is missing or any check fails.
@@ -72,7 +86,8 @@ check lines print both):
     tests/test_kernels.py); outputs of randn rows and scales have a
     median |y| of about 0.45, one bf16 ulp at most 0.0078 of |y|.
   * flash_attention at the paths' shapes (4, 32, 2048, 64),
-    (4, 16, 2048, 128) and (4, 64, 2048, 128) with 8 KV heads, causal:
+    (4, 16, 2048, 128), (4, 64, 2048, 128) and (4, 64, 2048, 112) with 8
+    KV heads, causal:
     bf16 rtol 1e-2, atol 2e-3; float32 rtol = atol = 2e-5. With randn q,
     k, v the softmax weights of a row of n keys act as about n / e equal
     ones, so |o| is about (e / n) ** 0.5: a median over all elements of
@@ -81,18 +96,22 @@ check lines print both):
     median |o|, so a dropped or doubled key tile or a wrong scale in a
     late row fails. The plain version rounds one float32 result; the
     bf16 route (tensor cores) also rounds the softmax weights P between
-    its two products, into two bf16 parts hi + lo that carry P to about
-    2^-16, so its output too is within about one ulp of the float32
-    result. (P in one bf16 part, 2^-8, misses this tolerance where a few
-    keys carry a row's weight, as in the first rows of a causal head.)
-  * moe_dispatch at (64, 1280, 2048) and (64, 1, 2048), f 1024, and at
-    (16, 1280, 8192) and (16, 1, 8192), f 24576, bf16: rtol 1e-2 (one
-    bf16 ulp of the output), atol 2e-3, well below the median |y|
-    printed beside it. The plain version rounds one float32 result; at
-    C > 1 the bf16 route (tensor cores) also rounds the hidden
-    silu(g) * u between its two products, into two bf16 parts hi + lo
-    (about 2^-16); at C = 1 (CUDA cores) the hidden stays float32. (The
-    hidden in one bf16 part misses this tolerance at these widths.)
+    its two products, to one fp16 part (11 bits, an error up to 2^-11),
+    and V to fp16 (exact in fp16's normal range), so its output too is
+    within about one ulp of the float32 result. (P in one bf16 part,
+    2^-8, misses this tolerance where a few keys carry a row's weight,
+    as in the first rows of a causal head.)
+  * moe_dispatch at (64, 1280, 2048) and (64, 1, 2048), f 1024, at
+    (16, 1280, 8192) and (16, 1, 8192), f 24576, and at (384, 212, 7168)
+    and (384, 1, 7168), f 2048 (on 32 of the 384 experts), each with
+    every slot filled and with the counts of a random routing, bf16:
+    rtol 1e-2 (one bf16 ulp of the output), atol 2e-3, well below the
+    median |y| printed beside it. The plain version rounds one float32
+    result; at C > 1 the bf16 route (tensor cores) also rounds the
+    hidden silu(g) * u between its two products, to one fp16 part (11
+    bits), and wo to fp16; at C = 1 (CUDA cores) the hidden stays
+    float32. (The hidden in one bf16 part misses this tolerance at these
+    widths.)
   * selective_scan at (4, 256, 16384, 16), the chunk the path scans:
     float32 rtol = atol = 1e-5 (the same float32 recurrence, the dot
     product summed in another order), bf16 rtol 1e-2 (one bf16 ulp of
@@ -108,13 +127,15 @@ check lines print both):
     at test_archs.py's tolerance: bf16 near-ties between the 8th and 9th
     of 64 experts route about one (token, layer) in seven apart on the
     two paths (printed; 149 of 1,024 on the H100, error 0.203).
-    jamba, at capacity factor 8 too, is printed with its random routers
-    (0.63 apart on the H100: a token routed apart moves the logits) and
-    held at atol 0.2, rtol 0 with its routers zeroed, where both paths
-    route every token alike.
+    jamba (capacity factor 8 too) and kimi (64: C >= T with 384 experts)
+    are printed with their random routers (jamba 0.63 apart on the H100:
+    a token routed apart moves the logits) and held at atol 0.2, rtol 0
+    with their routers zeroed, where both paths route every token
+    alike.
   * the depth-2 model on the card against the CPU: atol = rtol = 0.1 on
-    the logits (tests/test_torch_lm.py); jamba's 8-layer smoke period,
-    its routers zeroed, atol 0.2, rtol 0.1 (tests/test_torch_ssm.py).
+    the logits (tests/test_torch_lm.py); jamba's 8-layer smoke period and
+    kimi's one-layer smoke config at head dim 112, their routers zeroed,
+    atol 0.2, rtol 0.1 (tests/test_torch_ssm.py).
 
 Each kernel is timed twice: CUDA events around a batch of wrapper calls,
 and the device time of its kernel from a torch.profiler trace.
@@ -363,20 +384,25 @@ CASES = [("vecadd", 256), ("saxpy", 256), ("blackscholes", 256),
 # the LM serving paths: granite-3-2b and olmoe-1b-7b at full width and depth
 # --------------------------------------------------------------------------
 
-LM_ARCH, MOE_ARCH, HYBRID_ARCH = ("granite-3-2b", "olmoe-1b-7b",
-                                  "jamba-1.5-large-398b")
+LM_ARCH, MOE_ARCH, HYBRID_ARCH, KIMI_ARCH = (
+    "granite-3-2b", "olmoe-1b-7b", "jamba-1.5-large-398b", "kimi-k2-1t-a32b")
 #: jamba on one card: every width, one layer of each kind
 HYBRID_CUT = {"n_layers": 4, "attn_every_k": 4}
+#: kimi-k2 on one card: every width, one period (one attention / MoE layer)
+KIMI_CUT = {"n_layers": 1}
+#: kimi-k2's expert FF is held against its plain version on this many of
+#: its 384 experts (all 384 in float32 would be 67.6 GB)
+KIMI_CHECK_EXPERTS = 32
 PREFILL_B, PREFILL_S = 4, 2048       # 8192 rows for each RMSNorm
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 512, 16, 16
 RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 FA_TOL = {torch.bfloat16: (1e-2, 2e-3), torch.float32: (2e-5, 2e-5)}
 MOE_TOL = (1e-2, 2e-3)               # rtol, atol; bf16
 SCAN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
-SMOKE_TOL = (0.1, 0.2)               # rtol, atol; jamba's smoke period
+SMOKE_TOL = (0.1, 0.2)               # rtol, atol; jamba's, kimi's smoke
 DECODE_ATOL = 0.2
 ROUTED_APART_TOL = (0.1, 0.55)       # rtol, atol of tests/test_archs.py
-NO_DROP_CAPACITY = 8.0               # C >= T at T = 64: nothing dropped
+DECODE_T = 64                        # teacher-forced decode-vs-prefill
 KERNELS = {"simt_exec": sx, "rmsnorm": rn, "flash_attention": fa,
            "moe_dispatch": md, "selective_scan": ss}
 LM_SOURCES = {
@@ -420,17 +446,26 @@ def _route_counts() -> dict:
     return {k: dict(m.LAUNCHES_BY_ROUTE) for k, m in ROUTED.items()}
 
 
+#: the kernels whose registers and spills the build log is read for: the
+#: tensor-core kernels and decode's expert FF (bf16, one row a CTA)
+PTXAS_NAMES = ((r"fa_tc_kernelILi(\d+)E", "fa_tc_kernel<{}>"),
+               (r"moe_up_tcE", "moe_up_tc"), (r"moe_down_tcE", "moe_down_tc"),
+               (r"moe_ff_partialI13__nv_bfloat16Li1E",
+                "moe_ff_partial<bf16, 1>"))
+
+
 def _ptxas_lines(kernel) -> list:
-    """Registers and spills of each tensor-core entry in the kernel's
+    """Registers and spills of each entry of PTXAS_NAMES in the kernel's
     nvcc log (built with -Xptxas=-v)."""
-    out, name = [], None
+    out, name, spill = [], None, ""
     for line in kernel.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(fa_tc_kernel|moe_up_tc|moe_down_tc)(ILi(\d+))?",
-                          m.group(1))
-            name = None if k is None else k.group(1) + (
-                f"<{k.group(3)}>" if k.group(3) else "")
+            name = None
+            for pat, label in PTXAS_NAMES:
+                k = re.search(pat, m.group(1))
+                if k:
+                    name = label.format(*k.groups())
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:
@@ -508,22 +543,69 @@ def _moe_shapes(cfg):
                          ("decode", SERVE_SLOTS))}
 
 
-def _moe_checks(g, dev, cfg, wi, wo, errs):
+def _sim_counts(g, dev, cfg, T, C):
+    """Filled slots of each expert when T tokens each choose top_k of the
+    experts at random: min(assigned, C), what models/moe.py hands the
+    kernel."""
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    idx = torch.rand(T, E, generator=g, device=dev).topk(k, dim=1).indices
+    assigned = torch.zeros(E, device=dev).index_add_(
+        0, idx.reshape(-1), torch.ones(T * k, device=dev))
+    return assigned.clamp_max(C).int()
+
+
+def _max_hidden(x, wi, counts=None) -> float:
+    """The largest |silu(x wi_g) * (x wi_u)| over the filled rows, in
+    float32, a few experts at a time (at most 4 GB of float32 weights)."""
+    E, C, _ = x.shape
+    f = wi.shape[2] // 2
+    step = max(1, int(2**32 // (wi[0].numel() * 4)))
+    worst = 0.0
+    for a in range(0, E, step):
+        xs = x[a:a + step].float()
+        if counts is not None:
+            xs = xs * (torch.arange(C, device=x.device)[None, :]
+                       < counts[a:a + step, None])[..., None]
+        h = torch.bmm(xs, wi[a:a + step].float())
+        worst = max(worst, float((F.silu(h[..., :f]) * h[..., f:])
+                                 .abs().max()))
+    return worst
+
+
+def _moe_checks(g, dev, cfg, wi, wo, errs, experts=None):
     """The expert FF against its plain version at the path's capacities
-    (x drawn as the unit-RMS output of an RMSNorm)."""
+    (x drawn as the unit-RMS output of an RMSNorm), with every slot filled
+    and with the counts of a random routing (x's rows past them not
+    zero); on the first ``experts`` experts only, where given, at full d
+    and f. Prints the largest |h| beside fp16's 65504."""
     rtol, atol = MOE_TOL
+    E = cfg.moe_experts if experts is None else experts
+    wi, wo = wi[:E], wo[:E]
     for name, C in _moe_shapes(cfg).items():
-        x = torch.randn(cfg.moe_experts, C, cfg.d_model, generator=g,
+        T = PREFILL_B * PREFILL_S if name == "prefill" else SERVE_SLOTS
+        counts = _sim_counts(g, dev, cfg, T, C)[:E].contiguous()
+        x = torch.randn(E, C, cfg.d_model, generator=g,
                         device=dev).bfloat16()
-        want = md.grouped_expert_ff_plain(x, wi, wo)
-        e = _compare(f"moe_dispatch({C})", {"y": md.grouped_expert_ff(
-            x, wi, wo)}, {"y": want}, rtol, atol)
-        errs[("moe_dispatch", name, torch.bfloat16)] = e
-        print(f"check moe_dispatch ({cfg.moe_experts}, {C}, {cfg.d_model})"
-              f" f {cfg.moe_d_ff} bf16 vs plain max abs err {e:.3g} (rtol "
-              f"{rtol}, atol {atol}; median |y| "
-              f"{float(want.float().abs().median()):.3g})")
-        del x, want
+        for label, cn in (("every slot", None), ("counts", counts)):
+            want = md.grouped_expert_ff_plain(x, wi, wo, cn)
+            got = md.grouped_expert_ff(x, wi, wo, cn)
+            e = _compare(f"moe_dispatch({C}, {label})", {"y": got},
+                         {"y": want}, rtol, atol)
+            errs[("moe_dispatch", name, torch.bfloat16)] = max(
+                e, errs.get(("moe_dispatch", name, torch.bfloat16), 0.0))
+            filled = ("" if cn is None else
+                      f", {int((cn > 0).sum())} experts filled, "
+                      f"{int(cn.sum())} rows")
+            print(f"check moe_dispatch ({E}, {C}, {cfg.d_model}) f "
+                  f"{cfg.moe_d_ff} bf16 {label}{filled} vs plain max abs "
+                  f"err {e:.3g} (rtol {rtol}, atol {atol}; median |y| "
+                  f"{float(want.float().abs().median()):.3g})"
+                  + ("" if experts is None else
+                     f"; on {E} of {cfg.moe_experts} experts"))
+            del want, got
+        print(f"moe_dispatch ({E}, {C}, {cfg.d_model}) largest |h| "
+              f"{_max_hidden(x, wi):.4g} (fp16 holds up to 65504)")
+        del x
 
 
 def moe_kernel_checks(dev, cfg, layer0, seed):
@@ -616,29 +698,56 @@ def lm_kernel_times(dev, cfg, reps, errs):
     return records
 
 
-def _moe_rows(dev, cfg, wi, wo, reps, errs, launches, prefill_batch=10):
-    """Timing rows of the expert FF at the prefill and decode capacities
-    (one layer's weights: far past the L2 cache). The bound: 6 E C d f
-    FLOP of bf16 products, or each input read and the output written
-    once. Returns the prefill row with the decode row in it."""
+def _moe_rows(dev, cfg, wi, wo, reps, errs, launches, prefill_batch=10,
+              plain_experts=None):
+    """Timing rows of the expert FF (one layer's weights: far past the L2
+    cache): at prefill with every slot filled; at decode
+    with the counts of a random routing of the engine's 8 tokens, as the
+    path runs it, and once more with every slot filled. The bound: 6 FLOP
+    a filled row and (d, f) pair of bf16 products, or the filled rows of
+    x, the weights of the experts that hold a row and all of y moved once.
+    ``plain_experts``: the plain version runs that many experts a call,
+    in turn over all of them (its float32 weights would not fit at once).
+    Returns the prefill row with the decode row in it."""
     g = torch.Generator(dev).manual_seed(8)
     E, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+    step = E if plain_experts is None else plain_experts
     rows = {}
     for name, C in _moe_shapes(cfg).items():
         x = torch.randn(E, C, d, generator=g, device=dev).bfloat16()
-        nbytes = 2 * (2 * x.numel() + wi.numel() + wo.numel())
+        counts = (_sim_counts(g, dev, cfg, SERVE_SLOTS, C)
+                  if name == "decode" else None)
+        n_live = E if counts is None else int((counts > 0).sum())
+        n_rows = E * C if counts is None else int(counts.sum())
+        nbytes = 2 * (n_live * 3 * d * f + n_rows * d + E * C * d)
         batch = prefill_batch if name == "prefill" else 10
+
+        def plain():
+            return [md.grouped_expert_ff_plain(
+                x[a:a + step], wi[a:a + step], wo[a:a + step],
+                None if counts is None else counts[a:a + step])
+                for a in range(0, E, step)]
+
+        filled = ("every slot" if counts is None else
+                  f"{n_live} of {E} experts filled, {n_rows} rows")
         rows[name] = {**_kernel_row(
-            "moe_dispatch", f"({E}, {C}, {d}) f {f} bf16 ({name})",
-            lambda: md.grouped_expert_ff(x, wi, wo),
-            lambda: md.grouped_expert_ff_plain(x, wi, wo),
-            lambda: _library_moe(x, wi, wo),
-            nbytes, 6 * E * C * d * f, BF16_OPS_PER_S, reps, launches,
+            "moe_dispatch", f"({E}, {C}, {d}) f {f} bf16 ({name}, {filled})",
+            lambda: md.grouped_expert_ff(x, wi, wo, counts),
+            plain, lambda: _library_moe(x, wi, wo),
+            nbytes, 6 * n_rows * d * f, BF16_OPS_PER_S, reps, launches,
             batch=batch, calls=2 * batch), "shape": [E, C, d, f],
+            "experts_filled": n_live,
             "max_abs_err": errs[("moe_dispatch", name, torch.bfloat16)]}
+        if counts is not None:
+            rows[name]["ms_every_slot"] = _median_ms(
+                lambda: md.grouped_expert_ff(x, wi, wo), reps, batch)
+            print(f"time moe_dispatch ({E}, {C}, {d}) every expert read "
+                  f"(no counts): {rows[name]['ms_every_slot']:.4f} ms")
         del x
     print("library for moe_dispatch: three calls in bf16 (bmm, silu times "
-          "mul, bmm)")
+          "mul, bmm), every slot" + ("" if step == E else
+                                     f"; plain version {step} experts a "
+                                     f"call over all {E}"))
     return {**rows["prefill"], "decode": rows["decode"],
             "library": "torch.bmm, F.silu * mul, torch.bmm (bf16)"}
 
@@ -724,6 +833,37 @@ def _first_moe_dropped(fn, cfg) -> float:
     return MOE.dropped_share(p, x, n_experts=cfg.moe_experts,
                              top_k=cfg.moe_top_k,
                              capacity_factor=cfg.moe_capacity)
+
+
+def _no_drop_capacity(cfg) -> float:
+    """The capacity factor at which prefill of DECODE_T tokens drops no
+    assignment (C >= T): T / (T k // E). 8 for olmoe and jamba, 64 for
+    kimi-k2."""
+    return DECODE_T / max(1, DECODE_T * cfg.moe_top_k // cfg.moe_experts)
+
+
+def _fp16_ranges(fn) -> tuple:
+    """The largest |v| handed to flash_attention and the largest |h| of
+    the expert FFs (filled rows) while ``fn()`` runs: the values the
+    tensor-core routes carry in fp16, whose largest is 65504."""
+    from repro_torch.models import layers as LAYERS
+    seen_v, seen_h = [0.0], [0.0]
+    attn, ff = LAYERS.flash_attention, MOE.grouped_expert_ff
+
+    def attn_rec(q, k, v, **kw):
+        seen_v[0] = max(seen_v[0], float(v.abs().max()))
+        return attn(q, k, v, **kw)
+
+    def ff_rec(x, wi, wo, counts=None, **kw):
+        seen_h[0] = max(seen_h[0], _max_hidden(x, wi, counts))
+        return ff(x, wi, wo, counts, **kw)
+
+    LAYERS.flash_attention, MOE.grouped_expert_ff = attn_rec, ff_rec
+    try:
+        fn()
+    finally:
+        LAYERS.flash_attention, MOE.grouped_expert_ff = attn, ff
+    return seen_v[0], seen_h[0]
 
 
 def _init(dev, cfg, seed):
@@ -828,6 +968,10 @@ def serve_path(dev, cfg, model, params, seed):
           f"{SERVE_SLOTS / step_ms * 1e3:.1f} tokens/s")
     _breakdown(lambda: model.prefill(params, toks), pre_s * 1e3,
                f"{arch} prefill {PREFILL_B} x {PREFILL_S}")
+    v_max, h_max = _fp16_ranges(lambda: model.prefill(params, toks))
+    print(f"{arch} prefill: largest |v| into attention {v_max:.4g}, "
+          f"largest |h| of the expert FFs {h_max:.4g} (fp16 holds up to "
+          "65504)")
     _breakdown(step, step_ms, f"{arch} decode_step {SERVE_SLOTS} slots")
     return toks, eng, rng, by_path, step
 
@@ -888,22 +1032,17 @@ def moe_phase(dev, seed: int, reps: int):
     toks, eng, rng, by_path, step = serve_path(dev, cfg, model, params,
                                                seed)
 
-    # assignments the capacity drops, at the first layer (untimed)
-    for name, fn in (("prefill", lambda: model.prefill(params, toks)),
-                     ("decode", step)):
-        share = _first_moe_dropped(fn, cfg)
-        print(f"{cfg.name} {name}: {share:.4f} of layer 0's expert "
-              f"assignments dropped by capacity (C = "
-              f"{_moe_shapes(cfg)[name]})")
+    _print_drops(cfg, model, params, toks, step)
 
     # decode matches prefill where neither drops (C >= T at T = 64)
-    m8 = get_model(dataclasses.replace(cfg, moe_capacity=NO_DROP_CAPACITY))
-    got, want, apart = _decode_vs_prefill(dev, m8, params, toks[:1, :64],
-                                          cfg)
+    cf = _no_drop_capacity(cfg)
+    m8 = get_model(dataclasses.replace(cfg, moe_capacity=cf))
+    got, want, apart = _decode_vs_prefill(dev, m8, params,
+                                          toks[:1, :DECODE_T], cfg)
     rtol, atol = ROUTED_APART_TOL
     e = _compare("decode vs prefill", {"l": got}, {"l": want}, rtol, atol)
     print(f"check decode (64 steps) vs prefill, capacity factor "
-          f"{NO_DROP_CAPACITY}, logits max abs err {e:.3g} (atol {atol}, "
+          f"{cf}, logits max abs err {e:.3g} (atol {atol}, "
           f"rtol {rtol}; logits std {float(want.std()):.3g}); (token, "
           f"layer) pairs routed apart: {apart} of {64 * cfg.n_layers}")
 
@@ -1002,7 +1141,8 @@ def hybrid_moe(dev, cfg, seed, reps):
     _moe_checks(g, dev, cfg, wi, wo, errs)
     print(f"moe_dispatch slicing of f {f}: " + ", ".join(
         f"C = {C}: {md.slicing(E, C, f)} (slices, width)"
-        for C in _moe_shapes(cfg).values()))
+        for C in _moe_shapes(cfg).values())
+        + f"; C = 1 with counts: {md.slicing(1, 1, f)}")
     record = _moe_rows(dev, cfg, wi, wo, reps, errs,
                        f"{_count(cfg, ff='moe')} a prefill or decode step",
                        prefill_batch=1)
@@ -1030,6 +1170,23 @@ def hybrid_phase(dev, seed: int, reps: int):
     model, params = _init(dev, cfg, seed)
     toks, eng, rng, by_path, step = serve_path(dev, cfg, model, params,
                                                seed)
+    _print_drops(cfg, model, params, toks, step)
+    _decode_checks_routers_zeroed(dev, cfg, params, toks)
+    del params, eng, step
+    torch.cuda.empty_cache()
+
+    # the card (kernels) against the CPU (plain versions): one period of
+    # the smoke config, its routers zeroed (widths cut: the CPU would
+    # need 46 GB at full width)
+    sm = get_config(HYBRID_ARCH, smoke=True)
+    _smoke_card_vs_cpu(dev, dataclasses.replace(
+        sm, n_layers=len(sm.layer_pattern())), seed, rng)
+    return records, by_path
+
+
+def _print_drops(cfg, model, params, toks, step) -> None:
+    """The share of the first MoE layer's assignments that the capacity
+    drops, at prefill and at a decode step (untimed)."""
     first = [k.ff for k in model.period].index("moe")
     for name, fn in (("prefill", lambda: model.prefill(params, toks)),
                      ("decode", step)):
@@ -1038,38 +1195,39 @@ def hybrid_phase(dev, seed: int, reps: int):
               f"assignments dropped by capacity (C = "
               f"{_moe_shapes(cfg)[name]})")
 
-    # decode matches prefill where neither drops (C >= T at T = 64): with
-    # the random routers (printed: a token routed apart on the two paths
-    # moves the logits), then held with the routers zeroed, where both
-    # paths route every token to experts 0 and 1
-    m8 = get_model(dataclasses.replace(cfg, moe_capacity=NO_DROP_CAPACITY))
+
+def _decode_checks_routers_zeroed(dev, cfg, params, toks) -> None:
+    """Decode matches prefill where neither drops (C >= T at T = 64): with
+    the random routers (printed: a token routed apart on the two paths
+    moves the logits), then held with the routers zeroed, where both
+    paths route every token to the first top_k experts."""
+    cf = _no_drop_capacity(cfg)
+    m8 = get_model(dataclasses.replace(cfg, moe_capacity=cf))
     moe_layers = _count(cfg, ff="moe")
-    got, want, apart = _decode_vs_prefill(dev, m8, params, toks[:1, :64],
-                                          cfg)
-    print(f"decode (64 steps) vs prefill, capacity factor "
-          f"{NO_DROP_CAPACITY}, random routers: logits max abs err "
+    got, want, apart = _decode_vs_prefill(dev, m8, params,
+                                          toks[:1, :DECODE_T], cfg)
+    print(f"decode ({DECODE_T} steps) vs prefill, capacity factor {cf}, "
+          f"random routers: logits max abs err "
           f"{float((got - want).abs().max()):.3g} (logits std "
           f"{float(want.std()):.3g}); (token, layer) pairs routed apart: "
-          f"{apart} of {64 * moe_layers}")
+          f"{apart} of {DECODE_T * moe_layers}")
     tied = dict(params, stack=[
         dict(layer, moe=dict(layer["moe"], router=torch.zeros_like(
             layer["moe"]["router"]))) if "moe" in layer else layer
         for layer in params["stack"]])
-    got, want, apart = _decode_vs_prefill(dev, m8, tied, toks[:1, :64], cfg)
+    got, want, apart = _decode_vs_prefill(dev, m8, tied,
+                                          toks[:1, :DECODE_T], cfg)
     e = _compare("decode vs prefill", {"l": got}, {"l": want}, 0.0,
                  DECODE_ATOL)
-    print(f"check decode (64 steps) vs prefill, capacity factor "
-          f"{NO_DROP_CAPACITY}, routers zeroed, logits max abs err {e:.3g} "
-          f"(atol {DECODE_ATOL}, rtol 0; logits std "
-          f"{float(want.std()):.3g}); pairs routed apart: {apart}")
-    del params, tied, eng, step
-    torch.cuda.empty_cache()
+    print(f"check decode ({DECODE_T} steps) vs prefill, capacity factor "
+          f"{cf}, routers zeroed, logits max abs err {e:.3g} (atol "
+          f"{DECODE_ATOL}, rtol 0; logits std {float(want.std()):.3g}); "
+          f"pairs routed apart: {apart}")
 
-    # the card (kernels) against the CPU (plain versions): one period of
-    # the smoke config, its routers zeroed (widths cut: the CPU would
-    # need 46 GB at full width)
-    sm = get_config(HYBRID_ARCH, smoke=True)
-    sm = dataclasses.replace(sm, n_layers=len(sm.layer_pattern()))
+
+def _smoke_card_vs_cpu(dev, sm, seed, rng) -> None:
+    """A small config's prefill on the card (kernels) against the CPU
+    (plain versions), its routers zeroed, with the card's launches."""
     m2 = get_model(sm)
     p_cpu = init_params(m2.blueprint(), torch.Generator().manual_seed(seed))
     for layer in p_cpu["stack"]:
@@ -1081,12 +1239,50 @@ def hybrid_phase(dev, seed: int, reps: int):
     got2 = m2.prefill(tree_map(lambda a: a.to(dev), p_cpu), toks2.to(dev))
     torch.cuda.synchronize()
     rtol, atol = SMOKE_TOL
-    e = _compare("smoke period card vs cpu", {"l": got2.cpu()[:, :sm.vocab]},
+    e = _compare("smoke card vs cpu", {"l": got2.cpu()[:, :sm.vocab]},
                  {"l": want2[:, :sm.vocab]}, rtol, atol)
-    print(f"check {sm.name} one period ({sm.n_layers} layers, d_model "
-          f"{sm.d_model}, routers zeroed) prefill (2 x 128) card vs cpu "
-          f"logits max abs err {e:.3g} (atol {atol}, rtol {rtol}); card "
-          f"launches {_counts()}")
+    print(f"check {sm.name} ({sm.n_layers} layers, d_model {sm.d_model}, "
+          f"head dim {sm.head_dim}, routers zeroed) prefill (2 x 128) card "
+          f"vs cpu logits max abs err {e:.3g} (atol {atol}, rtol {rtol}); "
+          f"card launches {_counts()}, by route {_route_counts()}")
+
+
+def kimi_phase(dev, seed: int, reps: int):
+    """The MoE LM serving path on kimi-k2-1t-a32b at full width, cut to
+    one layer (its period): 19.4 B params, 38.8 GB in bf16. Checked and
+    timed; the expert FF is held against its plain version on
+    KIMI_CHECK_EXPERTS of its experts at full d and f, and timed at the
+    full shape. Returns its kernels' records and its counts by path."""
+    full = get_config(KIMI_ARCH)
+    cfg = dataclasses.replace(full, **KIMI_CUT)
+    print(f"{KIMI_ARCH} cut for one card: " + ", ".join(
+        f"{k} {getattr(full, k)} -> {v}" for k, v in KIMI_CUT.items())
+        + "; every width as published")
+    model, params = _init(dev, cfg, seed)
+    layer0 = {k: params["stack"][0]["moe"][k][0] for k in ("wi", "wo")}
+    errs = lm_kernel_checks(dev, cfg, seed)
+    _moe_checks(torch.Generator(dev).manual_seed(seed), dev, cfg,
+                layer0["wi"], layer0["wo"], errs,
+                experts=KIMI_CHECK_EXPERTS)
+    toks, eng, rng, by_path, step = serve_path(dev, cfg, model, params,
+                                               seed)
+    _print_drops(cfg, model, params, toks, step)
+    _decode_checks_routers_zeroed(dev, cfg, params, toks)
+    del eng, step
+    torch.cuda.empty_cache()
+    records = lm_kernel_times(dev, cfg, min(reps, 10), errs)
+    records["moe_dispatch"] = _moe_rows(
+        dev, cfg, layer0["wi"], layer0["wo"], min(reps, 5), errs,
+        f"{_count(cfg, ff='moe')} a prefill or decode step",
+        prefill_batch=3, plain_experts=KIMI_CHECK_EXPERTS)
+    del params, layer0
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: kimi's smoke config at its published head
+    # dim, 112 (the smoke config has 32), one layer
+    sm = dataclasses.replace(get_config(KIMI_ARCH, smoke=True),
+                             head_dim=full.head_dim, n_layers=1)
+    _smoke_card_vs_cpu(dev, sm, seed, rng)
     return records, by_path
 
 
@@ -1252,6 +1448,12 @@ def main() -> int:
     for name in ("rmsnorm", "flash_attention", "moe_dispatch"):
         lm_records[name]["jamba"] = hybrid_records.pop(name)
     lm_records.update(hybrid_records)
+    t0 = time.perf_counter()
+    kimi_records, kimi_paths = kimi_phase(dev, args.seed, args.reps)
+    print(f"lm phase {KIMI_ARCH} {time.perf_counter() - t0:.1f} s")
+    paths.update(kimi_paths)
+    for name in ("rmsnorm", "flash_attention", "moe_dispatch"):
+        lm_records[name]["kimi"] = kimi_records.pop(name)
     for name, r in lm_records.items():
         src, replaces = LM_SOURCES[name]
         per_path = {p: n[name] for p, n in paths.items()}

@@ -1,15 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core routes of
 // flash_attention.cu and moe_dispatch.cu: shared-memory matrix
-// descriptors, wgmma (warpgroup matrix multiply-accumulate, bf16 in,
-// float32 accumulators in registers) and cp.async copies into tiles in
-// the 128-byte-swizzled layout that wgmma reads.
+// descriptors, wgmma (warpgroup matrix multiply-accumulate, bf16 or fp16
+// in, float32 accumulators in registers), bf16 -> fp16 conversion (of a
+// word, and of a tile in shared memory in place), and cp.async copies
+// into tiles in the 128-byte-swizzled layout that wgmma reads.
 //
-// The tile layout. A bf16 operand tile is kept as column blocks of 64
-// elements: a block holds R rows of 128 bytes, row r at r * 128, and the
-// eight 16-byte chunks of a row are permuted as chunk ^ (r % 8), the
-// 128-byte swizzle. The swizzle is a function of the address bits, so a
-// block must start at a multiple of 1024 bytes. The same physical layout
-// serves both majors:
+// The tile layout. A 16-bit operand tile (bf16 or fp16) is kept as
+// column blocks of 64 elements: a block holds R rows of 128 bytes, row r
+// at r * 128, and the eight 16-byte chunks of a row are permuted as
+// chunk ^ (r % 8), the 128-byte swizzle. The swizzle is a function of
+// the address bits, so a block must start at a multiple of 1024 bytes.
+// The same physical layout serves both majors:
 //   * K-major (the reduction dimension contiguous: q, k, x, h): the
 //     rows are the M or N index, the 64 elements of a row are K. A k16
 //     step advances the start address by 32 bytes inside the row; the
@@ -22,17 +23,18 @@
 // Accumulator fragment of wgmma m64nNk16 (float32), thread t of the
 // warpgroup, warp w = t / 32, lane l: d[4j + 2i + c] holds row
 // 16w + l / 4 + 8i, column 8j + 2(l % 4) + c. The A fragment that the
-// register form (RS) reads, m64k16 bf16 in four 32-bit words, has the
+// register form (RS) reads, m64k16 of 16-bit pairs in four words, has the
 // same rows: a[0] columns 2(l % 4) + {0, 1} of row 16w + l / 4, a[1] the
 // same of row + 8, a[2] and a[3] the same eight columns on. So the
-// accumulator of one product, rounded pairwise to bf16, is the A operand
-// of the next with no data movement.
+// accumulator of one product, rounded pairwise to bf16 or fp16, is the A
+// operand of the next with no data movement.
 //
 // Everything sits under __CUDACC__: the float32 kernels of the files that
 // include this header also compile with g++ for the host tests.
 #pragma once
 #ifdef __CUDACC__
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -86,7 +88,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// ---- wgmma m64nNk16, bf16 inputs, float32 accumulators -----------------
+// ---- wgmma m64nNk16, bf16 or fp16 inputs, float32 accumulators --------
+
+// the operand type of a product: both operands bf16, or both fp16 (wgmma
+// does not mix them)
+struct BF16;
+struct F16;
 
 #define SM90_D4(j) \
   "+f"(d[4 * (j)]), "+f"(d[4 * (j) + 1]), "+f"(d[4 * (j) + 2]), \
@@ -109,57 +116,55 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "     \
   "%62, %63"
 
-// D (+)= A B with A and B in shared memory (SS); A K-major; B K-major
-// (TB = 0) or MN-major (TB = 1); accumulate unless scale_d is 0
-template <int N, int TB> struct Mma;
+// Mma<N, TB, T>: D (+)= A B over one k16 step, operands of type T.
+//   ss: A and B in shared memory; A K-major; B K-major (TB = 0) or
+//       MN-major (TB = 1); accumulate unless scale_d is 0.
+//   rs: A from registers, four words of pairs (the fragment above).
+template <int N, int TB, typename T = BF16> struct Mma;
 
-template <int TB> struct Mma<64, TB> {
-  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_R32
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-        : SM90_D32
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
-  }
-  // A from registers (RS): four words of bf16 pairs, the fragment above
-  __device__ __forceinline__ static void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_R32
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : SM90_D32
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-          "r"(scale_d), "n"(TB));
-  }
-};
+// one specialization: N, the type tag and its PTX name, the accumulator
+// operands, and the operand numbers of the scale predicate and the rest
+// in the SS and RS forms
+#define SM90_MMA(NN, T, TS, REGS, DOUT, SS_P, SS_REST, RS_P, RS_REST)     \
+  template <int TB> struct Mma<NN, TB, T> {                               \
+    __device__ __forceinline__ static void ss(float (&d)[NN / 2],         \
+                                              uint64_t a, uint64_t b,     \
+                                              int scale_d) {              \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SS_P ", 0;\n"      \
+                   "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32." TS  \
+                   "." TS " {" REGS "}, " SS_REST ";\n}\n"                \
+                   : DOUT                                                 \
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TB));              \
+    }                                                                     \
+    __device__ __forceinline__ static void rs(float (&d)[NN / 2],         \
+                                              const uint32_t (&a)[4],     \
+                                              uint64_t b, int scale_d) {  \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " RS_P ", 0;\n"      \
+                   "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32." TS  \
+                   "." TS " {" REGS "}, " RS_REST ";\n}\n"                \
+                   : DOUT                                                 \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),  \
+                     "r"(scale_d), "n"(TB));                              \
+    }                                                                     \
+  };
 
-template <int TB> struct Mma<128, TB> {
-  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_R64
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-        : SM90_D64
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
-  }
-  __device__ __forceinline__ static void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_R64
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : SM90_D64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-          "r"(scale_d), "n"(TB));
-  }
-};
+#define SM90_MMA_64(T, TS)                                                \
+  SM90_MMA(64, T, TS, SM90_R32, SM90_D32, "%34",                          \
+           "%32, %33, p, 1, 1, 0, %35", "%37",                            \
+           "{%32, %33, %34, %35}, %36, p, 1, 1, %38")
+#define SM90_MMA_128(T, TS)                                               \
+  SM90_MMA(128, T, TS, SM90_R64, SM90_D64, "%66",                         \
+           "%64, %65, p, 1, 1, 0, %67", "%69",                            \
+           "{%64, %65, %66, %67}, %68, p, 1, 1, %70")
 
+SM90_MMA_64(BF16, "bf16")
+SM90_MMA_128(BF16, "bf16")
+SM90_MMA_64(F16, "f16")
+SM90_MMA_128(F16, "f16")
+
+#undef SM90_MMA_64
+#undef SM90_MMA_128
+#undef SM90_MMA
 #undef SM90_D4
 #undef SM90_D32
 #undef SM90_D64
@@ -172,13 +177,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// two floats as bf16 pairs hi + lo: hi the floats rounded, lo what hi
-// misses, rounded; hi + lo keeps about 16 bits of each
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+// two floats as an fp16 pair, the first in the low half, rounded to
+// nearest: 11 significant bits; |x| > 65504 becomes inf, |x| < 6.1e-5
+// keeps fewer bits (subnormal)
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a bf16 pair (one word, the first in the low half) as an fp16 pair:
+// bf16 -> float is exact (a bf16 is the top half of its float), float ->
+// fp16 as pack_f16
+__device__ __forceinline__ uint32_t bf16x2_to_f16x2(uint32_t w) {
+  return pack_f16(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// the 16-byte chunk at shared address a, eight bf16, rewritten in place as
+// eight fp16. A tile that an fp16 product reads goes through this after
+// its copy lands: the layout is unchanged, only the element type. The
+// thread that copied the chunk converts it, so no barrier sits between
+// the two.
+__device__ __forceinline__ void bf16_to_f16(uint32_t a) {
+  uint32_t w[4];
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+               : "r"(a)
+               : "memory");
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = bf16x2_to_f16x2(w[i]);
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
 }
 
 // ---- cp.async: 16-byte copies into shared memory -----------------------

@@ -1,6 +1,7 @@
 // Attention forward with an online softmax, in two routes:
-//   * tensor cores (bf16, head dim 64 or 128, rows of 16-byte multiples):
-//     fa_tc_kernel, one CTA per (batch, head, 64-row query tile);
+//   * tensor cores (bf16, head dim 64, 112 or 128, rows of 16-byte
+//     multiples): fa_tc_kernel, one CTA per (batch, head, 64-row query
+//     tile);
 //   * CUDA cores (float32, bf16 at head dim 32 or with rows the copies
 //     cannot take): fa_kernel, one CTA per (batch, head, 64-row tile).
 // The wrapper (flash_attention.py: route) picks the entry from the dtype,
@@ -18,21 +19,26 @@
 //
 // The tensor-core route (sm90.cuh has the wgmma and copy helpers and the
 // tile layout). One warpgroup of 128 threads takes 64 query rows; two
-// CTAs share an SM at D = 128 and three at D = 64 (233 and 165
-// registers a thread), so that one CTA's softmax runs while another's
+// CTAs share an SM at D = 112 and 128 (shared memory allows no third)
+// and four at D = 64, so that one CTA's softmax runs while another's
 // products keep the tensor cores busy:
 //   * q's rows are copied once into shared memory; K and V come in tiles
 //     of 64 keys through a ring of two stages, the next tile's copies in
 //     flight while the current one is used: 41 KB of dynamic shared
-//     memory at D = 64, 81 KB at D = 128. Copies are cp.async, 16 bytes
-//     a thread, written to the 128-byte-swizzled layout (rows past the
-//     end zero-filled): they read q, k and v through their strides and
-//     mask ragged rows one by one, where TMA would need a tensor map
-//     made on the host for every call. TMA's gain, copies that cost no
-//     thread instructions, matters once a producer warp is split off (a
-//     later change).
-//   * S = Q K^T by wgmma m64n64k16 from shared memory (K K-major), into
-//     32 float32 registers a thread.
+//     memory at D = 64, 81 KB at D = 112 and 128. Copies are cp.async, 16
+//     bytes a thread, written to the 128-byte-swizzled layout (rows past
+//     the end zero-filled): they read q and k through their strides (v's
+//     fp16 copy is contiguous) and mask ragged rows one by one, where TMA
+//     would need a tensor map made on the host for every call. TMA's
+//     gain, copies that cost no thread instructions, matters once a
+//     producer warp is split off (a later change).
+//   * D = 112: a row is 14 chunks of 16 bytes. The tiles take the layout
+//     of D = 128, two column blocks of 64, and the two chunks past the
+//     row in the second block are zero-filled by cp.async's zero-fill
+//     size. Q K^T stops after 7 k16 steps; P V runs N = 128 (the zero
+//     columns of V give zero columns of O) and the epilogue stores 112.
+//   * S = Q K^T by wgmma m64n64k16 from shared memory (K K-major, bf16),
+//     into 32 float32 registers a thread.
 //   * the online softmax runs on that fragment: a row's max and sum are
 //     reduced over the 4 threads that hold it (__shfl_xor_sync), 2^x by
 //     ex2.approx with the scale pre-multiplied by log2 e. The causal and
@@ -41,14 +47,28 @@
 //   * P stays in registers: the accumulator fragment of S is the A
 //     fragment of O += P V (the register form, RS), so P needs no shared
 //     tile, no proxy fence and no barrier. V is read MN-major (the
-//     transpose bit). P goes in as two bf16 parts, hi = bf16(P) and
-//     lo = bf16(P - hi), two products into one accumulator. hi alone (8
-//     significant bits: an error up to 2^-8 of each weight) puts the
-//     output more than rtol 1e-2 + atol 2e-3 from the float32 softmax in
-//     rows whose weight sits on a few keys, as in the first rows of a
-//     causal head (tests/test_torch_lm_kernels.py holds a rounding model
-//     of both); hi + lo carries P to about 2^-16. It costs half again the
-//     tensor work.
+//     transpose bit). P goes in as one fp16 part, one product: wgmma does
+//     not mix types, so V goes in as fp16 too. A small kernel launched
+//     first (v_to_f16) converts v once a call into a contiguous fp16
+//     scratch, 2 B Hkv Sk D bytes each way (16.8 MB read and written at
+//     jamba's shape), where converting each tile in shared memory would
+//     cost every CTA that reads the tile again: at D = 128, 8 chunks a
+//     thread a tile, about as many instructions as the softmax.
+//   * Why fp16 and not bf16. P lies in [0, 1] (each weight is 2^(s - m)
+//     against the running max). bf16 keeps 8 significant bits: P rounded
+//     to bf16 alone (an error up to 2^-8 of each weight) puts the output
+//     more than rtol 1e-2 + atol 2e-3 from the float32 softmax in rows
+//     whose weight sits on a few keys of about equal score, as in the
+//     first rows of a causal head. fp16 keeps 11 bits (an error up to
+//     2^-11), which stays inside (tests/test_torch_lm_kernels.py holds a
+//     rounding model of each). bf16 V converts to fp16 exactly for
+//     6.1e-5 <= |v| <= 65504; smaller |v| keep fewer bits (an absolute
+//     error under 2^-25), and a |v| above 65504 becomes inf: the route
+//     takes V of that range, with no clamp and no fallback (chip_smoke.py
+//     prints the largest |v| at the paths' shapes). The row sum l is the
+//     float32 sum of the unrounded P. One product in place of the two of
+//     a bf16 hi + lo split: two thirds of that design's tensor work, and
+//     no registers for lo.
 //   * the epilogue divides by max(l, 1e-20), casts and stores the rows
 //     below Sq.
 // The longest causal query tiles are launched first (blockIdx.x from the
@@ -73,13 +93,13 @@
 //   * q, k and v are read through their strides (the last dimension must
 //     be contiguous); the output is a contiguous (B, H, Sq, D).
 //
-// Head dims 32, 64 and 128 on the CUDA cores. At D = 128 the four float32
-// tiles come to 74,368 bytes, over the 48 KB of static shared memory, so
-// that instantiation takes the same tiles from dynamic shared memory
-// (fa_kernel_dyn, after cudaFuncSetAttribute); D = 32 and 64 keep their
-// static tiles (fa_kernel). Both run one body, fa_body. D = 32 stays on
-// the CUDA cores in bf16 too: its 64-byte rows would need a second
-// swizzle mode, and no path of the port uses it.
+// Head dims 32, 64, 112 and 128 on the CUDA cores. At D = 112 and 128 the
+// four float32 tiles come to 66,176 and 74,368 bytes, over the 48 KB of
+// static shared memory, so those instantiations take the same tiles from
+// dynamic shared memory (fa_kernel_dyn, after cudaFuncSetAttribute);
+// D = 32 and 64 keep their static tiles (fa_kernel). Both run one body,
+// fa_body. D = 32 stays on the CUDA cores in bf16 too: its 64-byte rows
+// would need a second swizzle mode, and no path of the port uses it.
 //
 // The float32 instantiations compile with g++ against the stand-in
 // runtime in tests/cuda_host, which runs them on the CPU.
@@ -278,7 +298,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 #ifdef __CUDACC__
-// ---- the tensor-core route: bf16, D = 64 or 128 -------------------------
+// ---- the tensor-core route: bf16, D = 64, 112 or 128 --------------------
 
 using bf16 = __nv_bfloat16;
 constexpr int TC_BQ = 64;         // query rows per CTA: one warpgroup
@@ -288,41 +308,68 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 struct TcTiles {
   static constexpr int BK = 64;                  // keys a tile
-  static constexpr int Q_BYTES = TC_BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;     // one of K, V
+  // columns of a tile: whole blocks of 64 (D = 112 takes D = 128's)
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int Q_BYTES = TC_BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;    // one of K, V
   // Q, two stages of K and V, and room to align the start to 1024: 41 KB
-  // at D = 64, 81 KB at D = 128
+  // at D = 64, 81 KB at D = 112 and 128
   static constexpr int SMEM = Q_BYTES + 2 * 2 * KV_BYTES + 1024;
-  // CTAs an SM holds, as registers allow
-  static constexpr int MIN_CTAS = D == 64 ? 3 : 2;
+  // CTAs an SM holds, as registers and shared memory allow: four at
+  // D = 64 (at most 128 registers a thread), two at D = 112 and 128 (81
+  // KB of shared memory a CTA)
+  static constexpr int MIN_CTAS = DP == 64 ? 4 : 2;
 };
 
-// R rows of D bf16 from src (ld elements apart) into the column blocks of
-// 64 at dst; rows from ``valid`` on are zero-filled and not read
-template <int R, int D>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const bf16* src,
+// R rows of D 16-bit elements (bf16 or fp16) from src (ld elements
+// apart) into the column blocks of 64 at dst; rows from ``valid`` on, and
+// the chunks of a block past D, are zero-filled and not read
+template <int R, int D, typename T>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const T* src,
                                           long long ld, int valid,
                                           int tid) {
-  constexpr int CPR = D / 8;      // 16-byte chunks a row
-  static_assert(R * CPR % TC_THREADS == 0, "whole passes of the CTA");
+  constexpr int CPR = D / 8;                   // 16-byte chunks a row
+  constexpr int SLOTS = TcTiles<D>::DP / 8;    // chunks a tile row holds
+  static_assert(R * SLOTS % TC_THREADS == 0, "whole passes of the CTA");
 #pragma unroll
-  for (int i = 0; i < R * CPR / TC_THREADS; ++i) {
+  for (int i = 0; i < R * SLOTS / TC_THREADS; ++i) {
     const int c = tid + i * TC_THREADS;
-    const int r = c / CPR, ch = c % CPR;
-    const bool in = r < valid;
+    const int r = c / SLOTS, ch = c % SLOTS;
+    const bool in = r < valid && ch < CPR;
     sm90::cp_async16(dst + (ch >> 3) * (R * 128) + sm90::swz(r, ch & 7),
                      src + (in ? r * ld + ch * 8 : 0), in);
+  }
+}
+
+// v (B, Hkv, Sk, D) bf16, read through its strides, as a contiguous fp16
+// (B, Hkv, Sk, D) at vh: the operand type of the P V product, made once
+// a call instead of once a tile in every CTA that reads it
+template <int D>
+__global__ void __launch_bounds__(256)
+v_to_f16(const bf16* __restrict__ v, __half* __restrict__ vh, int Hkv,
+         int Sk, Strides vs, long long n_chunks) {
+  for (long long c = (long long)blockIdx.x * 256 + threadIdx.x; c < n_chunks;
+       c += (long long)gridDim.x * 256) {
+    const long long row = c / (D / 8);       // (b, hk, s)
+    const int ch = (int)(c % (D / 8));
+    const int s = (int)(row % Sk);
+    const long long bh = row / Sk;
+    const uint4 w = *reinterpret_cast<const uint4*>(
+        v + bh / Hkv * vs.b + bh % Hkv * vs.h + s * vs.s + ch * 8);
+    const uint4 o = {sm90::bf16x2_to_f16x2(w.x), sm90::bf16x2_to_f16x2(w.y),
+                     sm90::bf16x2_to_f16x2(w.z), sm90::bf16x2_to_f16x2(w.w)};
+    *reinterpret_cast<uint4*>(vh + row * D + ch * 8) = o;
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(TC_THREADS, TcTiles<D>::MIN_CTAS)
 fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+             const __half* __restrict__ vh, bf16* __restrict__ o, int H,
              int Hkv, int Sq, int Sk, int n_bh, Strides qs, Strides ks,
-             Strides vs, int causal, float scale_log2) {
+             int causal, float scale_log2) {
   using TL = TcTiles<D>;
-  constexpr int BK = TL::BK;
+  constexpr int BK = TL::BK, DP = TL::DP;
   VX_DYN_SMEM(smem);
   const uint32_t sq = sm90::align1024(smem);
   const uint32_t skv = sq + TL::Q_BYTES;   // stage s: K, then V
@@ -333,7 +380,7 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hk = h / (H / Hkv);
   const int q0 = qt * TC_BQ;
   const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
+  const __half* vb = vh + ((long long)b * Hkv + hk) * Sk * D;
   const int tid = threadIdx.x, lane = tid % 32;
   const int r0 = q0 + tid / 32 * 16 + lane / 4;   // rows r0 and r0 + 8
   const int kv_end = causal ? min(Sk, min(q0 + TC_BQ, Sq)) : Sk;
@@ -342,12 +389,12 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   copy_rows<TC_BQ, D>(sq, q + b * qs.b + h * qs.h + q0 * qs.s, qs.s,
                       Sq - q0, tid);
   copy_rows<BK, D>(skv, kb, ks.s, kv_end, tid);
-  copy_rows<BK, D>(skv + TL::KV_BYTES, vb, vs.s, kv_end, tid);
+  copy_rows<BK, D>(skv + TL::KV_BYTES, vb, D, kv_end, tid);
   sm90::cp_async_commit();
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -358,15 +405,16 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const uint32_t nk = skv + ((t + 1) & 1) * 2 * TL::KV_BYTES;
       const int left = kv_end - k0 - BK;
       copy_rows<BK, D>(nk, kb + (k0 + BK) * ks.s, ks.s, left, tid);
-      copy_rows<BK, D>(nk + TL::KV_BYTES, vb + (k0 + BK) * vs.s, vs.s,
-                       left, tid);
+      copy_rows<BK, D>(nk + TL::KV_BYTES, vb + (k0 + BK) * D, D, left,
+                       tid);
     }
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();   // this tile (and q) have landed
     sm90::fence_async_smem();
     __syncthreads();
 
-    // S = Q K^T
+    // S = Q K^T (bf16), D / 16 k-steps: the zero columns past D are not
+    // read
     float s[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
@@ -414,26 +462,22 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[0] = l[0] * corr[0] + sum[0];
     l[1] = l[1] * corr[1] + sum[1];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
-    // P as the A fragments of the next product, split into bf16 high and
-    // low parts: hi + lo carries P to about 2^-16
-    uint32_t hi[BK / 16][4], lo[BK / 16][4];
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    // P as the fp16 A fragments of the next product
+    uint32_t pf[BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int w = 0; w < 4; ++w)
-        sm90::split_bf16(s[8 * kk + 2 * w], s[8 * kk + 2 * w + 1],
-                         hi[kk][w], lo[kk][w]);
+        pf[kk][w] = sm90::pack_f16(s[8 * kk + 2 * w], s[8 * kk + 2 * w + 1]);
 
-    // O += P V
+    // O += P V (fp16), N = DP
     sm90::fence_regs(acc);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = sm90::desc(sv + kk * 2048, BK * 128, 1024);
-      sm90::Mma<D, 1>::rs(acc, hi[kk], dv, 1);
-      sm90::Mma<D, 1>::rs(acc, lo[kk], dv, 1);
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      sm90::Mma<DP, 1, sm90::F16>::rs(
+          acc, pf[kk], sm90::desc(sv + kk * 2048, BK * 128, 1024), 1);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
@@ -458,22 +502,29 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int Hkv, int Sq, int Sk, long long qsb, long long qsh,
-              long long qss, long long ksb, long long ksh, long long kss,
-              long long vsb, long long vsh, long long vss, int causal,
-              float sm_scale, void* stream) {
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* vh,
+              void* o, int B, int H, int Hkv, int Sq, int Sk, long long qsb,
+              long long qsh, long long qss, long long ksb, long long ksh,
+              long long kss, long long vsb, long long vsh, long long vss,
+              int causal, float sm_scale, void* stream) {
   const int n_qt = (Sq + TC_BQ - 1) / TC_BQ;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
+  const long long n_chunks = (long long)B * Hkv * Sk * (D / 8);
+  const long long want = (n_chunks + 255) / 256;
+  auto conv = v_to_f16<D>;
+  VX_LAUNCH(conv, (int)(want < 132 * 8 ? want : 132 * 8), 256, stream,
+            (const bf16*)v, (__half*)vh, Hkv, Sk, vs, n_chunks);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
   auto kernel = fa_tc_kernel<D>;
   constexpr int smem = TcTiles<D>::SMEM;
   static const int attr = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != 0) return attr;
   VX_LAUNCH_SMEM(kernel, B * H * n_qt, TC_THREADS, smem, stream,
-                 (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-                 H, Hkv, Sq, Sk, B * H, qs, ks, vs, causal,
+                 (const bf16*)q, (const bf16*)k, (const __half*)vh,
+                 (bf16*)o, H, Hkv, Sq, Sk, B * H, qs, ks, causal,
                  sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -485,26 +536,41 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 // strides (in elements, last dimension contiguous); o: contiguous
 // (B, H, Sq, D). B * H * ceil(Sq / 64) < 2^31, Sq, Sk >= 1. The
 // tensor-core entries (_tc_) also need q, k, v and their strides in
-// elements to be 16-byte aligned.
-#define VX_FA_ENTRY(NAME, LAUNCH, T, D)                                    \
+// elements to be 16-byte aligned, and take vh, a contiguous fp16
+// (B, Hkv, Sk, D) scratch for v.
+#define VX_FA_ENTRY(NAME, T, D)                                            \
   extern "C" int NAME(const void* q, const void* k, const void* v,        \
                       void* o, int B, int H, int Hkv, int Sq, int Sk,     \
                       long long qsb, long long qsh, long long qss,        \
                       long long ksb, long long ksh, long long kss,        \
                       long long vsb, long long vsh, long long vss,        \
                       int causal, float sm_scale, void* stream) {         \
-    return LAUNCH<T, D>(q, k, v, o, B, H, Hkv, Sq, Sk, qsb, qsh, qss,     \
+    return launch<T, D>(q, k, v, o, B, H, Hkv, Sq, Sk, qsb, qsh, qss,     \
+                        ksb, ksh, kss, vsb, vsh, vss, causal, sm_scale,   \
+                        stream);                                          \
+  }
+#define VX_FA_TC_ENTRY(NAME, D)                                            \
+  extern "C" int NAME(const void* q, const void* k, const void* v,        \
+                      void* vh, void* o, int B, int H, int Hkv, int Sq,   \
+                      int Sk, long long qsb, long long qsh, long long qss,\
+                      long long ksb, long long ksh, long long kss,        \
+                      long long vsb, long long vsh, long long vss,        \
+                      int causal, float sm_scale, void* stream) {         \
+    return launch_tc<D>(q, k, v, vh, o, B, H, Hkv, Sq, Sk, qsb, qsh, qss, \
                         ksb, ksh, kss, vsb, vsh, vss, causal, sm_scale,   \
                         stream);                                          \
   }
 
-VX_FA_ENTRY(flash_attention_f32_d32, launch, float, 32)
-VX_FA_ENTRY(flash_attention_f32_d64, launch, float, 64)
-VX_FA_ENTRY(flash_attention_f32_d128, launch, float, 128)
+VX_FA_ENTRY(flash_attention_f32_d32, float, 32)
+VX_FA_ENTRY(flash_attention_f32_d64, float, 64)
+VX_FA_ENTRY(flash_attention_f32_d112, float, 112)
+VX_FA_ENTRY(flash_attention_f32_d128, float, 128)
 #ifdef __CUDACC__
-VX_FA_ENTRY(flash_attention_bf16_d32, launch, __nv_bfloat16, 32)
-VX_FA_ENTRY(flash_attention_bf16_d64, launch, __nv_bfloat16, 64)
-VX_FA_ENTRY(flash_attention_bf16_d128, launch, __nv_bfloat16, 128)
-VX_FA_ENTRY(flash_attention_bf16_tc_d64, launch_tc, __nv_bfloat16, 64)
-VX_FA_ENTRY(flash_attention_bf16_tc_d128, launch_tc, __nv_bfloat16, 128)
+VX_FA_ENTRY(flash_attention_bf16_d32, __nv_bfloat16, 32)
+VX_FA_ENTRY(flash_attention_bf16_d64, __nv_bfloat16, 64)
+VX_FA_ENTRY(flash_attention_bf16_d112, __nv_bfloat16, 112)
+VX_FA_ENTRY(flash_attention_bf16_d128, __nv_bfloat16, 128)
+VX_FA_TC_ENTRY(flash_attention_bf16_tc_d64, 64)
+VX_FA_TC_ENTRY(flash_attention_bf16_tc_d112, 112)
+VX_FA_TC_ENTRY(flash_attention_bf16_tc_d128, 128)
 #endif

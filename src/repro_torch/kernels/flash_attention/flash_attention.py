@@ -7,10 +7,12 @@ operations, causal key tiles past the diagonal never loaded, in two
 routes that ``route`` picks from the dtype, the head dim and the rows'
 alignment:
 
-  * ``tensor_cores``: bf16 at head dim 64 or 128 with 16-byte aligned
-    rows. One CTA per (batch, head, 64-row query tile), products by
-    wgmma (bf16 in, float32 accumulators), P carried between the two
-    products as two bf16 parts (hi + lo, about 16 bits);
+  * ``tensor_cores``: bf16 at head dim 64, 112 or 128 with 16-byte
+    aligned rows. One CTA per (batch, head, 64-row query tile), products
+    by wgmma (float32 accumulators): Q K^T in bf16, P V in fp16, P
+    carried between the two as one fp16 part (11 bits) and v converted
+    to fp16 once a call into a scratch that the wrapper allocates (a |v|
+    above 65504 becomes inf);
   * ``cuda_cores``: everything else (float32; bf16 at head dim 32 or
     with unaligned rows). One CTA per (batch, head, 64-row query tile),
     float32 on the CUDA cores.
@@ -45,22 +47,24 @@ LAUNCHES = 0
 #: the same launches by route (``route``)
 LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0}
 #: head dims the kernels are instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 #: head dims the tensor-core route takes (bf16)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 112, 128)
 #: query rows a CTA takes (both routes)
 BLOCK_Q = 64
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGS = [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
+#: the tensor-core entries also take v's fp16 scratch, after v
+_TC_ARGS = [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = SourceKernel(
     "flash_attention",
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
     {**{f"flash_attention_{t}_d{d}": _ARGS
         for t in _SUFFIX.values() for d in HEAD_DIMS},
-     **{f"flash_attention_bf16_tc_d{d}": _ARGS for d in TC_HEAD_DIMS}},
+     **{f"flash_attention_bf16_tc_d{d}": _TC_ARGS for d in TC_HEAD_DIMS}},
     headers=[CSRC / "sm90.cuh"])
 
 
@@ -152,10 +156,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     if Sq == 0:
         return out
+    # the tensor cores take v as fp16, converted once a call
+    vh = ([torch.empty(B, Hkv, Sk, D, dtype=torch.float16,
+                       device=q.device).data_ptr()]
+          if way == "tensor_cores" else [])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         KERNEL.call(entry(q.dtype, D, aligned),
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), *vh,
                     out.data_ptr(), B, H, Hkv, Sq, Sk,
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                     int(causal), 1.0 / math.sqrt(D), stream)

@@ -9,6 +9,14 @@
 // thought through again. Two routes; the wrapper (moe_dispatch.py:
 // route) picks one from the dtype and the shapes:
 //
+// Every route takes an optional int32 counts[E]: the rows of each expert
+// that hold a token (the router's dispatch fills an expert's slots from
+// row 0 and points the rest at a zero row). Rows at or past the count are
+// taken as zero rows, so their output is zero (silu(0) * 0 = 0), and a
+// block of rows wholly past its expert's count reads no weights: at
+// decode (C = 1) an expert that no token chose costs nothing but its
+// zeros. With counts null every row is computed, as the TPU kernel does.
+//
 // The tensor-core route (bf16, C > 1, d and f multiples of 8: rows of
 // 16-byte multiples), moe_ff_bf16_tc. At prefill the function is bound
 // by operations, 6 E C d f FLOP, which only the tensor cores reach. A
@@ -22,30 +30,38 @@
 //     order so that they share its weight tile in L2. Two warpgroups of
 //     64 rows keep the gate and up sums of 128 columns (two 64-register
 //     accumulators a thread) and step over K = d 64 at a time; x is
-//     K-major, wi (E, d, 2f) MN-major (the transpose bit). The epilogue
-//     writes h = silu(g) * u as two bf16 parts, hi = bf16(h) and
-//     lo = bf16(h - hi), into h (E, C, 2f): hi in its first f columns.
-//   * moe_down_tc: one CTA per (expert, 128-column block of d, 128-row
-//     block), hi @ wo + lo @ wo over K = f into one accumulator, wo
-//     (E, f, d) MN-major and read once for both; y stored in bf16.
-//   Why two parts: h rounded to bf16 alone (8 significant bits: an error
-//   up to 2^-8 of each term) puts some of y more than rtol 1e-2 +
-//   atol 2e-3 from the float32 function at the paths' widths
-//   (tests/test_torch_moe_kernels.py holds a rounding model of both);
-//   hi + lo carries h to about 2^-16. It costs a third more tensor work (the down product
-//   twice) and 4 E C f bytes each way, 4 GB at jamba's prefill (1.2 ms
-//   at 3.35 TB/s against a 25 ms bound).
+//     K-major, wi (E, d, 2f) MN-major (the transpose bit), both bf16. The
+//     epilogue writes h = silu(g) * u as one fp16 part into h (E, C, f).
+//   * moe_down_tc: one CTA per (expert, 256-column block of d, 128-row
+//     block), h @ wo over K = f in fp16, wo (E, f, d) MN-major, two
+//     128-column accumulators a thread as in moe_up_tc, so that a tile of
+//     h is read once for 256 output columns; wgmma
+//     does not mix types, so each thread rewrites the chunks of a wo tile
+//     it copied as fp16 once they land (sm90::bf16_to_f16), before the
+//     barrier that hands the stage to wgmma. y stored in bf16.
+//   Why fp16 and not bf16. h rounded to bf16 alone (8 significant bits:
+//   an error up to 2^-8 of each term) puts some of y more than rtol 1e-2
+//   + atol 2e-3 from the float32 function at the paths' widths; fp16
+//   keeps 11 bits (2^-11), which stays inside
+//   (tests/test_torch_moe_kernels.py holds a rounding model of each).
+//   bf16 wo converts to fp16 exactly for 6.1e-5 <= |w| <= 65504 (smaller
+//   weights keep fewer bits, an absolute error under 2^-25). An |h| or
+//   |w| above 65504 becomes inf: the route takes that range, with no
+//   clamp and no fallback; with unit-scale x and weights at the scale
+//   init_params draws, |h| is O(1) (chip_smoke.py prints the largest |h|
+//   at the paths' shapes). One down product in place of the two of a
+//   bf16 hi + lo split, and half its hidden's bytes (2 E C f each way).
 //   Each stage of the ring holds three 16 KB tiles in the 128-byte-
-//   swizzled layout of sm90.cuh (x and wi's gate and up tiles, or h's two
-//   parts and wo's tile), copied by cp.async (16 bytes a thread; rows
-//   past C, k past d or f and columns past the end zero-filled, so any C,
-//   d, f that are multiples of 8 are taken); four stages, 192 KB, with
-//   two stages of copies in flight ahead of the stage that wgmma
-//   m64n128k16 reads and one wgmma group left in flight across the next
-//   stage's barrier. TMA would spend no thread instructions on the
-//   copies; that matters once a producer warp is split off (a later
-//   change). No split-K, no atomics: the result does not depend on the
-//   order in which CTAs run.
+//   swizzled layout of sm90.cuh (x and wi's gate and up tiles, or a tile
+//   of h and two of wo; four stages, 192 KB), copied by
+//   cp.async (16 bytes a thread; rows past C or the count, k past d or f
+//   and columns past the end zero-filled, so any C, d, f that are
+//   multiples of 8 are taken), with the copies of all but the last two
+//   stages in flight ahead of the stage that wgmma m64n128k16 reads and
+//   one wgmma group left in flight across the next stage's barrier. TMA
+//   would spend no thread instructions on the copies; that matters once a
+//   producer warp is split off (a later change). No split-K, no atomics:
+//   the result does not depend on the order in which CTAs run.
 //
 // The CUDA-core route (float32, decode's C = 1, and rows the copies
 // cannot take), moe_ff_f32 and moe_ff_bf16. Two kernels, one call:
@@ -83,10 +99,10 @@
 // Rows past C are zero on the way in and not stored; the column loops
 // are masked.
 //
-// Bound: at decode bytes, every expert's weights read once; this route
-// reads them at 16 bytes a thread. At decode every expert's weights are
-// read even where an expert holds no token; skipping empty experts is a
-// later change.
+// Bound: at decode bytes, the weights of every expert that holds a token
+// read once; this route reads them at 16 bytes a thread. The CTAs of an
+// empty expert return before reading anything, and moe_ff_sum writes
+// their rows' zeros without reading the workspace.
 //
 // The float32 instantiations compile with g++ against the stand-in
 // runtime in tests/cuda_host, which runs them on the CPU.
@@ -197,11 +213,14 @@ __device__ __forceinline__ void load_rows(const float* p, float (&v)[BM]) {
   load_vec<BM>(p, v);
 }
 
+// at C = 1 three CTAs an SM (at most 85 registers a thread): kimi-k2's
+// 384 experts in one slice are 384 CTAs, one wave of 3 x 132
 template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, BM == 1 ? 3 : 1)
 moe_ff_partial(const T* __restrict__ x, const T* __restrict__ wi,
-               const T* __restrict__ wo, float* __restrict__ ws, int E,
-               int C, int d, int f, int fs, int n_slices, int n_mb) {
+               const T* __restrict__ wo, const int* __restrict__ counts,
+               float* __restrict__ ws, int E, int C, int d, int f, int fs,
+               int n_slices, int n_mb) {
   using TL = Tile<BM>;
   constexpr int VEC = TL::VEC, KS = TL::KS, FC = TL::FC, KT = TL::KT,
                 XS = TL::XS;
@@ -217,6 +236,10 @@ moe_ff_partial(const T* __restrict__ x, const T* __restrict__ wi,
   const int e = es / n_slices, s = es % n_slices;
   const int row0 = mb * BM;
   const int rows = min(BM, C - row0);
+  // rows of x at or past the expert's count are taken as zero; a block
+  // with none before it reads nothing (moe_ff_sum writes its zeros)
+  const int live = counts ? max(0, min(rows, counts[e] - row0)) : rows;
+  if (live == 0) return;
   const int j_end = min(f, (s + 1) * fs);
   const T* xe = x + ((long long)e * C + row0) * d;
   const T* wie = wi + (long long)e * d * 2 * f;
@@ -244,7 +267,7 @@ moe_ff_partial(const T* __restrict__ x, const T* __restrict__ wi,
         __syncthreads();   // the last tile of xs is read
         for (int i = tid; i < KT * BM; i += kThreads) {
           const int r = i / KT, kk = i % KT;
-          xs[kk * XS + r] = r < rows && kk < kn
+          xs[kk * XS + r] = r < live && kk < kn
                                 ? to_f32(xe[(long long)r * d + k0 + kk])
                                 : 0.f;
         }
@@ -336,22 +359,26 @@ moe_ff_partial(const T* __restrict__ x, const T* __restrict__ wi,
   }
 }
 
+// y = the sum of ws over the slices; zero at rows at or past the count,
+// whose workspace rows are not read
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-moe_ff_sum(const float* __restrict__ ws, T* __restrict__ y, long long n,
-           int n_slices) {
+moe_ff_sum(const float* __restrict__ ws, const int* __restrict__ counts,
+           T* __restrict__ y, long long n, int C, int d, int n_slices) {
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += (long long)gridDim.x * kThreads) {
+    const long long row = i / d;
     float acc = 0.f;
-    for (int s = 0; s < n_slices; ++s) acc += ws[s * n + i];
+    if (counts == nullptr || row % C < counts[row / C])
+      for (int s = 0; s < n_slices; ++s) acc += ws[s * n + i];
     store_f32(acc, y + i);
   }
 }
 
 template <typename T, int BM>
-int launch_partial(const void* x, const void* wi, const void* wo, void* ws,
-                   int E, int C, int d, int f, int fs, int n_slices,
-                   void* stream) {
+int launch_partial(const void* x, const void* wi, const void* wo,
+                   const void* counts, void* ws, int E, int C, int d, int f,
+                   int fs, int n_slices, void* stream) {
   using TL = Tile<BM>;
   const int n_mb = (C + BM - 1) / BM;
   const size_t red = TL::KS == 1 ? 0 : 2 * kThreads * TL::VEC;
@@ -363,28 +390,31 @@ int launch_partial(const void* x, const void* wi, const void* wo, void* ws,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != 0) return attr;
   VX_LAUNCH_SMEM(kernel, E * n_slices * n_mb, kThreads, smem, stream,
-                 (const T*)x, (const T*)wi, (const T*)wo, (float*)ws, E, C,
-                 d, f, fs, n_slices, n_mb);
+                 (const T*)x, (const T*)wi, (const T*)wo,
+                 (const int*)counts, (float*)ws, E, C, d, f, fs, n_slices,
+                 n_mb);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* x, const void* wi, const void* wo, void* ws, void* y,
-           int E, int C, int d, int f, int fs, int n_slices, void* stream) {
+int launch(const void* x, const void* wi, const void* wo,
+           const void* counts, void* ws, void* y, int E, int C, int d,
+           int f, int fs, int n_slices, void* stream) {
   if (fs < 1 || n_slices < 1 || (long long)(n_slices - 1) * fs >= f ||
       (long long)n_slices * fs < f)
     return kBadArgs;
   const int err = C == 1
-      ? launch_partial<T, 1>(x, wi, wo, ws, E, C, d, f, fs, n_slices, stream)
-      : launch_partial<T, 16>(x, wi, wo, ws, E, C, d, f, fs, n_slices,
-                              stream);
+      ? launch_partial<T, 1>(x, wi, wo, counts, ws, E, C, d, f, fs,
+                             n_slices, stream)
+      : launch_partial<T, 16>(x, wi, wo, counts, ws, E, C, d, f, fs,
+                              n_slices, stream);
   if (err != 0) return err;
   const long long n = (long long)E * C * d;
   const long long want = (n + kThreads - 1) / kThreads;
   const int blocks = (int)(want < kSumBlocks ? want : kSumBlocks);
   auto sum = moe_ff_sum<T>;
-  VX_LAUNCH(sum, blocks, kThreads, stream, (const float*)ws, (T*)y, n,
-            n_slices);
+  VX_LAUNCH(sum, blocks, kThreads, stream, (const float*)ws,
+            (const int*)counts, (T*)y, n, C, d, n_slices);
   return (int)cudaGetLastError();
 }
 
@@ -393,6 +423,8 @@ int launch(const void* x, const void* wi, const void* wo, void* ws, void* y,
 // ---- the tensor-core route: bf16, C > 1, d and f multiples of 8 ---------
 
 using bf16 = __nv_bfloat16;
+using u16 = uint16_t;            // a 16-bit element, bf16 or fp16: the
+                                 // copies move bytes
 constexpr int TC_BM = 128;       // capacity rows a CTA: two warpgroups
 constexpr int TC_BN = 128;       // output columns a CTA
 constexpr int TC_BK = 64;        // k a stage: one 128-byte row
@@ -400,10 +432,11 @@ constexpr int TC_THREADS = 256;
 constexpr int A_BYTES = TC_BM * TC_BK * 2;   // 16 KB
 constexpr int B_BYTES = TC_BK * TC_BN * 2;   // 16 KB
 constexpr int B_BLOCK = TC_BK * 128;         // its 64-column blocks: 8 KB
+constexpr int B_CHUNKS = TC_BK * (TC_BN / 8) / TC_THREADS;  // a thread's
 
 // the A tile: rows < ``rows`` and k < ``kn`` of src (ld elements a row),
 // K-major
-__device__ __forceinline__ void copy_a(uint32_t dst, const bf16* src,
+__device__ __forceinline__ void copy_a(uint32_t dst, const u16* src,
                                        long long ld, int rows, int kn,
                                        int tid) {
 #pragma unroll
@@ -416,29 +449,51 @@ __device__ __forceinline__ void copy_a(uint32_t dst, const bf16* src,
   }
 }
 
+// the shared offset of chunk i of this thread in a B tile: k row r,
+// 16-byte chunk ch of the tile's 128 columns
+__device__ __forceinline__ uint32_t b_slot(int i, int tid, int& r,
+                                           int& ch) {
+  const int c = tid + i * TC_THREADS;
+  r = c >> 4;
+  ch = c & 15;
+  return (ch >> 3) * B_BLOCK + sm90::swz(r, ch & 7);
+}
+
 // a B tile: k rows < ``kn`` and columns < ``cols`` of src, MN-major, as
 // two blocks of 64 columns
-__device__ __forceinline__ void copy_b(uint32_t dst, const bf16* src,
+__device__ __forceinline__ void copy_b(uint32_t dst, const u16* src,
                                        long long ld, int kn, int cols,
                                        int tid) {
 #pragma unroll
-  for (int i = 0; i < TC_BK * (TC_BN / 8) / TC_THREADS; ++i) {
-    const int c = tid + i * TC_THREADS;
-    const int r = c >> 4, ch = c & 15;
+  for (int i = 0; i < B_CHUNKS; ++i) {
+    int r, ch;
+    const uint32_t off = b_slot(i, tid, r, ch);
     const bool in = r < kn && ch * 8 < cols;
-    sm90::cp_async16(dst + (ch >> 3) * B_BLOCK + sm90::swz(r, ch & 7),
-                     src + (in ? r * ld + ch * 8 : 0), in);
+    sm90::cp_async16(dst + off, src + (in ? r * ld + ch * 8 : 0), in);
   }
 }
 
-// acc[j] = sum over i of A_i B_j, over K: A_i's rows from a[i] (lda
-// apart, ``rows`` of them), B_j's k rows from b[j] (ldb apart, ``cols``
-// columns); a ring of STAGES stages at smem, copies two stages ahead
-template <int NA, int NB, int STAGES>
+// the chunks of a B tile that copy_b gave this thread, bf16 to fp16 in
+// place, once they have landed
+__device__ __forceinline__ void b_to_f16(uint32_t dst, int tid) {
+#pragma unroll
+  for (int i = 0; i < B_CHUNKS; ++i) {
+    int r, ch;
+    sm90::bf16_to_f16(dst + b_slot(i, tid, r, ch));
+  }
+}
+
+// acc[j] = sum over i of A_i B_j, over K, operands of type T (sm90::BF16
+// or F16; with CVT_B the B tiles arrive as bf16 and are converted to
+// fp16): A_i's rows from a[i] (lda apart, ``rows`` of them), B_j's k rows
+// from b[j] (ldb apart, cols - j * col_step columns: B_j lies col_step
+// columns past B_0, or 0 where each B_j is its own matrix); a ring of
+// STAGES stages at smem, copies two stages ahead
+template <typename T, bool CVT_B, int NA, int NB, int STAGES>
 __device__ __forceinline__ void
-mainloop(float (&acc)[NB][64], uint32_t smem, const bf16* const (&a)[NA],
-         long long lda, int rows, const bf16* const (&b)[NB],
-         long long ldb, int cols, int K, int tid) {
+mainloop(float (&acc)[NB][64], uint32_t smem, const u16* const (&a)[NA],
+         long long lda, int rows, const u16* const (&b)[NB],
+         long long ldb, int cols, int col_step, int K, int tid) {
   static_assert(STAGES >= 3, "two stages ahead and one read");
   constexpr int STAGE = NA * A_BYTES + NB * B_BYTES;
   const int nk = (K + TC_BK - 1) / TC_BK;
@@ -456,21 +511,26 @@ mainloop(float (&acc)[NB][64], uint32_t smem, const bf16* const (&a)[NA],
 #pragma unroll
     for (int j = 0; j < NB; ++j)
       copy_b(st + NA * A_BYTES + j * B_BYTES, b[j] + k0 * ldb, ldb, K - k0,
-             cols, tid);
+             cols - j * col_step, tid);
   };
   for (int kt = 0; kt < STAGES - 2; ++kt) {
     if (kt < nk) load(kt);
     sm90::cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
+    const uint32_t st = smem + (kt % STAGES) * STAGE;
     sm90::cp_async_wait<STAGES - 3>();   // stage kt has landed
+    if constexpr (CVT_B) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        b_to_f16(st + NA * A_BYTES + j * B_BYTES, tid);
+    }
     sm90::fence_async_smem();
     // every copy of stage kt is visible; every warpgroup has waited for
     // its products of stage kt - 2, whose buffer the next copy reuses
     __syncthreads();
     if (kt + STAGES - 2 < nk) load(kt + STAGES - 2);
     sm90::cp_async_commit();
-    const uint32_t st = smem + (kt % STAGES) * STAGE;
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TC_BK / 16; ++kk)
@@ -480,7 +540,7 @@ mainloop(float (&acc)[NB][64], uint32_t smem, const bf16* const (&a)[NA],
             sm90::desc(st + i * A_BYTES + wg * 64 * 128 + kk * 32, 16, 1024);
 #pragma unroll
         for (int j = 0; j < NB; ++j)
-          sm90::Mma<128, 1>::ss(
+          sm90::Mma<128, 1, T>::ss(
               acc[j], da,
               sm90::desc(st + NA * A_BYTES + j * B_BYTES + kk * 2048,
                          B_BLOCK, 1024),
@@ -494,34 +554,47 @@ mainloop(float (&acc)[NB][64], uint32_t smem, const bf16* const (&a)[NA],
   for (int j = 0; j < NB; ++j) sm90::fence_regs(acc[j]);
 }
 
-constexpr int STAGES = 4;        // 4 x 48 KB: x and wi's gate and up
-                                 // tiles, or h's two parts and wo's tile
-constexpr int SMEM = STAGES * 3 * A_BYTES + 1024;
-static_assert(A_BYTES == B_BYTES, "three 16 KB tiles a stage");
+// a stage: a tile of A and two of B, 48 KB (up: x, wi's gate and up
+// tiles; down: h, two 128-column tiles of wo); four stages, 192 KB
+constexpr int STAGES = 4;
+constexpr int SMEM = STAGES * (A_BYTES + 2 * B_BYTES) + 1024;
+constexpr int DOWN_BN = 2 * TC_BN;   // output columns a down CTA
 
-// h[e, rows, cols] = silu(x wi_gate) * (x wi_up), as bf16 hi and lo
-// parts: h (E, C, 2f) holds hi in its first f columns, lo in the rest
+// the rows of expert e that hold a token (all C where counts is null)
+__device__ __forceinline__ int filled_rows(const int* counts, int e,
+                                           int C) {
+  return counts ? min(C, counts[e]) : C;
+}
+
+// h[e, rows, cols] = silu(x wi_gate) * (x wi_up) as fp16, h (E, C, f);
+// rows past the count are not written (moe_down_tc does not read them)
 __global__ void __launch_bounds__(TC_THREADS, 1)
 moe_up_tc(const bf16* __restrict__ x, const bf16* __restrict__ wi,
-          bf16* __restrict__ h, int C, int d, int f, int n_mb, int n_nb) {
+          const int* __restrict__ counts, __half* __restrict__ h, int C,
+          int d, int f, int n_mb, int n_nb) {
   VX_DYN_SMEM(smem);
   const int mb = (int)(blockIdx.x % n_mb);
   const int en = (int)(blockIdx.x / n_mb);
   const int nb = en % n_nb, e = en / n_nb;
   const int row0 = mb * TC_BM, j0 = nb * TC_BN, tid = threadIdx.x;
-  const bf16* we = wi + (long long)e * d * 2 * f + j0;
-  const bf16* const a[1] = {x + ((long long)e * C + row0) * d};
-  const bf16* const b[2] = {we, we + f};
+  const int filled = filled_rows(counts, e, C);
+  if (row0 >= filled) return;
+  const u16* we =
+      reinterpret_cast<const u16*>(wi) + (long long)e * d * 2 * f + j0;
+  const u16* const a[1] = {reinterpret_cast<const u16*>(x) +
+                           ((long long)e * C + row0) * d};
+  const u16* const b[2] = {we, we + f};
   float acc[2][64];
-  mainloop<1, 2, STAGES>(acc, sm90::align1024(smem), a, d, C - row0, b,
-                         2LL * f, f - j0, d, tid);
+  mainloop<sm90::BF16, false, 1, 2, STAGES>(
+      acc, sm90::align1024(smem), a, d, filled - row0, b, 2LL * f, f - j0,
+      0, d, tid);
   const int lane = tid % 32;
   const int r0 = row0 + tid / 128 * 64 + (tid % 128) / 32 * 16 + lane / 4;
-  bf16* he = h + (long long)e * C * 2 * f;
+  __half* he = h + (long long)e * C * f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
-    if (row >= C) continue;
+    if (row >= filled) continue;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = j0 + 8 * j + 2 * (lane & 3);
@@ -532,50 +605,66 @@ moe_up_tc(const bf16* __restrict__ x, const bf16* __restrict__ wi,
         const float g = acc[0][4 * j + 2 * r + c];
         v[c] = g / (1.f + expf(-g)) * acc[1][4 * j + 2 * r + c];
       }
-      uint32_t hi, lo;
-      sm90::split_bf16(v[0], v[1], hi, lo);
-      bf16* hr = he + (long long)row * 2 * f + col;
-      *reinterpret_cast<uint32_t*>(hr) = hi;
-      *reinterpret_cast<uint32_t*>(hr + f) = lo;
+      *reinterpret_cast<uint32_t*>(he + (long long)row * f + col) =
+          sm90::pack_f16(v[0], v[1]);
     }
   }
 }
 
-// y[e, rows, cols] = (h_hi + h_lo) wo, bf16
+// y[e, rows, cols] = h wo in fp16, stored bf16, 256 columns a CTA (two
+// accumulators, as the up kernel's gate and up): h's tile is read once
+// for both; zero at rows past the count
 __global__ void __launch_bounds__(TC_THREADS, 1)
-moe_down_tc(const bf16* __restrict__ h, const bf16* __restrict__ wo,
-            bf16* __restrict__ y, int C, int d, int f, int n_mb,
-            int n_nb) {
+moe_down_tc(const __half* __restrict__ h, const bf16* __restrict__ wo,
+            const int* __restrict__ counts, bf16* __restrict__ y, int C,
+            int d, int f, int n_mb, int n_nb) {
   VX_DYN_SMEM(smem);
   const int mb = (int)(blockIdx.x % n_mb);
   const int en = (int)(blockIdx.x / n_mb);
   const int nb = en % n_nb, e = en / n_nb;
-  const int row0 = mb * TC_BM, n0 = nb * TC_BN, tid = threadIdx.x;
-  const bf16* he = h + ((long long)e * C + row0) * 2 * f;
-  const bf16* const a[2] = {he, he + f};
-  const bf16* const b[1] = {wo + (long long)e * f * d + n0};
-  float acc[1][64];
-  mainloop<2, 1, STAGES>(acc, sm90::align1024(smem), a, 2LL * f, C - row0,
-                         b, d, d - n0, f, tid);
+  const int row0 = mb * TC_BM, n0 = nb * DOWN_BN, tid = threadIdx.x;
+  const int filled = filled_rows(counts, e, C);
+  bf16* ye = y + (long long)e * C * d;
+  if (row0 >= filled) {   // no token: zeros, and no weight read
+    for (int i = tid; i < TC_BM * DOWN_BN / 2; i += TC_THREADS) {
+      const int row = row0 + i / (DOWN_BN / 2);
+      const int col = n0 + 2 * (i % (DOWN_BN / 2));
+      if (row < C && col < d)
+        *reinterpret_cast<uint32_t*>(ye + (long long)row * d + col) = 0u;
+    }
+    return;
+  }
+  const u16* const a[1] = {reinterpret_cast<const u16*>(h) +
+                           ((long long)e * C + row0) * f};
+  const u16* wn = reinterpret_cast<const u16*>(wo) + (long long)e * f * d +
+                  n0;
+  const u16* const b[2] = {wn, wn + TC_BN};
+  float acc[2][64];
+  mainloop<sm90::F16, true, 1, 2, STAGES>(
+      acc, sm90::align1024(smem), a, f, filled - row0, b, d, d - n0, TC_BN,
+      f, tid);
   const int lane = tid % 32;
   const int r0 = row0 + tid / 128 * 64 + (tid % 128) / 32 * 16 + lane / 4;
-  bf16* ye = y + (long long)e * C * d;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= C) continue;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = n0 + 8 * j + 2 * (lane & 3);
-      if (col >= d) continue;
-      *reinterpret_cast<uint32_t*>(ye + (long long)row * d + col) =
-          sm90::pack_bf16(acc[0][4 * j + 2 * r], acc[0][4 * j + 2 * r + 1]);
-    }
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + t * TC_BN + 8 * j + 2 * (lane & 3);
+        if (col >= d) continue;
+        *reinterpret_cast<uint32_t*>(ye + (long long)row * d + col) =
+            sm90::pack_bf16(acc[t][4 * j + 2 * r],
+                            acc[t][4 * j + 2 * r + 1]);
+      }
   }
 }
 
-int launch_tc(const void* x, const void* wi, const void* wo, void* h,
-              void* y, int E, int C, int d, int f, void* stream) {
+int launch_tc(const void* x, const void* wi, const void* wo,
+              const void* counts, void* h, void* y, int E, int C, int d,
+              int f, void* stream) {
   if (C < 2 || d % 8 || f % 8) return kBadArgs;
   const int n_mb = (C + TC_BM - 1) / TC_BM;
   auto up = moe_up_tc;
@@ -584,18 +673,18 @@ int launch_tc(const void* x, const void* wi, const void* wo, void* h,
   if (up_attr != 0) return up_attr;
   const int n_fb = (f + TC_BN - 1) / TC_BN;
   VX_LAUNCH_SMEM(up, E * n_fb * n_mb, TC_THREADS, SMEM, stream,
-                 (const bf16*)x, (const bf16*)wi, (bf16*)h, C, d, f, n_mb,
-                 n_fb);
+                 (const bf16*)x, (const bf16*)wi, (const int*)counts,
+                 (__half*)h, C, d, f, n_mb, n_fb);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   auto down = moe_down_tc;
   static const int down_attr = (int)cudaFuncSetAttribute(
       down, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (down_attr != 0) return down_attr;
-  const int n_db = (d + TC_BN - 1) / TC_BN;
+  const int n_db = (d + DOWN_BN - 1) / DOWN_BN;
   VX_LAUNCH_SMEM(down, E * n_db * n_mb, TC_THREADS, SMEM, stream,
-                 (const bf16*)h, (const bf16*)wo, (bf16*)y, C, d, f, n_mb,
-                 n_db);
+                 (const __half*)h, (const bf16*)wo, (const int*)counts,
+                 (bf16*)y, C, d, f, n_mb, n_db);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__
@@ -603,30 +692,35 @@ int launch_tc(const void* x, const void* wi, const void* wo, void* h,
 }  // namespace
 
 // x: (E, C, d), wi: (E, d, 2f), wo: (E, f, d), y: (E, C, d), all
-// contiguous, 16-byte aligned and of one type; ws: (n_slices, E, C, d)
-// float32 scratch. The hidden columns are cut into n_slices slices of fs
-// (the last may be shorter): (n_slices - 1) fs < f <= n_slices fs.
-// E, C, d, f >= 1; E * n_slices * ceil(C / 16) < 2^31.
+// contiguous, 16-byte aligned and of one type; counts: null, or int32
+// (E,), the rows of each expert that hold a token (rows at or past it are
+// taken as zero rows); ws: (n_slices, E, C, d) float32 scratch. The
+// hidden columns are cut into n_slices slices of fs (the last may be
+// shorter): (n_slices - 1) fs < f <= n_slices fs. E, C, d, f >= 1;
+// E * n_slices * ceil(C / 16) < 2^31.
 extern "C" int moe_ff_f32(const void* x, const void* wi, const void* wo,
-                          void* ws, void* y, int E, int C, int d, int f,
-                          int fs, int n_slices, void* stream) {
-  return launch<float>(x, wi, wo, ws, y, E, C, d, f, fs, n_slices, stream);
+                          const void* counts, void* ws, void* y, int E,
+                          int C, int d, int f, int fs, int n_slices,
+                          void* stream) {
+  return launch<float>(x, wi, wo, counts, ws, y, E, C, d, f, fs, n_slices,
+                       stream);
 }
 
 #ifdef __CUDACC__
 extern "C" int moe_ff_bf16(const void* x, const void* wi, const void* wo,
-                           void* ws, void* y, int E, int C, int d, int f,
-                           int fs, int n_slices, void* stream) {
-  return launch<__nv_bfloat16>(x, wi, wo, ws, y, E, C, d, f, fs, n_slices,
-                               stream);
+                           const void* counts, void* ws, void* y, int E,
+                           int C, int d, int f, int fs, int n_slices,
+                           void* stream) {
+  return launch<__nv_bfloat16>(x, wi, wo, counts, ws, y, E, C, d, f, fs,
+                               n_slices, stream);
 }
 
-// The tensor-core route: x, wi, wo, y as above, bf16, C >= 2, d and f
-// multiples of 8; h: (E, C, 2f) bf16 scratch for the hidden's two parts.
+// The tensor-core route: x, wi, wo, counts, y as above, bf16, C >= 2, d
+// and f multiples of 8; h: (E, C, f) fp16 scratch for the hidden.
 // E * ceil(C / 128) * ceil(max(d, f) / 128) < 2^31.
 extern "C" int moe_ff_bf16_tc(const void* x, const void* wi, const void* wo,
-                              void* h, void* y, int E, int C, int d, int f,
-                              void* stream) {
-  return launch_tc(x, wi, wo, h, y, E, C, d, f, stream);
+                              const void* counts, void* h, void* y, int E,
+                              int C, int d, int f, void* stream) {
+  return launch_tc(x, wi, wo, counts, h, y, E, C, d, f, stream);
 }
 #endif

@@ -6,15 +6,23 @@ their note, in two routes that ``route`` picks from the dtype and the
 shapes:
 
   * ``tensor_cores``: bf16 at C > 1 (prefill) with d and f multiples of
-    8. Two grouped GEMMs by wgmma (bf16 in, float32 accumulators): the
-    gate and up products with h = silu(g) * u written as two bf16 parts
-    (hi + lo, about 16 bits) into an (E, C, 2f) scratch that the wrapper
-    allocates, then (hi + lo) @ wo;
+    8. Two grouped GEMMs by wgmma (float32 accumulators): the gate and up
+    products in bf16 with h = silu(g) * u written as one fp16 part (11
+    bits; an |h| above 65504 becomes inf) into an (E, C, f) scratch that
+    the wrapper allocates, then h @ wo in fp16 (each wo tile converted in
+    shared memory);
   * ``cuda_cores``: everything else (float32; decode's C = 1; bf16 rows
     the 16-byte copies cannot take). One CTA per (expert, slice of the
     hidden columns, block of capacity rows), float32 on the CUDA cores,
     the hidden kept in shared memory a chunk of columns at a time, each
     slice's part of the output summed by a second small kernel.
+
+Both routes take ``counts``, an optional int32 (E,) tensor on x's
+device: the rows of each expert that hold a token. Rows at or past an
+expert's count are taken as zero rows (their output is zero), and a
+block of rows wholly past it reads no weights, so at decode an expert
+that no token chose costs only its zeros. ``models/moe.py`` passes the
+counts of its dispatch table, where every free slot is the zero row.
 
 It is built with nvcc at first use into ``build/moe_dispatch/<sha256>.so``
 and launched through ctypes on the current stream. ``LAUNCHES`` counts
@@ -25,7 +33,10 @@ block size is the kernel's own business), and C = 0 gives an empty
 output. On the CUDA cores the wrapper cuts f into slices so that the
 grid has at least ``TARGET_CTAS`` CTAs where f allows: many slices at
 decode (C = 1), one at prefill, where the row blocks already fill the
-card.
+card. At C = 1 with counts, as few as one expert may hold a token, so f
+is cut as finely as the slices allow: the CTAs that read weights fill
+the card however few experts they belong to (an empty expert's CTAs
+return at once, and the slices' sums are read for filled rows only).
 
 On CPU tensors ``grouped_expert_ff`` runs ``grouped_expert_ff_plain``,
 the same function in torch. A CUDA tensor goes to the kernel or raises;
@@ -35,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,9 +72,9 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = SourceKernel(
     "moe_dispatch",
     Path(__file__).resolve().parent / "csrc" / "moe_dispatch.cu",
-    {**{f"moe_ff_{t}": [_P] * 5 + [_I] * 6 + [_P]
+    {**{f"moe_ff_{t}": [_P] * 6 + [_I] * 6 + [_P]
         for t in _SUFFIX.values()},
-     "moe_ff_bf16_tc": [_P] * 5 + [_I] * 4 + [_P]},
+     "moe_ff_bf16_tc": [_P] * 6 + [_I] * 4 + [_P]},
     headers=[CSRC / "sm90.cuh"])
 
 
@@ -96,21 +108,40 @@ def entry(dtype: torch.dtype, C: int, d: int, f: int) -> str:
     return f"moe_ff_{_SUFFIX[dtype]}"
 
 
+def _check_counts(counts, E: int, device) -> None:
+    if counts is None:
+        return
+    if (counts.dtype != torch.int32 or tuple(counts.shape) != (E,)
+            or counts.device != device or not counts.is_contiguous()):
+        raise ValueError(f"grouped_expert_ff: counts must be a contiguous "
+                         f"int32 ({E},) tensor on {device}, got "
+                         f"{counts.dtype} {tuple(counts.shape)} on "
+                         f"{counts.device}")
+
+
 def grouped_expert_ff_plain(x: torch.Tensor, wi: torch.Tensor,
-                            wo: torch.Tensor) -> torch.Tensor:
+                            wo: torch.Tensor,
+                            counts: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """``(silu(x @ wi[..., :f]) * (x @ wi[..., f:])) @ wo`` per expert in
-    float32, cast to x's dtype; any device."""
+    float32, cast to x's dtype; rows of x at or past ``counts`` taken as
+    zero rows. Any device."""
     E, C, d, f = _shapes(x, wi, wo)
-    h = torch.bmm(x.float(), wi.float())
+    _check_counts(counts, E, x.device)
+    xf = x.float()
+    if counts is not None:
+        xf = xf * (torch.arange(C, device=x.device)[None, :]
+                   < counts[:, None])[..., None]
+    h = torch.bmm(xf, wi.float())
     h = F.silu(h[..., :f]) * h[..., f:]
     return torch.bmm(h, wo.float()).to(x.dtype)
 
 
-def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor,
-                      wo: torch.Tensor) -> torch.Tensor:
+def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                      counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (E, C, d), wi: (E, d, 2f), wo: (E, f, d) -> (E, C, d), float32
-    or bfloat16. CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+    or bfloat16; ``counts`` as in the module's docstring. CPU tensors
+    take the plain version, CUDA tensors the kernel."""
     global LAUNCHES
     E, C, d, f = _shapes(x, wi, wo)
     if x.dtype not in _SUFFIX or {wi.dtype, wo.dtype} != {x.dtype}:
@@ -119,10 +150,11 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor,
                         f"{wo.dtype}")
     devices = {x.device, wi.device, wo.device}
     if devices == {torch.device("cpu")}:
-        return grouped_expert_ff_plain(x, wi, wo)
+        return grouped_expert_ff_plain(x, wi, wo, counts)
     if len(devices) != 1 or x.device.type != "cuda":
         raise ValueError(f"grouped_expert_ff kernel: x, wi, wo on "
                          f"{devices}; all must be on one CUDA device")
+    _check_counts(counts, E, x.device)
     if not all(t.is_contiguous() for t in (x, wi, wo)):
         raise ValueError("grouped_expert_ff kernel: x, wi and wo must be "
                          "contiguous")
@@ -131,7 +163,8 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor,
         raise ValueError(f"grouped_expert_ff kernel: d = {d} and f = {f} "
                          f"must be >= 1, x, wi, wo 16-byte aligned")
     way = route(x.dtype, C, d, f)
-    n_slices, fs = slicing(E, C, f)
+    n_slices, fs = slicing(1 if counts is not None and C == 1 else E, C,
+                           f)
     n_blocks = (E * -(-C // TC_BLOCK) * -(-max(d, f) // TC_BLOCK)
                 if way == "tensor_cores"
                 else E * -(-C // BLOCK_ROWS) * n_slices)
@@ -140,15 +173,16 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor,
     out = torch.empty_like(x)
     if C == 0 or E == 0:
         return out
-    # the hidden's bf16 hi and lo parts (tensor cores) or the slices'
-    # float32 sums (CUDA cores)
-    scratch = (torch.empty(E, C, 2 * f, dtype=x.dtype, device=x.device)
+    # the hidden as fp16 (tensor cores) or the slices' float32 sums (CUDA
+    # cores)
+    scratch = (torch.empty(E, C, f, dtype=torch.float16, device=x.device)
                if way == "tensor_cores" else
                torch.empty(n_slices, E, C, d, dtype=torch.float32,
                            device=x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+                None if counts is None else counts.data_ptr(),
                 scratch.data_ptr(), out.data_ptr(), E, C, d, f)
         if way == "tensor_cores":
             KERNEL.call(entry(x.dtype, C, d, f), *args, stream)
@@ -163,7 +197,8 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor,
 def slicing(E: int, C: int, f: int):
     """(n_slices, slice width) of f >= 1 hidden columns: enough slices
     that E * ceil(C / 16) * n_slices reaches ``TARGET_CTAS`` where f
-    allows, each slice a multiple of ``SLICE_COLS`` wide but the last."""
+    allows, each slice a multiple of ``SLICE_COLS`` wide but the last.
+    The wrapper passes E = 1 at C = 1 with counts (the finest slicing)."""
     blocks = max(1, E * -(-C // BLOCK_ROWS))
     n = max(1, min(-(-TARGET_CTAS // blocks), -(-f // SLICE_COLS)))
     fs = -(-f // n)

@@ -51,14 +51,28 @@ def tree_map(f: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
 
 # -- materialization ----------------------------------------------------------
 
+#: a leaf of more elements is drawn in slices of this many (1 GiB of
+#: float32 a slice)
+DRAW_SLICE = 1 << 28
+
+
 def init_params(bp: Tree, generator: torch.Generator,
                 device=None) -> Tree:
     """Random init, with the reference's rules: zeros, ones, or a normal
     draw in float32 times ``1/sqrt(fan_in)`` cast to the leaf's dtype.
     Draws from ``generator`` in leaf order on its device and puts each
-    leaf on ``device`` (default: the generator's). The numbers are
-    torch's, not jax.random's."""
+    leaf on ``device`` (default: the generator's). A leaf of more than
+    ``DRAW_SLICE`` elements is drawn slice by slice of its flattened
+    elements into the leaf itself, so the float32 draw never exists whole
+    (kimi-k2's expert leaf is 45 GB in float32); its numbers differ from
+    one draw of the whole leaf. The numbers are torch's, not
+    jax.random's."""
     device = generator.device if device is None else torch.device(device)
+
+    def draw(n: int, scale: float) -> torch.Tensor:
+        w = torch.randn(n, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return w.mul_(scale)
 
     def one(l: Leaf) -> torch.Tensor:
         if l.init == "zeros":
@@ -67,10 +81,16 @@ def init_params(bp: Tree, generator: torch.Generator,
             return torch.ones(l.shape, dtype=l.dtype, device=device)
         fan_in = (l.shape[l.scale_dim] if l.scale_dim is not None
                   else (l.shape[-2] if len(l.shape) >= 2 else l.shape[-1]))
-        w = torch.randn(l.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        # in place: a leaf of a large expert layer is 26 GB in float32
-        return w.mul_(1.0 / math.sqrt(max(1, fan_in))).to(device, l.dtype)
+        scale = 1.0 / math.sqrt(max(1, fan_in))
+        n = math.prod(l.shape)
+        if n <= DRAW_SLICE:
+            return draw(n, scale).to(device, l.dtype).view(l.shape)
+        out = torch.empty(l.shape, dtype=l.dtype, device=device)
+        flat = out.view(-1)
+        for i in range(0, n, DRAW_SLICE):
+            m = min(DRAW_SLICE, n - i)
+            flat[i:i + m] = draw(m, scale)
+        return out
 
     return tree_map(one, bp)
 

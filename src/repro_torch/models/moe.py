@@ -12,10 +12,14 @@ those of its code, not of its docstring:
     ties is unspecified (bf16 router logits tie often).
 
 The expert FF goes through the moe_dispatch kernel on CUDA tensors and
-its plain version on CPU tensors. Both keep the hidden in float32, where
-the reference's einsums round it to bf16, so the two meet at bf16
-tolerance. Capacity comes from shapes and nothing here reads a value
-back to the host.
+its plain version on CPU tensors, with each expert's filled slots
+(``counts``, taken from the dispatch table on the device), so that an
+expert no token chose reads no weights. That changes no value: a free
+slot is the zero row, whose output is zero either way. The plain version
+keeps the hidden in float32 and the kernel's tensor-core route rounds it
+to fp16, where the reference's einsums round it to bf16, so all meet at
+bf16 tolerance. Capacity comes from shapes and nothing here reads a
+value back to the host.
 """
 from __future__ import annotations
 
@@ -96,9 +100,11 @@ def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
 
     C = capacity(T, top_k, n_experts, capacity_factor)
     table, wtable = dispatch(gate_idx, gate_vals, T, n_experts, C)
+    # filled slots of each expert: min(assigned, C), on the device
+    counts = (table.view(n_experts, C) != T).sum(1, dtype=torch.int32)
     xp = torch.cat([xt, xt.new_zeros(1, d)])
     y = grouped_expert_ff(xp[table].reshape(n_experts, C, d), p["wi"],
-                          p["wo"])
+                          p["wo"], counts)
     yflat = y.reshape(n_experts * C, d).float() * wtable[:, None]
     out = torch.zeros(T + 1, d, device=x.device).index_add_(0, table, yflat)
     return out[:T].reshape(B, S, d).to(x.dtype), aux

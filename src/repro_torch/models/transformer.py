@@ -28,6 +28,14 @@ reference, an MoE layer runs sequentially even under ``parallel_block``,
 and its load-balancing loss is dropped outside training. The xLSTM
 mixers, the encoder-decoder stack and the training loss raise
 ``NotImplementedError`` naming their ROADMAP item.
+
+Like the port's fixes of ROADMAP C6, C9 and C10, its decode departs
+from the reference's on purpose in one place: under ``parallel_block``
+a dense layer decodes as prefill computes it, ``x + attn(h) + mlp(h)``
+from one normed input (command-r-plus). The reference's
+``_decode_layer`` never reads ``parallel_block`` and decodes such a
+layer sequentially, so its decode does not reproduce its own prefill
+(ROADMAP C11); the port's does.
 """
 from __future__ import annotations
 
@@ -240,9 +248,12 @@ class LM:
         kc = _insert_at(cache["k"], k, pos)
         vc = _insert_at(cache["v"], v, pos)
         o = L.attention_decode(q, kc, vc, pos + 1)
-        # sequential even under parallel_block, as the reference decodes
-        x = x + torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
-        return self._ff(kind, p, x)
+        mix = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+        if c.parallel_block and kind.ff == "dense":
+            # as prefill computes it (the reference decodes it
+            # sequentially: ROADMAP C11)
+            return x + mix + L.mlp(p["mlp"], h, c.gated_mlp)
+        return self._ff(kind, p, x + mix)
 
     # -- prefill ------------------------------------------------------------------
     def prefill(self, params, tokens):

@@ -22,7 +22,7 @@
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __shared__ static
 
 struct dim3 { unsigned x = 0, y = 0, z = 0; };

@@ -147,6 +147,24 @@ def test_init_params_follows_the_rules():
     assert torch.equal(again["embed"], p["embed"])
 
 
+def test_init_params_draws_large_leaves_in_slices(monkeypatch):
+    """A leaf past DRAW_SLICE elements is drawn slice by slice into the
+    leaf itself: the same rules (dtype, scale, seed), other numbers."""
+    from repro_torch.models import blueprint as BP
+    bp = get_model(get_config("granite-3-2b", smoke=True)).blueprint()
+    whole = init_params(bp, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.setattr(BP, "DRAW_SLICE", 1000)
+    sliced = init_params(bp, torch.Generator().manual_seed(0), "cpu")
+    again = init_params(bp, torch.Generator().manual_seed(0), "cpu")
+    w, w0 = sliced["stack"][0]["mlp"]["wi"], whole["stack"][0]["mlp"]["wi"]
+    assert w.shape == w0.shape and w.dtype == w0.dtype == torch.bfloat16
+    assert abs(float(w.float().std()) - 128 ** -0.5) < 0.01
+    assert torch.equal(w, again["stack"][0]["mlp"]["wi"])
+    assert not torch.equal(w, w0)
+    small = sliced["stack"][0]["ln1"]["scale"]          # ones, not drawn
+    assert torch.equal(small, whole["stack"][0]["ln1"]["scale"])
+
+
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "seamless-m4t-large-v2"])
 def test_unported_models_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -156,3 +174,74 @@ def test_unported_models_raise_naming_the_roadmap(arch):
 def test_loss_fn_is_not_ported(granite):
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         granite[3].loss_fn(granite[4], {})
+
+
+# --------------------------------------------------------------------------
+# parallel_block (command-r-plus-104b): ROADMAP C11
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def command_r():
+    """command-r-plus-104b's smoke variant (parallel attention + FF), the
+    reference's params carried over, and one 12-token prompt."""
+    cfg = ref_get_config("command-r-plus-104b", smoke=True)
+    assert cfg.parallel_block
+    ref = ref_get_model(cfg)
+    ref_params = ref_init_params(ref.blueprint(), jax.random.PRNGKey(0))
+    model = get_model(get_config("command-r-plus-104b", smoke=True))
+    params = lm_params_from_numpy(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params),
+        "cpu", model.blueprint())
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (1, 12))
+    return cfg, ref, ref_params, model, params, toks.astype(np.int32)
+
+
+def _ref_decode_last(ref, ref_params, toks):
+    cache = ref.init_cache(1, 16)
+    for t in range(toks.shape[1]):
+        logits, cache = ref.decode_step(ref_params, cache,
+                                        jnp.array(toks[:, t:t + 1]),
+                                        jnp.array([t], jnp.int32))
+    return np.asarray(logits)[:, 0]
+
+
+def test_parallel_block_prefill_matches_reference(command_r):
+    cfg, ref, ref_params, model, params, toks = command_r
+    want = np.asarray(ref.prefill(ref_params, jnp.array(toks)))
+    got = model.prefill(params, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_parallel_block_decode_matches_prefill(command_r):
+    """The port decodes a parallel block as prefill computes it:
+    teacher-forced decode reproduces its own prefill at granite's
+    tolerance (tests/test_archs.py's)."""
+    cfg, ref, ref_params, model, params, toks = command_r
+    full = model.prefill(params, torch.from_numpy(toks).long())
+    cache = model.init_cache(1, 16, device="cpu")
+    for t in range(toks.shape[1]):
+        logits, cache = model.decode_step(
+            params, cache, torch.from_numpy(toks[:, t:t + 1]).long(),
+            torch.full((1,), t))
+    np.testing.assert_allclose(logits[:, 0, :cfg.vocab].numpy(),
+                               full[:, :cfg.vocab].numpy(), atol=0.55,
+                               rtol=0.1)
+
+
+def test_reference_decodes_parallel_block_sequentially(command_r):
+    """ROADMAP C11, on the reference as it is: its decode of a parallel
+    block runs attention and FF one after the other, so its decode does
+    not reproduce its own prefill, by far more than granite's tolerance;
+    the port's decode stays within it of the reference's prefill."""
+    cfg, ref, ref_params, model, params, toks = command_r
+    want = np.asarray(ref.prefill(ref_params, jnp.array(toks)))[:, :cfg.vocab]
+    ref_gap = np.abs(_ref_decode_last(ref, ref_params, toks)[:, :cfg.vocab]
+                     - want).max()
+    assert ref_gap > 1.0
+    cache = model.init_cache(1, 16, device="cpu")
+    for t in range(toks.shape[1]):
+        logits, cache = model.decode_step(
+            params, cache, torch.from_numpy(toks[:, t:t + 1]).long(),
+            torch.full((1,), t))
+    np.testing.assert_allclose(logits[:, 0, :cfg.vocab].numpy(), want,
+                               atol=0.55, rtol=0.1)

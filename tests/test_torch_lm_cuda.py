@@ -8,10 +8,10 @@ Imports nothing of JAX, so it runs on a machine with a GPU and no JAX:
 Skips where ``torch.cuda.is_available()`` is false. Tolerances are those
 of ``tests/test_kernels.py``: rmsnorm 1e-5 in float32 and 2e-2 in
 bfloat16, attention 2e-5 in float32 and 3e-2 in bfloat16; the shapes
-added for the tensor-core route are held at chip_smoke.py's rtol 1e-2,
-atol 2e-3. The smoke LM on the card against the same LM on the CPU:
-atol = rtol = 0.1 on the logits, as ``tests/test_torch_lm.py`` holds it
-to the JAX package.
+added for the tensor-core route (P and V in fp16) and for head dim 112
+are held at chip_smoke.py's rtol 1e-2, atol 2e-3 in bf16. The smoke LM
+on the card against the same LM on the CPU: atol = rtol = 0.1 on the
+logits, as ``tests/test_torch_lm.py`` holds it to the JAX package.
 """
 import numpy as np
 import pytest
@@ -60,7 +60,8 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", [
     (1, 4, 4, 128, 128, 64), (2, 8, 2, 300, 300, 64),
     (1, 4, 1, 77, 77, 32), (1, 2, 2, 50, 190, 32),
-    (1, 4, 4, 200, 200, 128), (2, 4, 1, 64, 130, 128)])
+    (1, 4, 4, 200, 200, 128), (2, 4, 1, 64, 130, 128),
+    (1, 4, 4, 200, 200, 112), (2, 8, 1, 64, 130, 112)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, Hkv, Sq, Sk, D,
@@ -89,7 +90,10 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, Hkv, Sq, Sk, D,
     (1, 2, 1, 1000, 1000, 128, True),
     (1, 4, 2, 64, 300, 64, False),        # Sq != Sk, every key
     (1, 4, 2, 64, 300, 128, False),
-    (1, 64, 8, 512, 512, 128, True)])     # jamba's GQA, 64 / 8 heads
+    (1, 64, 8, 512, 512, 128, True),      # jamba's GQA, 64 / 8 heads
+    (1, 2, 1, 1000, 1000, 112, True),     # D = 112: zero-filled columns
+    (1, 4, 2, 64, 300, 112, False),
+    (1, 64, 8, 512, 512, 112, True)])     # kimi-k2's GQA, 64 / 8 heads
 def test_flash_attention_tensor_cores_match_plain(cuda, B, H, Hkv, Sq, Sk,
                                                   D, causal):
     """The bf16 route on the tensor cores, at the card's bf16 tolerance."""
@@ -104,6 +108,34 @@ def test_flash_attention_tensor_cores_match_plain(cuda, B, H, Hkv, Sq, Sk,
     want = FA.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == want.dtype and got.shape == want.shape
     rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,aligned,way", [
+    (torch.bfloat16, True, "tensor_cores"),
+    (torch.bfloat16, False, "cuda_cores"),
+    (torch.float32, True, "cuda_cores")])
+def test_flash_attention_d112_on_both_routes(cuda, dtype, aligned, way):
+    """kimi-k2's head dim on each route: bf16 rows on 16 bytes take the
+    tensor cores, bf16 rows one element off and float32 the CUDA cores."""
+    B, H, Hkv, S, D = 1, 8, 2, 200, 112
+    g = torch.Generator(cuda).manual_seed(4)
+    q, k, v = (torch.randn(B, h, S, D, generator=g, device=cuda).to(dtype)
+               for h in (H, Hkv, Hkv))
+    if not aligned:
+        q = torch.zeros(q.numel() + 1, dtype=dtype, device=cuda)[1:] \
+            .view(q.shape).copy_(q)
+    assert FA.route(dtype, D, FA._rows_aligned(q, k, v)) == way
+    routes = dict(FA.LAUNCHES_BY_ROUTE)
+    got = FA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    routes[way] += 1
+    assert FA.LAUNCHES_BY_ROUTE == routes
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    rtol, atol = (CARD_BF16_TOL if dtype == torch.bfloat16
+                  else (TOL[dtype][1],) * 2)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
 

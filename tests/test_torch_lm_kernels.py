@@ -65,7 +65,8 @@ def test_rmsnorm_plain_matches_pallas(shape, dtype):
 
 @pytest.mark.parametrize("shape", [(1, 2, 128, 64), (2, 1, 256, 64),
                                    (1, 1, 128, 128), (2, 2, 192, 32),
-                                   (1, 2, 128, 128), (1, 1, 192, 128)])
+                                   (1, 2, 128, 128), (1, 1, 192, 128),
+                                   (1, 2, 128, 112)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_plain_matches_pallas(shape, dtype, causal):
@@ -98,17 +99,17 @@ def test_flash_attention_plain_ragged_gqa_matches_oracle(S, causal):
 
 
 def _split_bf16(p: torch.Tensor) -> torch.Tensor:
-    """p as the tensor-core routes carry it: bf16(p) + bf16(p - bf16(p))."""
+    """p as two bf16 parts: bf16(p) + bf16(p - bf16(p))."""
     hi = p.bfloat16().float()
     return hi + (p - hi).bfloat16().float()
 
 
-def _tc_attention_model(q, k, v, causal=True, split=True):
+def _tc_attention_model(q, k, v, causal=True, part="f16"):
     """The tensor-core route's arithmetic, written out: float32 scores
-    and softmax weights P, P split into two bf16 parts (or, with
-    ``split`` False, rounded to bf16 alone) before the product with V
-    (float32 sums), the sum l of the unsplit P, the output rounded to
-    bf16 once."""
+    and softmax weights P, P rounded before the product with V (float32
+    sums), the sum l of the unrounded P, the output rounded to bf16 once.
+    ``part``: "f16", the route's (P and V rounded to fp16, the product's
+    operand type); "bf16", P rounded to bf16 alone."""
     H, Hkv, D = q.shape[1], k.shape[1], q.shape[3]
     k = k.float().repeat_interleave(H // Hkv, dim=1)
     v = v.float().repeat_interleave(H // Hkv, dim=1)
@@ -118,18 +119,21 @@ def _tc_attention_model(q, k, v, causal=True, split=True):
         keep = torch.arange(Sq)[:, None] >= torch.arange(Sk)[None, :]
         s = s.masked_fill(~keep, -math.inf)
     p = torch.exp(s - s.amax(-1, keepdim=True))
-    pb = _split_bf16(p) if split else p.bfloat16().float()
-    o = torch.einsum("bhqk,bhkd->bhqd", pb, v)
+    if part == "f16":
+        pr, v = p.half().float(), v.half().float()
+    else:
+        pr = p.bfloat16().float()
+    o = torch.einsum("bhqk,bhkd->bhqd", pr, v)
     return (o / p.sum(-1, keepdim=True)).bfloat16()
 
 
 @pytest.mark.parametrize("Sk", [200, 256])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 112, 128])
 def test_tensor_core_rounding_model_meets_plain_and_oracle(Sk, D):
-    """The route rounds only P (to hi + lo bf16 parts) between its two
-    products; that model stays within the card's bf16 tolerance of the
-    plain version and of the JAX oracle. B = 1, H = 4, Hkv = 2, Sq = 256,
-    causal."""
+    """The route rounds only P (to one fp16 part) and V (bf16 to fp16)
+    between its two products; that model stays within the card's bf16
+    tolerance of the plain version and of the JAX oracle. B = 1, H = 4,
+    Hkv = 2, Sq = 256, causal."""
     rng = np.random.default_rng(5)
     q, k, v = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .bfloat16() for s in ((1, 4, 256, D), (1, 2, Sk, D),
@@ -150,10 +154,11 @@ def test_tensor_core_rounding_model_meets_plain_and_oracle(Sk, D):
 
 
 def test_p_rounded_alone_misses_the_card_tolerance():
-    """Why the route carries two parts: a row whose weight sits on two
-    keys of about equal score, with values that nearly cancel, puts P's
-    bf16 rounding (up to 2^-8 of each weight) past rtol 1e-2 + atol 2e-3
-    of the float32 softmax; hi + lo stays inside."""
+    """Why the route carries fp16 and not bf16: a row whose weight sits
+    on two keys of about equal score, with values that nearly cancel,
+    puts P's bf16 rounding (up to 2^-8 of each weight) past rtol 1e-2 +
+    atol 2e-3 of the float32 softmax; one fp16 part (2^-11) stays
+    inside."""
     q = torch.zeros(1, 1, 2, 64)
     k = torch.zeros(1, 1, 2, 64)
     v = torch.zeros(1, 1, 2, 64)
@@ -164,8 +169,8 @@ def test_p_rounded_alone_misses_the_card_tolerance():
     q, k, v = (t.bfloat16() for t in (q, k, v))
     want = FA.flash_attention_plain(q, k, v, causal=True).float()
     rtol, atol = CARD_BF16_TOL
-    for split, misses in ((False, True), (True, False)):
-        err = (_tc_attention_model(q, k, v, split=split).float()
+    for part, misses in (("bf16", True), ("f16", False)):
+        err = (_tc_attention_model(q, k, v, part=part).float()
                - want).abs()
         assert bool((err > atol + rtol * want.abs()).any()) == misses
 
@@ -178,9 +183,25 @@ def test_split_keeps_sixteen_bits():
     assert float(((p.bfloat16().float() - p) / p).abs().max()) > 2.0 ** -10
 
 
+def test_f16_keeps_eleven_bits():
+    """P in [2^-14, 1] rounded to fp16 is within 2^-11 of itself; bf16
+    V converts to fp16 exactly in fp16's normal range."""
+    p = torch.from_numpy(np.random.default_rng(7).uniform(
+        2.0 ** -14, 1.0, 4096).astype(np.float32))
+    assert float(((p.half().float() - p) / p).abs().max()) <= 2.0 ** -11
+    v = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        4096).astype(np.float32) * 1000).bfloat16()
+    v = v[v.float().abs() >= 2.0 ** -14]
+    assert torch.equal(v.half().float(), v.float())
+    assert torch.isinf(torch.tensor(65536.0).bfloat16().half())
+
+
 @pytest.mark.parametrize("dtype,D,aligned,want", [
     (torch.bfloat16, 64, True, "tensor_cores"),    # granite (4, 32, 2048, 64)
     (torch.bfloat16, 128, True, "tensor_cores"),   # olmoe, jamba: D = 128
+    (torch.bfloat16, 112, True, "tensor_cores"),   # kimi-k2: D = 112
+    (torch.bfloat16, 112, False, "cuda_cores"),
+    (torch.float32, 112, True, "cuda_cores"),
     (torch.bfloat16, 32, True, "cuda_cores"),      # no path uses D = 32
     (torch.bfloat16, 64, False, "cuda_cores"),     # rows off 16 bytes
     (torch.float32, 64, True, "cuda_cores"),
@@ -193,12 +214,12 @@ def test_route_names_the_entry(dtype, D, aligned, want):
 
 
 @pytest.mark.parametrize("H,Hkv,D", [(32, 8, 64), (16, 16, 128),
-                                     (64, 8, 128)])
+                                     (64, 8, 128), (64, 8, 112)])
 def test_path_layouts_take_the_tensor_cores(H, Hkv, D):
-    """The three prefill paths' heads (granite, olmoe, jamba) as the layer
-    hands them over, transposed views of (B, S, H, D) projections (S cut
-    to 16 here): their rows start on 16 bytes. One element off, they do
-    not."""
+    """The four prefill paths' heads (granite, olmoe, jamba, kimi) as the
+    layer hands them over, transposed views of (B, S, H, D) projections
+    (S cut to 16 here): their rows start on 16 bytes. One element off,
+    they do not."""
     q, k, v = (torch.zeros(2, 16, h, D, dtype=torch.bfloat16)
                .transpose(1, 2) for h in (H, Hkv, Hkv))
     assert FA._rows_aligned(q, k, v)
@@ -289,6 +310,8 @@ def test_rmsnorm_source_matches_plain_on_host(shape, host_libs):
     (1, 1, 1, 130, 130, 64, True),    # three query tiles, ragged keys
     (1, 2, 1, 70, 70, 128, True),     # D = 128: the dynamic-memory tiles
     (1, 1, 1, 40, 100, 128, False),   # D = 128, Sq != Sk, every key
+    (1, 1, 1, 90, 90, 112, True),     # D = 112: a ragged query tile
+    (1, 4, 1, 64, 70, 112, False),    # D = 112, GQA 4 / 1, ragged keys
 ])
 def test_flash_attention_source_matches_plain_on_host(B, H, Hkv, Sq, Sk, D,
                                                       causal, host_libs):

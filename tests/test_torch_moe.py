@@ -119,6 +119,51 @@ def test_dropped_share_counts_assignments_past_capacity():
         np.maximum(per - C, 0).sum() / (T * k)
 
 
+@pytest.mark.parametrize("T,E,k,cf", [(64, 8, 2, 1.25), (8, 384, 8, 1.25),
+                                      (40, 4, 3, 0.5)])
+def test_dispatch_fills_each_expert_from_slot_zero(T, E, k, cf):
+    """Each expert's slots hold its first min(assigned, C) tokens, in
+    token order, and every slot at or past that count holds the zero row
+    T: the counts moe_ff hands the kernel are min(assigned, C)."""
+    rng = np.random.default_rng(T + E)
+    gate_idx = torch.from_numpy(np.stack(
+        [rng.choice(E, k, replace=False) for _ in range(T)]))
+    gate_vals = torch.from_numpy(rng.uniform(0.1, 1.0, (T, k))).float()
+    C = PM.capacity(T, k, E, cf)
+    table, wtable = PM.dispatch(gate_idx, gate_vals, T, E, C)
+    slots = table.view(E, C)
+    assigned = np.bincount(gate_idx.numpy().ravel(), minlength=E)
+    counts = (slots != T).sum(1, dtype=torch.int32)
+    np.testing.assert_array_equal(counts.numpy(), np.minimum(assigned, C))
+    for e in range(E):
+        n = int(counts[e])
+        toks = np.nonzero((gate_idx.numpy() == e).any(1))[0][:n]
+        np.testing.assert_array_equal(slots[e, :n].numpy(), toks)
+        assert (slots[e, n:] == T).all()
+        assert (wtable.view(E, C)[e, n:] == 0).all()
+    assert (assigned > C).any() or cf > 1   # the cases drop
+
+
+@pytest.mark.parametrize("T,C", [(128, 40), (4, 1)])
+def test_moe_ff_with_counts_equals_moe_ff_without(T, C, monkeypatch):
+    """The counts only skip what is zero anyway: at capacities that drop,
+    moe_ff gives the same bits when the expert FF is called without
+    them."""
+    d, E, k, f = 128, 8, 2, 64
+    router = np.random.default_rng(7).standard_normal((d, E)) / np.sqrt(d)
+    router[:, :2] *= 4
+    _, pt = _moe_params(d, E, f, 0, router=router)
+    _, xt = _x((1, T, d), 1)
+    assert PM.capacity(T, k, E, 1.25) == C
+    assert PM.dropped_share(pt, xt, n_experts=E, top_k=k) > 0
+    got, _ = PM.moe_ff(pt, xt, n_experts=E, top_k=k)
+    monkeypatch.setattr(PM, "grouped_expert_ff",
+                        lambda x, wi, wo, counts, **kw:
+                        MD.grouped_expert_ff(x, wi, wo))
+    want, _ = PM.moe_ff(pt, xt, n_experts=E, top_k=k)
+    assert torch.equal(got, want)
+
+
 def test_capacity_is_the_references_floor():
     assert PM.capacity(8192, 8, 64, 1.25) == 1280   # olmoe prefill 4 x 2048
     assert PM.capacity(8, 8, 64, 1.25) == 1         # the engine's 8 slots
@@ -287,9 +332,10 @@ def test_moe_layers_go_through_the_expert_ff_wrapper(monkeypatch):
     shapes = []
     wrapped = MD.grouped_expert_ff
 
-    def spy(x, wi, wo):
+    def spy(x, wi, wo, counts, **kw):
+        assert counts.dtype == torch.int32 and counts.shape == x.shape[:1]
         shapes.append(tuple(x.shape))
-        return wrapped(x, wi, wo)
+        return wrapped(x, wi, wo, counts, **kw)
 
     monkeypatch.setattr(PM, "grouped_expert_ff", spy)
     model.prefill(params, torch.zeros(B, S, dtype=torch.long))
@@ -301,3 +347,54 @@ def test_moe_layers_go_through_the_expert_ff_wrapper(monkeypatch):
                       torch.zeros(B, dtype=torch.long))
     assert shapes == [(E, 1, d)] * cfg.n_layers
     assert PT.MOE is PM
+
+
+# --------------------------------------------------------------------------
+# kimi-k2 at its published head dim, 112 (the smoke config's is 32)
+# --------------------------------------------------------------------------
+
+def _kimi_112(ref_cfg_fn, cfg_fn, **kw):
+    return dataclasses.replace(ref_cfg_fn("kimi-k2-1t-a32b", smoke=True),
+                               head_dim=112, n_layers=1, **kw), \
+        dataclasses.replace(cfg_fn("kimi-k2-1t-a32b", smoke=True),
+                            head_dim=112, n_layers=1, **kw)
+
+
+def test_kimi_head_dim_112_prefill_matches_reference():
+    """kimi-k2's smoke config at head dim 112, one layer (the cut the card
+    runs), router zeroed: the port's prefill against the reference's."""
+    ref_cfg, cfg = _kimi_112(ref_get_config, get_config)
+    ref = ref_get_model(ref_cfg)
+    ref_params = ref_init_params(ref.blueprint(), jax.random.PRNGKey(0))
+    ref_params["stack"][0]["moe"]["router"] = jnp.zeros_like(
+        ref_params["stack"][0]["moe"]["router"])
+    model = get_model(cfg)
+    params = lm_params_from_numpy(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params),
+        "cpu", model.blueprint())
+    assert params["stack"][0]["attn"]["wq"].shape == (1, cfg.d_model,
+                                                      cfg.n_heads, 112)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
+    want = np.asarray(ref.prefill(ref_params, jnp.array(toks)))
+    got = model.prefill(params, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_kimi_head_dim_112_decode_matches_prefill():
+    """The port's own check at head dim 112, one layer, with the random
+    router, where the capacity drops nothing (capacity factor 8):
+    teacher-forced decode reproduces prefill's last logits at
+    tests/test_archs.py's tolerance."""
+    _, cfg = _kimi_112(ref_get_config, get_config, moe_capacity=8.0)
+    model = get_model(cfg)
+    params = init_params(model.blueprint(), torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, (1, 12)))
+    full = model.prefill(params, toks)
+    cache = model.init_cache(1, 16, device="cpu")
+    for t in range(12):
+        logits, cache = model.decode_step(params, cache, toks[:, t:t + 1],
+                                          torch.full((1,), t))
+    np.testing.assert_allclose(logits[:, 0, :cfg.vocab].numpy(),
+                               full[:, :cfg.vocab].numpy(), atol=0.55,
+                               rtol=0.1)

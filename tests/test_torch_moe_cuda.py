@@ -7,8 +7,9 @@ Imports nothing of JAX, so it runs on a machine with a GPU and no JAX:
 
 Skips where ``torch.cuda.is_available()`` is false. Tolerances are those
 of ``tests/test_kernels.py``: 1e-5 in float32 and 3e-2 in bfloat16; the
-shapes added for the tensor-core route, drawn as the path draws them,
-are held at chip_smoke.py's rtol 1e-2, atol 2e-3. The
+shapes added for the tensor-core route and for counts, drawn as the path
+draws them, are held at chip_smoke.py's rtol 1e-2, atol 2e-3 in bf16.
+The
 smoke LM on the card against the same LM on the CPU: atol = rtol = 0.1
 on the logits, as ``tests/test_torch_moe.py`` holds it to the JAX
 package, with the router zeroed so that bf16 near-ties cannot route a
@@ -73,18 +74,13 @@ def test_grouped_expert_ff_kernel_matches_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("shape", [
     (3, 17, 136, 200), (3, 40, 136, 200), (3, 130, 136, 200),
     (3, 1280, 136, 200),      # d, f multiples of 8, not of 128
-    (4, 40, 256, 96), (64, 17, 256, 96), (2, 130, 128, 200)])
+    (4, 40, 256, 96), (64, 17, 256, 96), (2, 130, 128, 200),
+    (2, 64, 1024, 512), (8, 256, 512, 256)])
 def test_grouped_expert_ff_tensor_cores_match_plain(cuda, shape):
-    """The bf16 route at C > 1 on the tensor cores, x at unit scale and
-    the weights drawn as init_params draws them, at the card's bf16
-    tolerance."""
-    E, C, d, f = shape
-    g = torch.Generator(cuda).manual_seed(3)
-    x = torch.randn(E, C, d, generator=g, device=cuda).bfloat16()
-    wi = (torch.randn(E, d, 2 * f, generator=g, device=cuda)
-          * d ** -0.5).bfloat16()
-    wo = (torch.randn(E, f, d, generator=g, device=cuda)
-          * f ** -0.5).bfloat16()
+    """The bf16 route at C > 1 on the tensor cores (the hidden and wo in
+    fp16 for the down product), x at unit scale and the weights drawn as
+    init_params draws them, at the card's bf16 tolerance."""
+    x, wi, wo = _path_inputs(cuda, shape, 3)
     tc = MD.LAUNCHES_BY_ROUTE["tensor_cores"]
     got = MD.grouped_expert_ff(x, wi, wo)
     torch.cuda.synchronize()
@@ -92,6 +88,56 @@ def test_grouped_expert_ff_tensor_cores_match_plain(cuda, shape):
     want = MD.grouped_expert_ff_plain(x, wi, wo)
     assert got.dtype == want.dtype and got.shape == want.shape
     rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def _path_inputs(dev, shape, seed):
+    """x at unit scale and the weights drawn as init_params draws them,
+    bf16."""
+    E, C, d, f = shape
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(E, C, d, generator=g, device=dev).bfloat16()
+    wi = (torch.randn(E, d, 2 * f, generator=g, device=dev)
+          * d ** -0.5).bfloat16()
+    wo = (torch.randn(E, f, d, generator=g, device=dev)
+          * f ** -0.5).bfloat16()
+    return x, wi, wo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["zero", "mixed", "full"])
+@pytest.mark.parametrize("shape,dtype", [
+    ((64, 1, 1024, 512), torch.bfloat16),    # C = 1, CUDA cores
+    ((64, 1, 1024, 512), torch.float32),
+    ((4, 300, 256, 96), torch.bfloat16),     # C > 1, tensor cores
+    ((2, 130, 100, 300), torch.bfloat16),    # C > 1, CUDA cores
+    ((3, 40, 128, 64), torch.float32)])
+def test_grouped_expert_ff_counts_match_plain(cuda, shape, dtype, how):
+    """With counts (none filled, a mix, all filled) on every route: x's
+    rows past the count are not zero here and come out zero; at C = 1
+    the hidden is cut into the finest slices."""
+    E, C, d, f = shape
+    x, wi, wo = (t.to(dtype) for t in _path_inputs(cuda, shape, 5))
+    if how == "zero":
+        counts = torch.zeros(E, dtype=torch.int32, device=cuda)
+    elif how == "full":
+        counts = torch.full((E,), C, dtype=torch.int32, device=cuda)
+    else:
+        g = torch.Generator(cuda).manual_seed(6)
+        counts = torch.randint(0, C + 1, (E,), generator=g, device=cuda,
+                               dtype=torch.int32)
+        counts[0], counts[-1] = 0, C
+    routes = dict(MD.LAUNCHES_BY_ROUTE)
+    got = MD.grouped_expert_ff(x, wi, wo, counts)
+    torch.cuda.synchronize()
+    routes[MD.route(dtype, C, d, f)] += 1
+    assert MD.LAUNCHES_BY_ROUTE == routes
+    want = MD.grouped_expert_ff_plain(x, wi, wo, counts)
+    keep = torch.arange(C, device=cuda)[None, :] < counts[:, None]
+    assert (got[~keep] == 0).all()
+    rtol, atol = (CARD_BF16_TOL if dtype == torch.bfloat16
+                  else (TOL[dtype],) * 2)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
 

@@ -92,7 +92,9 @@ def test_plain_wide_expert_matches_oracle(C):
     (16, 1280, 24576, (1, 24576)),  # jamba prefill: 1280 CTAs already
     (64, 1280, 1024, (1, 1024)),    # olmoe prefill
     (8, 40, 64, (1, 256)),          # smoke prefill: f is one slice
-    (2, 1, 300, (2, 256))])
+    (2, 1, 300, (2, 256)),
+    (1, 1, 2048, (8, 256)),         # kimi decode with counts: the finest
+    (1, 1, 24576, (96, 256))])      # jamba decode with counts
 def test_slicing_covers_f_and_fills_the_grid(E, C, f, want):
     n, fs = MD.slicing(E, C, f)
     assert (n, fs) == want
@@ -111,25 +113,36 @@ def _path_inputs(shape, seed):
                              ((E, f, d), f ** -0.5))]
 
 
-def _tc_model(x, wi, wo, split=True):
+def _tc_model(x, wi, wo, part="f16"):
     """The tensor-core route's arithmetic, written out: float32 sums, the
-    hidden silu(g) * u carried as two bf16 parts hi + lo (or, with
-    ``split`` False, rounded to bf16 alone) between the two products,
-    the output rounded to bf16 once."""
+    hidden silu(g) * u rounded between the two products, the output
+    rounded to bf16 once. ``part``: "f16", the route's (the hidden and wo
+    rounded to fp16, the down product's operand type); "bf16", the hidden
+    rounded to bf16 alone."""
     f = wo.shape[1]
     h = torch.bmm(x.float(), wi.float())
     h = F.silu(h[..., :f]) * h[..., f:]
-    hi = h.bfloat16().float()
-    if split:
-        hi = hi + (h - hi).bfloat16().float()
-    return torch.bmm(hi, wo.float()).bfloat16()
+    wo = wo.float()
+    if part == "f16":
+        h, wo = h.half().float(), wo.half().float()
+    else:
+        h = h.bfloat16().float()
+    return torch.bmm(h, wo).bfloat16()
 
 
-@pytest.mark.parametrize("shape", [(4, 40, 256, 96), (2, 130, 128, 200)])
+def _misses(got, want):
+    """Outputs past chip_smoke.py's rtol 1e-2 + atol 2e-3."""
+    rtol, atol = CARD_BF16_TOL
+    err = (got.float() - want.float()).abs()
+    return int((err > atol + rtol * want.float().abs()).sum())
+
+
+@pytest.mark.parametrize("shape", [(4, 40, 256, 96), (2, 130, 128, 200),
+                                   (2, 64, 1024, 512), (8, 256, 512, 256)])
 def test_tensor_core_rounding_model_meets_plain_and_oracle(shape):
-    """The route rounds only the hidden (to hi + lo bf16 parts) between
-    its products; that model stays within the card's bf16 tolerance of
-    the plain version and of the JAX oracle."""
+    """The route rounds only the hidden (to one fp16 part) and wo (bf16 to
+    fp16) between its products; that model stays within the card's bf16
+    tolerance of the plain version and of the JAX oracle."""
     x, wi, wo = _path_inputs(shape, 10)
     got = _tc_model(x, wi, wo)
     rtol, atol = CARD_BF16_TOL
@@ -144,15 +157,13 @@ def test_tensor_core_rounding_model_meets_plain_and_oracle(shape):
 
 
 def test_hidden_rounded_alone_misses_the_card_tolerance():
-    """Why the route carries two parts: the hidden rounded to bf16 alone
-    puts some outputs past rtol 1e-2 + atol 2e-3 of the plain version."""
+    """Why the route carries fp16 and not bf16: the hidden rounded to bf16
+    alone puts some outputs past rtol 1e-2 + atol 2e-3 of the plain
+    version; one fp16 part stays inside."""
     x, wi, wo = _path_inputs((8, 256, 512, 256), 11)
-    want = MD.grouped_expert_ff_plain(x, wi, wo).float()
-    rtol, atol = CARD_BF16_TOL
-    err = (_tc_model(x, wi, wo, split=False).float() - want).abs()
-    assert int((err > atol + rtol * want.abs()).sum()) > 0
-    err = (_tc_model(x, wi, wo).float() - want).abs()
-    assert int((err > atol + rtol * want.abs()).sum()) == 0
+    want = MD.grouped_expert_ff_plain(x, wi, wo)
+    assert _misses(_tc_model(x, wi, wo, part="bf16"), want) > 0
+    assert _misses(_tc_model(x, wi, wo), want) == 0
 
 
 @pytest.mark.parametrize("dtype,shape,want", [
@@ -163,6 +174,8 @@ def test_hidden_rounded_alone_misses_the_card_tolerance():
     (torch.bfloat16, (2, 130, 100, 300), "cuda_cores"),     # d = 100
     (torch.bfloat16, (2, 130, 128, 300), "cuda_cores"),     # f % 8 != 0
     (torch.bfloat16, (3, 130, 136, 200), "tensor_cores"),   # 8 | d, f
+    (torch.bfloat16, (384, 212, 7168, 2048), "tensor_cores"),  # kimi
+    (torch.bfloat16, (384, 1, 7168, 2048), "cuda_cores"),   # kimi decode
     (torch.float32, (64, 1280, 2048, 1024), "cuda_cores")])
 def test_route_names_the_entry(dtype, shape, want):
     E, C, d, f = shape
@@ -170,6 +183,45 @@ def test_route_names_the_entry(dtype, shape, want):
     name = MD.entry(dtype, C, d, f)
     assert name in MD.KERNEL.argtypes
     assert (name == "moe_ff_bf16_tc") == (want == "tensor_cores")
+
+
+def _counts(E, C, how, seed=0):
+    """Counts of filled rows: none, every row, or a mix of 0, C and
+    values between."""
+    if how == "zero":
+        return torch.zeros(E, dtype=torch.int32)
+    if how == "full":
+        return torch.full((E,), C, dtype=torch.int32)
+    c = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, C + 1, E).astype(np.int32))
+    c[0], c[-1] = 0, C
+    return c
+
+
+@pytest.mark.parametrize("how", ["zero", "mixed", "full"])
+@pytest.mark.parametrize("C", [1, 40])
+def test_plain_with_counts_zeroes_rows_past_the_count(how, C):
+    """Rows at or past an expert's count come out zero, whatever x holds
+    there; rows before it are the oracle's on x with those rows zeroed."""
+    (_, x), (_, wi), (_, wo) = _inputs((5, C, 32, 24), torch.float32, 12)
+    counts = _counts(5, C, how)
+    got = MD.grouped_expert_ff(x, wi, wo, counts)
+    keep = torch.arange(C)[None, :] < counts[:, None]
+    assert (got[~keep] == 0).all()
+    xz = x * keep[..., None]
+    _close(got, grouped_expert_ff_ref(*(jnp.array(t.numpy())
+                                        for t in (xz, wi, wo))), 1e-5)
+    if how == "full":
+        assert torch.equal(got, MD.grouped_expert_ff(x, wi, wo))
+
+
+def test_counts_are_checked():
+    (_, x), (_, wi), (_, wo) = _inputs((3, 4, 8, 8), torch.float32, 13)
+    for bad in (torch.zeros(3, dtype=torch.int64),
+                torch.zeros(4, dtype=torch.int32),
+                torch.zeros(3, 1, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="counts"):
+            MD.grouped_expert_ff(x, wi, wo, bad)
 
 
 def test_zero_capacity_gives_an_empty_output():
@@ -225,7 +277,7 @@ def host_lib(tmp_path_factory):
     return lib
 
 
-def _host_run(lib, x, wi, wo, n_slices, fs):
+def _host_run(lib, x, wi, wo, n_slices, fs, counts=None):
     """The kernel's output, its workspace filled with NaN first: a row
     the kernel forgot to write would show."""
     E, C, d = x.shape
@@ -233,6 +285,7 @@ def _host_run(lib, x, wi, wo, n_slices, fs):
     ws = torch.full((n_slices, E, C, d), float("nan"))
     y = torch.full_like(x, float("nan"))
     err = lib.moe_ff_f32(x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+                         None if counts is None else counts.data_ptr(),
                          ws.data_ptr(), y.data_ptr(), E, C, d, f, fs,
                          n_slices, None)
     return err, y
@@ -277,3 +330,17 @@ def test_source_refuses_a_slicing_that_does_not_cover_f(n_slices, fs,
     (_, x), (_, wi), (_, wo) = _inputs((1, 3, 8, 1100), torch.float32, 9)
     err, _ = _host_run(host_lib, x, wi, wo, n_slices, fs)
     assert err != 0
+
+
+@pytest.mark.parametrize("how", ["zero", "mixed", "full"])
+@pytest.mark.parametrize("shape", [(6, 1, 72, 600), (5, 40, 24, 300)])
+def test_source_with_counts_matches_plain_on_host(shape, how, host_lib):
+    """The kernel with counts (none filled, a mix, all filled), at C = 1
+    over several slices and at C = 40 over row blocks that a count cuts:
+    x's rows past the count are not zero here, and still come out zero."""
+    (_, x), (_, wi), (_, wo) = _inputs(shape, torch.float32, 14)
+    E, C, d, f = shape
+    counts = _counts(E, C, how, seed=1)
+    err, y = _host_run(host_lib, x, wi, wo, *MD.slicing(E, C, f), counts)
+    assert err == 0
+    _close(y, MD.grouped_expert_ff_plain(x, wi, wo, counts).numpy(), 1e-5)
