@@ -138,7 +138,15 @@ check lines print both):
     atol 0.2, rtol 0.1 (tests/test_torch_ssm.py).
 
 Each kernel is timed twice: CUDA events around a batch of wrapper calls,
-and the device time of its kernel from a torch.profiler trace.
+and the device time of its kernel from a torch.profiler trace. A simt
+case's record also gives its mode (``warp``: 32-lane workgroups, eight
+warps a CTA; ``cta``: one CTA a workgroup, four in turn on a large grid),
+the CTAs its main-path launch used (read back from the launcher), the
+``__syncthreads`` and ``__syncwarp`` in its source, and for vecadd
+``aliased_ms``: the event time with z and x one tensor, where every store
+keeps its barrier pair. rmsnorm's record gives decode's 8-row call
+(``rows8``: event, device and ``F.rms_norm`` ms) beside each width's 8192
+rows.
 """
 from __future__ import annotations
 
@@ -172,6 +180,7 @@ from repro_torch.core.backends.torch_backend import compile_torch  # noqa: E402
 from repro_torch.core.interp import LaunchParams  # noqa: E402
 from repro_torch.core.passes.pipeline import PassConfig, run_pipeline  # noqa: E402
 from repro_torch.core.vir import BINOPS, UNOPS, Op, Ty  # noqa: E402
+from repro_torch.kernels.simt_exec import codegen  # noqa: E402
 from repro_torch.kernels.simt_exec import simt_exec as sx  # noqa: E402
 from repro_torch.kernels.simt_exec.ops import volt_torch_run  # noqa: E402
 from repro_torch.volt_bench import suite  # noqa: E402
@@ -378,6 +387,11 @@ def _device_ms(fn, calls: int = 20):
 CASES = [("vecadd", 256), ("saxpy", 256), ("blackscholes", 256),
          ("srad_flag0", 256), ("srad_flag1", 256), ("cfd_like", 256),
          ("psum", 32), ("vote_hw", 32), ("bscan_hw", 32)]
+#: the case also timed with two buffers sharing storage (the first is the
+#: second), which keeps every store's barrier pair: z = x + y written into
+#: x moves the same bytes (saxpy has no such pair: x is y reads one
+#: buffer, not two)
+ALIASED = {"vecadd": ("z", "x")}
 
 
 # --------------------------------------------------------------------------
@@ -694,6 +708,9 @@ def lm_kernel_times(dev, cfg, reps, errs):
         if N == PREFILL_B * PREFILL_S:
             records["rmsnorm"] = {**row, "max_abs_err":
                                   errs[("rmsnorm", N, torch.bfloat16)]}
+        else:   # decode's rows: the events measure the host's time
+            records["rmsnorm"][f"rows{N}"] = {
+                k: row[k] for k in ("ms", "device_ms", "library_ms")}
     records["flash_attention"] = _fa_row(g, dev, cfg, reps, errs)
     return records
 
@@ -1314,14 +1331,19 @@ def main() -> int:
 
     # 2. build every kernel, one nvcc each, all at once
     t0 = time.perf_counter()
-    srcs = {}
+    srcs, alias_srcs = {}, {}
     for name, (bench, bufs, sc, params, ck) in cases.items():
-        srcs[name] = sx.kernel_source(
-            ck.fn, params, {k: torch.from_numpy(v) for k, v in bufs.items()})
+        cpu = {k: torch.from_numpy(v) for k, v in bufs.items()}
+        srcs[name] = sx.kernel_source(ck.fn, params, cpu)
+        if name in ALIASED:
+            a, b = ALIASED[name]
+            alias_srcs[name] = sx.kernel_source(ck.fn, params,
+                                                {**cpu, a: cpu[b]})
     with ThreadPoolExecutor(4) as pool:
         lm_built = {m.KERNEL.kind: pool.submit(m.KERNEL.build)
                     for m in (rn, fa, md, ss)}
-        built = sx.build_many(list(srcs.values()))
+        built = sx.build_many(list(srcs.values())
+                              + list(alias_srcs.values()))
         for kind, fut in lm_built.items():
             so, secs = fut.result()
             print(f"build {kind:15s} {so.name[:12]} nvcc {secs:.1f} s")
@@ -1334,12 +1356,16 @@ def main() -> int:
 
     # 3. the main path at full size, counted
     _zero_counts()
-    outs, launches = {}, {}
+    outs, launches, ctas = {}, {}, {}
     for name, (bench, bufs, sc, params, ck) in cases.items():
         before = sx.LAUNCHES
         outs[name] = volt_torch_run(bench.handle, bufs, params, sc,
                                     CONFIG, device=dev)
         launches[name] = sx.LAUNCHES - before
+        ctas[name] = sx.last_ctas(srcs[name])
+        if ctas[name] < 1:
+            raise AssertionError(f"{name}: the main path did not launch the "
+                                 f"library built from its source")
     torch.cuda.synchronize()
     total = sx.LAUNCHES
     if (total != len(cases) or min(launches.values()) < 1
@@ -1421,13 +1447,31 @@ def main() -> int:
               + f" events {ms:.4f} ms"
               + ("" if lib_dev[0] is None else
                  f"  library kernel {lib_dev[0]:.4f} ms"))
+        # the barrier pair's cost: the same kernel on buffers that share
+        # storage, so every store keeps its pair
+        aliased_ms = None
+        if name in ALIASED:
+            a, b = ALIASED[name]
+            shared = {**tens, a: tens[b]}
+            aliased_ms = _median_ms(
+                lambda: sx.simt_launch(ck.fn, params, shared, sc), args.reps)
+            print(f"aliased {name:13s} {a} is {b}, every store between two "
+                  f"barriers: {aliased_ms:.4f} ms against {ms:.4f} ms")
+        mode = "warp" if codegen.warp_mode(params.wg_threads) else "cta"
+        syncs = srcs[name].count("__syncthreads")
+        warps = srcs[name].count("__syncwarp")
+        print(f"mode {name:13s} {mode}: {ctas[name]} CTAs on the main path, "
+              f"{syncs} __syncthreads and {warps} __syncwarp in the source")
         records.append({"name": f"simt_exec/{name}", "route": "cuda",
                         "source": SOURCE, "replaces": REPLACES,
                         "launches": launches[name],
                         "launches_by_path": {"compiler": launches[name]},
                         "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library_ms})
+                        "bound_by": bound_by, "library_ms": library_ms,
+                        "device_ms": dev_ms, "mode": mode,
+                        "ctas": ctas[name], "syncthreads": syncs,
+                        "syncwarp": warps, "aliased_ms": aliased_ms})
 
     # 6. the LM serving paths, dense, MoE and hybrid; each kernel's record
     # counts its launches on every path

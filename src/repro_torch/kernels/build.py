@@ -17,6 +17,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
+import torch
+
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 #: headers shared by the hand-written kernels (``sm90.cuh``)
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -102,6 +104,7 @@ class SourceKernel:
         self.kind, self.cu, self.argtypes = kind, cu, argtypes
         self.headers = tuple(headers)
         self._lib = None
+        self._fns: Dict[str, object] = {}
 
     def includes(self) -> List[Path]:
         """The ``-I`` directories: the source's own, then its headers'."""
@@ -128,15 +131,33 @@ class SourceKernel:
     def lib(self):
         if self._lib is None:
             lib = ctypes.CDLL(str(self.build()[0]))
+            fns = {}
             for name, types in self.argtypes.items():
-                fn = getattr(lib, name)
+                fn = fns[name] = getattr(lib, name)
                 fn.argtypes = types
                 fn.restype = ctypes.c_int
-            self._lib = lib
+            self._lib, self._fns = lib, fns
         return self._lib
 
-    def call(self, name: str, *args) -> None:
-        err = getattr(self.lib(), name)(*args)
+    def call(self, name: str, device: int, *args) -> None:
+        """``name(*args, stream)`` on the current stream of CUDA device
+        ``device`` (``launch_on``); raises where the launch fails."""
+        if self._lib is None:
+            self.lib()
+        err = launch_on(device, self._fns[name], *args)
         if err != 0:
             raise RuntimeError(f"{self.kind}: launch of {name} failed: "
                                f"cudaError {err}")
+
+
+def launch_on(device: int, fn, *args) -> int:
+    """``fn(*args, stream)`` with the current CUDA stream of ``device``;
+    the device is entered only where it is not the current one (a launch
+    goes to the current device). The stream and the device come from
+    torch's raw calls, as Triton's launcher takes them:
+    ``torch.cuda.current_stream()`` builds a Stream object on every call,
+    a cost that decode's small launches would pay once each."""
+    if torch._C._cuda_getDevice() == device:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))

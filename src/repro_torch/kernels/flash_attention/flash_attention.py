@@ -160,13 +160,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vh = ([torch.empty(B, Hkv, Sk, D, dtype=torch.float16,
                        device=q.device).data_ptr()]
           if way == "tensor_cores" else [])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        KERNEL.call(entry(q.dtype, D, aligned),
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), *vh,
-                    out.data_ptr(), B, H, Hkv, Sq, Sk,
-                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                    int(causal), 1.0 / math.sqrt(D), stream)
+    KERNEL.call(entry(q.dtype, D, aligned), q.get_device(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), *vh,
+                out.data_ptr(), B, H, Hkv, Sq, Sk,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                int(causal), 1.0 / math.sqrt(D))
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[way] += 1
     return out

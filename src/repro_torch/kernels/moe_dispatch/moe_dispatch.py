@@ -179,16 +179,12 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                if way == "tensor_cores" else
                torch.empty(n_slices, E, C, d, dtype=torch.float32,
                            device=x.device))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
-                None if counts is None else counts.data_ptr(),
-                scratch.data_ptr(), out.data_ptr(), E, C, d, f)
-        if way == "tensor_cores":
-            KERNEL.call(entry(x.dtype, C, d, f), *args, stream)
-        else:
-            KERNEL.call(entry(x.dtype, C, d, f), *args, fs, n_slices,
-                        stream)
+    args = (x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), E, C, d, f)
+    if way == "cuda_cores":
+        args += (fs, n_slices)
+    KERNEL.call(entry(x.dtype, C, d, f), x.get_device(), *args)
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[way] += 1
     return out

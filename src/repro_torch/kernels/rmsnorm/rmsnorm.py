@@ -1,10 +1,13 @@
 """RMSNorm over the rows of an (N, d) array, as a CUDA kernel on Hopper.
 
 Replaces ``repro/kernels/rmsnorm/rmsnorm.py:rmsnorm`` (the Pallas TPU
-kernel). ``csrc/rmsnorm.cu`` holds the kernel and its note: one CTA per
-row, bound by bytes. It is built with nvcc at first use into
+kernel). ``csrc/rmsnorm.cu`` holds the kernel and its note: one CTA of
+256 threads a row, each row read once in 16-byte vectors (a scalar route
+where the row is not whole vectors or not on 16 bytes); bound by bytes. It is built with nvcc at first use into
 ``build/rmsnorm/<sha256>.so`` and launched through ctypes on the current
-stream.
+stream. At decode's 8 rows the wrapper's host time is the call's time, so
+the C functions are bound once and the device is switched only for a
+tensor that is not on the current one.
 
 On CPU tensors ``rmsnorm`` runs ``rmsnorm_plain``, the same function in
 torch. A CUDA tensor goes to the kernel or raises; there is no fallback.
@@ -25,7 +28,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = SourceKernel(
     "rmsnorm", Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu",
     {f"rmsnorm_{t}": [_P, _P, _P, _I, _I, _F, _P] for t in ("f32", "bf16")})
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: the C function of each dtype
+_NAME = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *,
@@ -43,15 +47,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     """x: (N, d) row-normalized; scale: (d,). CPU tensors take the plain
     version, CUDA tensors the kernel."""
     global LAUNCHES
-    if x.dim() != 2 or scale.shape != (x.shape[1],):
+    if x.dim() != 2 or scale.dim() != 1 or scale.shape[0] != x.shape[1]:
         raise ValueError(f"rmsnorm takes x (N, d) and scale (d,), got "
                          f"{tuple(x.shape)} and {tuple(scale.shape)}")
-    if x.device.type == "cpu" and scale.device.type == "cpu":
+    if x.is_cpu and scale.is_cpu:
         return rmsnorm_plain(x, scale, eps=eps)
-    if x.device.type != "cuda" or scale.device != x.device:
+    if not x.is_cuda or scale.get_device() != x.get_device():
         raise ValueError(f"rmsnorm kernel: x on {x.device}, scale on "
                          f"{scale.device}; both must be on one CUDA device")
-    if x.dtype not in _SUFFIX or scale.dtype != x.dtype:
+    name = _NAME.get(x.dtype)
+    if name is None or scale.dtype != x.dtype:
         raise TypeError(f"rmsnorm kernel takes float32 or bfloat16 x and "
                         f"scale of one dtype, got {x.dtype}, {scale.dtype}")
     if not (x.is_contiguous() and scale.is_contiguous()):
@@ -60,10 +65,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     out = torch.empty_like(x)
     if N == 0:
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        KERNEL.call(f"rmsnorm_{_SUFFIX[x.dtype]}", x.data_ptr(),
-                    scale.data_ptr(), out.data_ptr(), N, d, float(eps),
-                    stream)
+    KERNEL.call(name, x.get_device(), x.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), N, d, float(eps))
     LAUNCHES += 1
     return out

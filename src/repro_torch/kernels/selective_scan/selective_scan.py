@@ -107,11 +107,9 @@ def selective_scan(dA: torch.Tensor, dBx: torch.Tensor, Cm: torch.Tensor,
     y = torch.empty(B, S, d, dtype=dA.dtype, device=dA.device)
     if y.numel() == 0:
         return y
-    with torch.cuda.device(dA.device):
-        stream = torch.cuda.current_stream(dA.device).cuda_stream
-        KERNEL.call(f"selective_scan_{_SUFFIX[dA.dtype]}", dA.data_ptr(),
-                    dBx.data_ptr(), Cm.data_ptr(),
-                    None if h is None else h.data_ptr(), y.data_ptr(), B, S,
-                    d, n, stream)
+    KERNEL.call(f"selective_scan_{_SUFFIX[dA.dtype]}", dA.get_device(),
+                dA.data_ptr(), dBx.data_ptr(), Cm.data_ptr(),
+                None if h is None else h.data_ptr(), y.data_ptr(), B, S, d,
+                n)
     LAUNCHES += 1
     return y

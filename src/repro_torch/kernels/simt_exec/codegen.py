@@ -2,22 +2,41 @@
 
 Walks a kernel in the same order as ``torch_backend._FnLowering.walk``
 (itself the reference's ``jax_backend._FnLowering.walk``) and emits one
-``__global__`` function: one CTA per workgroup, one thread per lane.
+``__global__`` function, one thread per lane, in one of two modes:
+
+  * warp mode, for 32-lane workgroups: each warp runs one workgroup and a
+    CTA runs ``WARPS_PER_CTA`` of them, so a launch of ``grid`` workgroups
+    is ``ceil(grid / WARPS_PER_CTA)`` CTAs; barriers, votes and shuffles
+    are the warp's own (``__syncwarp``, ``__any_sync``, ``__shfl_sync``);
+  * CTA mode, for every other width: a CTA runs one workgroup at a time,
+    barriers and votes over the CTA (``__syncthreads``,
+    ``__syncthreads_or``). Where ``ceil(grid / TURNS_PER_CTA)`` CTAs
+    still fill every SM ``FILL_WAVES`` times over (by the threads an SM
+    holds), a CTA runs ``TURNS_PER_CTA`` workgroups in turn (CTA b runs
+    workgroups b, b + CTAs, ...); a smaller grid keeps one a CTA.
+
+The launcher stores the CTAs of its last launch in the exported
+``int vx_ctas``.
 
 The code is lockstep-predicated. Each thread carries its own ``bool m``
 (its bit of the thread mask) and every thread executes every linearized
-region, so control flow is uniform across the CTA and barriers and
-block-wide votes are legal everywhere:
+region, so control flow is uniform across the workgroup and barriers and
+workgroup-wide votes are legal everywhere:
 
   * split diamonds run the then side under ``m && p``, then the else side
     under ``m && !p`` (it sees the then side's writes), then restore ``m``;
   * loops re-run their header on every trip and continue while any thread
-    of the CTA has ``c && m`` (``__syncthreads_or``); ``vx_pred`` loops
-    narrow ``m`` in the body and restore the entry mask on exit;
+    of the workgroup has ``c && m``; ``vx_pred`` loops narrow ``m`` in the
+    body and restore the entry mask on exit;
   * a STORE updates the whole tile before the next instruction runs, so
-    it sits between two ``__syncthreads()`` (write-after-read before,
+    it sits between two barriers (write-after-read before,
     read-after-write after), on global tiles and ``__shared__`` arrays
-    alike;
+    alike. A store to a global buffer that every load and store of the
+    kernel indexes at the thread's own cell (``global_id(0)``, or
+    ``group_id(0) * local_size(0) + local_id(0)`` where the workgroup is
+    one row of ``local_size`` lanes) needs neither: no other thread reads
+    or writes that cell, and the thread's program order is enough. Where
+    the caller's buffers share storage, every store keeps its pair;
   * scalars are kernel arguments, so a new ``n`` does not rebuild.
 
 The helpers the emitted code calls are in ``csrc/simt_runtime.cuh``.
@@ -40,28 +59,100 @@ _ZERO = {"int": "0", "float": "0.0f", "bool": "false"}
 _CMP_SYM = {Op.EQ: "==", Op.NE: "!=", Op.LT: "<", Op.LE: "<=", Op.GT: ">",
             Op.GE: ">="}
 
+#: 32-lane workgroups (one warp each) a CTA in warp mode
+WARPS_PER_CTA = 8
+#: workgroups a CTA runs one after another in CTA mode, on a large grid
+TURNS_PER_CTA = 4
+#: a CTA-mode grid is large where its CTAs, a ``TURNS_PER_CTA``-th of its
+#: workgroups, fill every SM this many times over
+FILL_WAVES = 4
+
+_LID = "vx_lid<VX_W>()"
 #: intrinsic (name, dim) -> C expression; the 1-D table of the tiled
-#: kernel (reference ``simt_exec.py:77-96``), helpers in the header
+#: kernel (reference ``simt_exec.py:77-96``), relative to the workgroup:
+#: ``vx_g`` is its index and ``vx_ng`` the launch's grid (arguments of
+#: every emitted device function)
 _INTR = {
-    ("local_id", 0): "vx_local_id<VX_LS>()",
+    ("local_id", 0): f"({_LID} % VX_LS)",
     ("local_id", 1): "0",
-    ("lane_id", 0): "vx_lane_id<VX_WS>()",
-    ("group_id", 0): "vx_group_id()",
+    ("lane_id", 0): f"({_LID} % VX_WS)",
+    ("group_id", 0): "vx_g",
     ("group_id", 1): "0",
-    ("global_id", 0): "vx_global_id<VX_LS>()",
+    ("global_id", 0): f"vx_iadd(vx_imul(vx_g, VX_LS), {_LID} % VX_LS)",
     ("global_id", 1): "0",
     ("local_size", 0): "VX_LS",
     ("local_size", 1): "1",
-    ("num_groups", 0): "vx_num_groups()",
+    ("num_groups", 0): "vx_ng",
     ("num_groups", 1): "1",
-    ("global_size", 0): "vx_global_size<VX_LS>()",
+    ("global_size", 0): "vx_imul(vx_ng, VX_LS)",
     ("global_size", 1): "1",
     ("num_threads", 0): "VX_WS",
     ("num_warps", 0): "VX_NW",
-    ("warp_id", 0): "vx_warp_id<VX_WS>()",
-    ("core_id", 0): "vx_core_id()",
-    ("grid_dim", 0): "vx_num_groups()",
+    ("warp_id", 0): f"({_LID} / VX_WS)",
+    ("core_id", 0): "(vx_g % 4)",
+    ("grid_dim", 0): "vx_ng",
 }
+
+
+def warp_mode(W: int) -> bool:
+    """True where a workgroup of W lanes runs as one warp, several to a
+    CTA; False where it runs as one CTA (several in turn)."""
+    return W == 32
+
+
+def _own_cell_buffers(fn: Function, params: LaunchParams) -> set:
+    """Pointer params whose every LOAD and STORE indexes the thread's own
+    cell of its tile: the index is ``global_id(0)``, or ``group_id(0) *
+    local_size(0) + local_id(0)`` where the workgroup is one row of
+    ``local_size`` lanes, either through slots stored once in the entry
+    block (as ``analysis.affine_mem_facts`` follows them). The index less
+    the tile's offset is then the lane, which ``vx_load`` never clamps."""
+    defs, slot_stores = {}, {}
+    entry = {id(i) for i in fn.entry.instrs}
+    for i in fn.instructions():
+        if i.result is not None:
+            defs[id(i.result)] = i
+        if i.op is Op.SLOT_STORE:
+            slot_stores.setdefault(id(i.operands[0]), []).append(i)
+
+    def source(v: Value) -> Optional[Instr]:
+        for _ in range(16):
+            i = defs.get(id(v)) if isinstance(v, Reg) else None
+            if i is None or i.op is not Op.SLOT_LOAD:
+                return i
+            ss = slot_stores.get(id(i.operands[0]), [])
+            if len(ss) != 1 or id(ss[0]) not in entry:
+                return None
+            v = ss[0].operands[1]
+        return None
+
+    def intr(v: Value, name: str) -> bool:
+        i = source(v)
+        return (i is not None and i.op is Op.INTR
+                and (i.operands[0], i.operands[1]) == (name, 0))
+
+    def product(v: Value, a: str, b: str) -> bool:
+        i = source(v)
+        return i is not None and i.op is Op.MUL and any(
+            intr(x, a) and intr(y, b)
+            for x, y in (i.operands, i.operands[::-1]))
+
+    def own(v: Value) -> bool:
+        if intr(v, "global_id"):
+            return True
+        i = source(v)
+        return i is not None and i.op is Op.ADD and any(
+            intr(x, "local_id") and product(y, "group_id", "local_size")
+            for x, y in (i.operands, i.operands[::-1]))
+
+    if params.local_size != params.wg_threads:
+        return set()
+    names = {p.name for p in fn.params if p.ty is Ty.PTR}
+    for i in fn.instructions():
+        if i.op in (Op.LOAD, Op.STORE) and isinstance(i.operands[0], Param) \
+                and not own(i.operands[1]):
+            names.discard(i.operands[0].name)
+    return names
 
 
 def _promote(a: str, b: str) -> str:
@@ -124,6 +215,13 @@ class _Emitter:
     # -- output --------------------------------------------------------------
     def emit(self, line: str) -> None:
         self.lines.append("  " * self.depth + line)
+
+    def barrier(self) -> None:
+        """The workgroup's barrier; a second one right after the first
+        orders nothing more."""
+        if self.lines and self.lines[-1].strip() == self.gen.sync:
+            return
+        self.emit(self.gen.sync)
 
     def tmp(self, stem: str) -> str:
         self.ntmp += 1
@@ -293,7 +391,8 @@ class _Emitter:
         if term.attrs.get("negate", False):
             cond = f"!{cond}"
         self.emit(f"const bool {c} = {cond};")
-        self.emit(f"if (!__syncthreads_or({c} && m)) break;")
+        any_ = "vx_warp_any" if self.gen.warp else "vx_vote_any"
+        self.emit(f"if (!{any_}({c}, m)) break;")
         if divergent:
             self.emit(f"m = m && {c};")
         kind, _ = self.walk(inside, 0, header)
@@ -328,9 +427,12 @@ class _Emitter:
             if tiled:
                 ix = f"vx_isub({ix}, vx_off)"
             v = self.val_as(i.operands[2], ct)
-            self.emit("__syncthreads();")
+            private = tiled and i.operands[0].name in self.gen.private
+            if not private:
+                self.barrier()
             self.emit(f"vx_store<{ct}>({ptr}, {ix}, {n}, m, {v});")
-            self.emit("__syncthreads();")
+            if not private:
+                self.barrier()
             return
         if op is Op.ATOMIC:
             raise NotImplementedError(
@@ -344,10 +446,11 @@ class _Emitter:
         if op is Op.VOTE:
             mode = i.operands[0]
             v = self.val_as(i.operands[1], "bool")
+            vote = "vx_warp" if self.gen.warp else "vx_vote"
             if mode == "any":
-                self.define(i, f"vx_vote_any({v}, m)", "bool")
+                self.define(i, f"{vote}_any({v}, m)", "bool")
             elif mode == "all":
-                self.define(i, f"vx_vote_all({v}, m)", "bool")
+                self.define(i, f"{vote}_all({v}, m)", "bool")
             elif mode == "ballot":
                 if self.gen.W > 32:
                     raise LowerError(f"ballot needs W <= 32, got {self.gen.W}")
@@ -359,21 +462,26 @@ class _Emitter:
             self.gen.uses_shfl = True
             e, ct = self.val(i.operands[0])
             src = self.val_as(i.operands[1], "int")
-            if ct == "float":
-                self.define(i, f"vx_shfl_f<VX_W>({e}, {src}, vx_stage)", ct)
+            if self.gen.warp:
+                f_, i_, stage = "vx_warp_shfl_f", "vx_warp_shfl_i", ""
             else:
-                r = f"vx_shfl_i<VX_W>({_cast(e, ct, 'int')}, {src}, vx_stage)"
+                f_, i_ = "vx_shfl_f<VX_W>", "vx_shfl_i<VX_W>"
+                stage = ", vx_stage"
+            if ct == "float":
+                self.define(i, f"{f_}({e}, {src}{stage})", ct)
+            else:
+                r = f"{i_}({_cast(e, ct, 'int')}, {src}{stage})"
                 self.define(i, r if ct == "int" else f"({r} != 0)", ct)
             return
         if op is Op.BARRIER:
-            self.emit("__syncthreads();")
+            self.barrier()
             return
         if op is Op.PRINT:
             return
         if op is Op.CALL:
             callee: Function = i.operands[0]
             name, params, ret_ct = self.gen.device_fn(callee)
-            args = ["m"] + [self.val_as(a, ct)
+            args = ["m", "vx_g", "vx_ng"] + [self.val_as(a, ct)
                             for a, ct in zip(i.operands[1:], params)]
             call = f"{name}({', '.join(args)})"
             if i.result is None:
@@ -462,10 +570,15 @@ class _Generator:
     ``extern "C"`` launcher."""
 
     def __init__(self, fn: Function, params: LaunchParams,
-                 buf_ctypes: Dict[str, str]) -> None:
+                 buf_ctypes: Dict[str, str], aliased: bool) -> None:
         self.kernel = fn
         self.W = params.wg_threads
         self.params = params
+        self.warp = warp_mode(self.W)
+        self.K = WARPS_PER_CTA if self.warp else 1
+        self.sync = "__syncwarp();" if self.warp else "__syncthreads();"
+        #: buffers whose stores need no barrier pair
+        self.private = set() if aliased else _own_cell_buffers(fn, params)
         self.uses_shfl = False
         self.device_fns: Dict[str, Tuple[str, List[str], str]] = {}
         self.device_src: List[str] = []
@@ -480,7 +593,7 @@ class _Generator:
         """Emit ``callee`` as a ``__device__`` function taking the mask."""
         if callee.name in self.device_fns:
             return self.device_fns[callee.name]
-        argexpr, sig, cts = {}, ["bool m"], []
+        argexpr, sig, cts = {}, ["bool m", "int vx_g", "int vx_ng"], []
         for k, p in enumerate(callee.params):
             if p.ty is Ty.PTR:
                 # the reference lowers callees without the tile offsets
@@ -517,34 +630,60 @@ class _Generator:
 
         sig = [f"{ct}* b{k}" for k, (_, ct) in enumerate(self.tiles.values())]
         sig += [f"{_CTYPE[s.ty]} s{k}" for k, s in enumerate(self.scalars)]
+        sig.append("int vx_ng")
         kname = f"volt_{fn.name}"
-        out = [f"// VIR kernel @{fn.name}: one CTA per workgroup of {W} "
-               "lanes, one thread per lane.",
+        mode = (f"warp mode: {self.K} workgroups of {W} lanes a CTA, one "
+                "warp each" if self.warp else
+                f"CTA mode: workgroups of {W} lanes, up to {TURNS_PER_CTA} "
+                "a CTA in turn")
+        out = [f"// VIR kernel @{fn.name}, {mode}; one thread per lane.",
                '#include "simt_runtime.cuh"', "",
                f"constexpr int VX_W = {W};",
+               f"constexpr int VX_K = {self.K};",
+               "constexpr int VX_BLOCK = VX_W * VX_K;",
                f"constexpr int VX_LS = {p.local_size};",
                f"constexpr int VX_WS = {p.warp_size};",
-               f"constexpr int VX_NW = {p.warps_per_wg};", ""]
-        if self.uses_shfl:
+               f"constexpr int VX_NW = {p.warps_per_wg};"]
+        if not self.warp:   # CTAs an SM holds by threads, FILL_WAVES times
+            out += [f"constexpr int VX_TURNS = {TURNS_PER_CTA};",
+                    f"constexpr int VX_FILL = "
+                    f"{min(32, 2048 // W) * FILL_WAVES};"]
+        out += ["", 'extern "C" { int vx_ctas = 0; }  // of the last launch',
+                ""]
+        if self.uses_shfl and not self.warp:
             out += ["__shared__ int vx_stage[VX_W];", ""]
         out += self.device_src
         for k, b in enumerate(self.bufs):
-            out.append(f"// b{k}: buffer {b.name}")
+            out.append(f"// b{k}: buffer {b.name}"
+                       + (", own cells only" if b.name in self.private
+                          else ""))
         for k, s in enumerate(self.scalars):
             out.append(f"// s{k}: scalar {s.name}")
-        out += [f'extern "C" __global__ void __launch_bounds__(VX_W) '
-                f"{kname}({', '.join(sig)}) {{",
-                "  const int vx_off = vx_imul((int)blockIdx.x, VX_W);"]
+        out.append(f'extern "C" __global__ void __launch_bounds__(VX_BLOCK) '
+                   f"{kname}({', '.join(sig)}) {{")
+        if self.warp:
+            out += ["  const int vx_g = (int)blockIdx.x * VX_K "
+                    "+ (int)threadIdx.x / VX_W;",
+                    "  if (vx_g >= vx_ng) return;  // a spare warp"]
+        else:
+            out.append("  for (int vx_g = blockIdx.x; vx_g < vx_ng; "
+                       "vx_g += gridDim.x) {")
+            if self.shared:     # the last turn's reads are done
+                out.append(f"  {self.sync}")
+        out.append("  const int vx_off = vx_imul(vx_g, VX_W);")
         for k, (t, ct) in enumerate(self.tiles.values()):
-            out.append(f"  {ct}* {t} = b{k} + (size_t)blockIdx.x * VX_W;")
+            out.append(f"  {ct}* {t} = b{k} + (size_t)vx_g * VX_W;")
         for sh, ct, size in self.shared.values():
-            out += [f"  __shared__ {ct} {sh}[{size}];",
-                    f"  for (int k = threadIdx.x; k < {size}; k += VX_W) "
+            out += [f"  __shared__ {ct} {sh}_all[VX_K][{size}];",
+                    f"  {ct}* {sh} = {sh}_all[threadIdx.x / VX_W];",
+                    f"  for (int k = {_LID}; k < {size}; k += VX_W) "
                     f"{sh}[k] = {_ZERO[ct]};"]
         if self.shared:
-            out.append("  __syncthreads();")
+            out.append(f"  {self.sync}")
         out.append("  bool m = true;")
         out += em.body()
+        if not self.warp:
+            out.append("  }")
         out += ["}", "",
                 'extern "C" int launch(void** bufs, const void* scalars, '
                 "int grid, void* stream) {",
@@ -559,18 +698,35 @@ class _Generator:
             else:
                 out.append(f"  {ct} s{k}; memcpy(&s{k}, sc + {4 * k}, 4);")
                 args.append(f"s{k}")
-        out += ["  (void)sc;",
-                f"  {kname}<<<grid, VX_W, 0, (cudaStream_t)stream>>>"
+        args.append("grid")
+        out.append("  (void)sc;")
+        if self.warp:
+            out.append("  vx_ctas = (grid + VX_K - 1) / VX_K;")
+        else:
+            out += ["  int vx_dev = 0, vx_sms = 0;",
+                    "  if (const int e = (int)cudaGetDevice(&vx_dev)) "
+                    "return e;",
+                    "  if (const int e = (int)cudaDeviceGetAttribute(",
+                    "          &vx_sms, cudaDevAttrMultiProcessorCount, "
+                    "vx_dev))",
+                    "    return e;",
+                    "  const int vx_turns = (grid + VX_TURNS - 1) / VX_TURNS "
+                    ">= VX_FILL * vx_sms",
+                    "      ? VX_TURNS : 1;",
+                    "  vx_ctas = (grid + vx_turns - 1) / vx_turns;"]
+        out += [f"  {kname}<<<vx_ctas, VX_BLOCK, 0, (cudaStream_t)stream>>>"
                 f"({', '.join(args)});",
                 "  return (int)cudaGetLastError();", "}", ""]
         return "\n".join(out)
 
 
 def emit_kernel(fn: Function, params: LaunchParams,
-                buf_ctypes: Dict[str, str]) -> str:
+                buf_ctypes: Dict[str, str], aliased: bool = False) -> str:
     """CUDA C++ source for the tiled kernel ``fn``.
 
     ``buf_ctypes`` maps each pointer param to ``"float"`` or ``"int"``.
+    ``aliased``: some of the buffers share storage, so every store keeps
+    its barrier pair.
     The source exports ``extern "C" int launch(void** bufs, const void*
     scalars, int grid, void* stream)``: ``bufs`` holds the device pointers
     of the pointer params in order, ``scalars`` the scalar params packed
@@ -579,4 +735,4 @@ def emit_kernel(fn: Function, params: LaunchParams,
     W = params.wg_threads
     if W > 1024:
         raise LowerError(f"a workgroup of {W} lanes exceeds 1024 threads")
-    return _Generator(fn, params, buf_ctypes).source()
+    return _Generator(fn, params, buf_ctypes, aliased).source()

@@ -1,7 +1,9 @@
 // Runtime helpers for the VIR kernels that codegen.py emits.
 //
-// One CUDA thread runs one SIMT lane and one CTA runs one workgroup. The
-// helpers reproduce the reference lowering's arithmetic (jnp on int32 and
+// One CUDA thread runs one SIMT lane. A CTA runs K workgroups of W lanes
+// at once: K = 1 in CTA mode (any W up to 1024; several workgroups in
+// turn), K > 1 in warp mode (W = 32, one warp a workgroup). The helpers
+// reproduce the reference lowering's arithmetic (jnp on int32 and
 // float32), which differs from plain C in the places noted below.
 #pragma once
 
@@ -70,26 +72,14 @@ __device__ __forceinline__ float vx_fmax(float a, float b) {
 
 // ---------------------------------------------------------------------------
 // SIMT intrinsics: the 1-D table of the tiled kernel (reference
-// simt_exec.py:77-96). One CTA is one workgroup of LS lanes; the y
-// dimension is 1 (local_id 1 = 0), and core_id is group_id % 4.
+// simt_exec.py:77-96), relative to the thread's workgroup: its lane is
+// vx_lid in [0, W), and the emitted code passes the workgroup's index
+// vx_g and the launch's grid vx_ng to every function (warp mode's last
+// CTA may hold spare warps; CTA mode runs several workgroups a CTA in
+// turn). The y dimension is 1 (local_id 1 = 0), core_id is group_id % 4.
 // ---------------------------------------------------------------------------
-template <int LS>
-__device__ __forceinline__ int vx_local_id() { return (int)threadIdx.x % LS; }
-template <int WS>
-__device__ __forceinline__ int vx_lane_id() { return (int)threadIdx.x % WS; }
-template <int WS>
-__device__ __forceinline__ int vx_warp_id() { return (int)threadIdx.x / WS; }
-__device__ __forceinline__ int vx_group_id() { return (int)blockIdx.x; }
-__device__ __forceinline__ int vx_num_groups() { return (int)gridDim.x; }
-__device__ __forceinline__ int vx_core_id() { return (int)blockIdx.x % 4; }
-template <int LS>
-__device__ __forceinline__ int vx_global_id() {
-  return vx_iadd(vx_imul((int)blockIdx.x, LS), vx_local_id<LS>());
-}
-template <int LS>
-__device__ __forceinline__ int vx_global_size() {
-  return vx_imul((int)gridDim.x, LS);
-}
+template <int W>
+__device__ __forceinline__ int vx_lid() { return (int)threadIdx.x % W; }
 
 // ---------------------------------------------------------------------------
 // unary ops
@@ -119,8 +109,10 @@ __device__ __forceinline__ void vx_store(T* tile, int ix, int len, bool m, T v) 
 }
 
 // ---------------------------------------------------------------------------
-// collectives, workgroup-wide (one CTA). Every thread reaches each call:
-// the emitted code is lockstep-predicated, so control flow is uniform.
+// collectives over one workgroup. Every thread of it reaches each call: the
+// emitted code is lockstep-predicated, so control flow is uniform. CTA
+// mode (one workgroup a CTA) votes with the CTA's barrier; warp mode
+// (one 32-lane workgroup a warp) with the warp's.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ bool vx_vote_any(bool v, bool m) {
   return __syncthreads_or(v && m) != 0;
@@ -128,15 +120,23 @@ __device__ __forceinline__ bool vx_vote_any(bool v, bool m) {
 __device__ __forceinline__ bool vx_vote_all(bool v, bool m) {
   return __syncthreads_and(v || !m) != 0;
 }
-// bit k set for each active lane k whose value is true (W <= 32: the CTA
-// is one warp and the lane is threadIdx.x)
+__device__ __forceinline__ bool vx_warp_any(bool v, bool m) {
+  return __any_sync(0xffffffffu, v && m) != 0;
+}
+__device__ __forceinline__ bool vx_warp_all(bool v, bool m) {
+  return __all_sync(0xffffffffu, v || !m) != 0;
+}
+// bit k set for each active lane k whose value is true (W <= 32: the
+// workgroup is one warp, or in CTA mode a CTA of less than a warp, and
+// the lane is threadIdx.x % 32)
 template <int W>
 __device__ __forceinline__ int vx_ballot(bool v, bool m) {
   static_assert(W <= 32, "ballot needs a workgroup of at most 32 lanes");
   const unsigned full = W == 32 ? 0xffffffffu : ((1u << W) - 1u);
   return (int)__ballot_sync(full, v && m);
 }
-// v of lane src mod W, staged through shared memory between two barriers
+// CTA mode: v of lane src mod W, staged through shared memory between two
+// barriers
 template <int W>
 __device__ __forceinline__ int vx_shfl_i(int v, int src, int* stage) {
   __syncthreads();
@@ -147,4 +147,11 @@ __device__ __forceinline__ int vx_shfl_i(int v, int src, int* stage) {
 template <int W>
 __device__ __forceinline__ float vx_shfl_f(float v, int src, int* stage) {
   return __int_as_float(vx_shfl_i<W>(__float_as_int(v), src, stage));
+}
+// warp mode: the same exchange inside the warp
+__device__ __forceinline__ int vx_warp_shfl_i(int v, int src) {
+  return __shfl_sync(0xffffffffu, v, vx_imod(src, 32));
+}
+__device__ __forceinline__ float vx_warp_shfl_f(float v, int src) {
+  return __shfl_sync(0xffffffffu, v, vx_imod(src, 32));
 }

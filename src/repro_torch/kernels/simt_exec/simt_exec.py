@@ -2,17 +2,22 @@
 
 Replaces ``repro/kernels/simt_exec/simt_exec.py:pallas_simt_launch`` (the
 Pallas TPU kernel, one grid program per workgroup). Here ``codegen`` emits
-CUDA C++ from the divergence-managed VIR: one CTA per workgroup, one
-thread per lane, W = ``params.wg_threads`` <= 1024. Every pointer param is
-tiled at W elements per workgroup, so each buffer must be ``grid*W`` long.
+CUDA C++ from the divergence-managed VIR, one thread per lane, W =
+``params.wg_threads`` <= 1024: a 32-lane workgroup runs as one warp,
+eight to a CTA (warp mode); any other width as one CTA at a time, and
+on a grid large enough to fill the card four workgroups a CTA in turn
+(CTA mode). Every pointer param is tiled at W elements per workgroup, so
+each buffer must be ``grid*W`` long.
 
 Bound: the map kernels of the bench suite are memory-bound. Their least
 time on an H100 is (buffers read + buffers written) x n x 4 B over
 3.35 TB/s; they do a few operations per element.
 
-The first design is simple and correct, not fast: lockstep predication
-runs both sides of every branch, and every STORE sits between two
-``__syncthreads()``. Each emitted kernel is built at first use with nvcc
+The design: lockstep predication runs both sides of every branch; a
+STORE sits between two barriers of the workgroup, except where every
+access to its buffer is the thread's own cell. Buffers that share
+storage keep every pair (the wrapper compares their address ranges and
+builds that variant). Each emitted kernel is built at first use with nvcc
 into ``build/simt/<sha256>.so`` (the hash covers the source, the runtime
 header and the flags) and loaded with ctypes.
 
@@ -35,7 +40,7 @@ from ...core.backends.torch_backend import (_TY_DTYPE, _FnLowering, _State,
                                             intrinsics, scalar_lanes)
 from ...core.interp import LaunchParams
 from ...core.vir import Function, Op, Ty
-from ..build import source_key
+from ..build import launch_on, source_key
 from ..build import build_many as _build_many
 from .codegen import emit_kernel
 
@@ -142,13 +147,22 @@ def simt_launch_plain(kernel_fn: Function, params: LaunchParams,
 # build and load
 # --------------------------------------------------------------------------
 
+def aliased(buffers: Dict[str, torch.Tensor], names: List[str]) -> bool:
+    """True where two of the named buffers share a byte of storage; each
+    is as long as the first (``_check`` makes them grid*W 4-byte
+    elements)."""
+    addrs = sorted(buffers[nm].data_ptr() for nm in names)
+    nbytes = buffers[names[0]].numel() * 4 if names else 0
+    return any(b - a < nbytes for a, b in zip(addrs, addrs[1:]))
+
+
 def kernel_source(kernel_fn: Function, params: LaunchParams,
                   buffers: Dict[str, torch.Tensor]) -> str:
     """The CUDA C++ that ``simt_launch`` builds for these buffers."""
-    _check(kernel_fn, params, buffers)
+    buf_names, _ = _check(kernel_fn, params, buffers)
     return emit_kernel(kernel_fn, params,
-                       {p.name: _CTYPE[buffers[p.name].dtype]
-                        for p in kernel_fn.params if p.ty is Ty.PTR})
+                       {nm: _CTYPE[buffers[nm].dtype] for nm in buf_names},
+                       aliased(buffers, buf_names))
 
 
 def source_hash(src: str) -> str:
@@ -170,20 +184,27 @@ def _library(src: str):
     return lib
 
 
+def last_ctas(src: str) -> int:
+    """The CTAs of the last launch of the library built from ``src`` (the
+    launcher's exported ``vx_ctas``; 0 before its first launch)."""
+    return ctypes.c_int.in_dll(_library(src), "vx_ctas").value
+
+
 def _bound_library(kernel_fn: Function, params: LaunchParams,
-                   buffers: Dict[str, torch.Tensor]):
-    """The loaded library for this kernel, geometry and buffer types.
-    Remembered per Function (keyed by its IR version), so a repeated
-    launch neither emits nor hashes the source again."""
+                   buffers: Dict[str, torch.Tensor], names: List[str],
+                   alias: bool):
+    """The loaded library for this kernel, geometry, buffer types and
+    aliasing. Remembered per Function (keyed by its IR version), so a
+    repeated launch neither emits nor hashes the source again."""
     key = (kernel_fn.ir_version, params.wg_threads, params.local_size,
-           params.warp_size, tuple(buffers[p.name].dtype
-                                   for p in kernel_fn.params
-                                   if p.ty is Ty.PTR))
+           params.warp_size, tuple(buffers[nm].dtype for nm in names),
+           alias)
     per_fn = _BOUND.setdefault(kernel_fn, {})
     lib = per_fn.get(key)
     if lib is None:
-        lib = per_fn[key] = _library(kernel_source(kernel_fn, params,
-                                                   buffers))
+        lib = per_fn[key] = _library(emit_kernel(
+            kernel_fn, params,
+            {nm: _CTYPE[buffers[nm].dtype] for nm in names}, alias))
     return lib
 
 
@@ -203,7 +224,8 @@ def simt_launch(kernel_fn: Function, params: LaunchParams,
                 buffers: Dict[str, torch.Tensor],
                 scalars: Optional[Dict[str, Any]] = None
                 ) -> Dict[str, torch.Tensor]:
-    """Run a divergence-managed VIR kernel, one CTA per workgroup.
+    """Run a divergence-managed VIR kernel, one warp (W = 32) or one CTA
+    at a time per workgroup.
 
     Buffers are updated in place on the caller's tensors (the counterpart
     of the Pallas kernel's ``input_output_aliases``) and returned. CUDA
@@ -212,17 +234,16 @@ def simt_launch(kernel_fn: Function, params: LaunchParams,
     global LAUNCHES
     scalars = scalars or {}
     buf_names, _ = _check(kernel_fn, params, buffers)
-    if not buf_names or buffers[buf_names[0]].device.type == "cpu":
+    if not buf_names or buffers[buf_names[0]].is_cpu:
         return simt_launch_plain(kernel_fn, params, buffers, scalars)
-    lib = _bound_library(kernel_fn, params, buffers)
-    ptrs = (ctypes.c_void_p * max(1, len(buf_names)))(
-        *[buffers[nm].data_ptr() for nm in buf_names])
+    lib = _bound_library(kernel_fn, params, buffers, buf_names,
+                         aliased(buffers, buf_names))
     packed = ctypes.create_string_buffer(
         _pack_scalars(kernel_fn, scalars) or b"\0")
-    stream = torch.cuda.current_stream(buffers[buf_names[0]].device)
-    with torch.cuda.device(buffers[buf_names[0]].device):
-        err = lib.launch(ptrs, ctypes.cast(packed, ctypes.c_void_p),
-                         params.grid, ctypes.c_void_p(stream.cuda_stream))
+    err = launch_on(buffers[buf_names[0]].get_device(), lib.launch,
+                    (ctypes.c_void_p * len(buf_names))(
+                        *[buffers[nm].data_ptr() for nm in buf_names]),
+                    ctypes.cast(packed, ctypes.c_void_p), params.grid)
     if err != 0:
         raise RuntimeError(f"simt_exec launch of @{kernel_fn.name} failed: "
                            f"cudaError {err}")

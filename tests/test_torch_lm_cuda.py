@@ -57,6 +57,37 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 8, 8192])
+@pytest.mark.parametrize("d", [2048, 7168, 8192, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_at_path_shapes(cuda, N, d, dtype):
+    """The paths' widths (16-byte vectors, one CTA a row) and d 100 (in
+    bf16 not a whole number of 8-element vectors: the scalar route)."""
+    g = torch.Generator(cuda).manual_seed(N + d)
+    x = torch.randn(N, d, generator=g, device=cuda).to(dtype)
+    s = torch.randn(d, generator=g, device=cuda).to(dtype)
+    before = RN.LAUNCHES
+    got = RN.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert RN.LAUNCHES == before + 1
+    _close(got, RN.rmsnorm_plain(x, s), TOL[dtype][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_unaligned_rows_match_plain(cuda, dtype):
+    """x one element off a 16-byte boundary takes the scalar route at a
+    width the vector route would take (d 2048)."""
+    g = torch.Generator(cuda).manual_seed(7)
+    x = torch.randn(64 * 2048 + 1, generator=g, device=cuda).to(dtype)
+    s = torch.randn(2048, generator=g, device=cuda).to(dtype)
+    for xv in (x[:-1].view(64, 2048), x[1:].view(64, 2048)):
+        got = RN.rmsnorm(xv, s)
+        torch.cuda.synchronize()
+        _close(got, RN.rmsnorm_plain(xv, s), TOL[dtype][0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", [
     (1, 4, 4, 128, 128, 64), (2, 8, 2, 300, 300, 64),
     (1, 4, 1, 77, 77, 32), (1, 2, 2, 50, 190, 32),

@@ -303,6 +303,25 @@ def test_rmsnorm_source_matches_plain_on_host(shape, host_libs):
     _close(out, RN.rmsnorm_plain(x, s).numpy(), 1e-5)
 
 
+@pytest.mark.parametrize("N", [1, 8, 129])
+@pytest.mark.parametrize("d", [8, 99, 100, 2048, 4096, 7168, 8196])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rmsnorm_routes_match_plain_on_host(N, d, offset, host_libs):
+    """Each route of the float32 source: 256 threads a row holding one,
+    two, four or eight vectors of 4 (d 8, 100, 2048, 4096 and 7168: 2,
+    25, 512, 1024 and 1792 vectors), and the scalar route (d 99, not a
+    whole number of vectors; d 8196, more than 8 vectors a thread; or x
+    one element past a 16-byte boundary)."""
+    g = torch.Generator().manual_seed(N * d)
+    x = torch.randn(N * d + offset, generator=g)[offset:].view(N, d)
+    s = torch.randn(d, generator=g)
+    out = torch.empty(N, d)
+    err = host_libs[RN].rmsnorm_f32(x.data_ptr(), s.data_ptr(),
+                                    out.data_ptr(), N, d, 1e-6, None)
+    assert err == 0
+    _close(out, RN.rmsnorm_plain(x, s).numpy(), 1e-5)
+
+
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", [
     (1, 2, 1, 80, 80, 32, True),      # ragged second query tile, GQA
     (2, 4, 2, 64, 64, 64, True),      # one full tile, D = 64

@@ -1,6 +1,8 @@
 """simt_exec: the tiled plain version against the reference's Pallas
-kernel, and the CUDA code generator's output. The CUDA kernel against the
-plain version, on a card, is in ``test_torch_simt_exec_cuda.py``.
+kernel, and the CUDA code generator's output: run on the host in both
+modes (warp mode at W = 32, CTA mode at W = 256 and 16), and where it
+drops a store's barrier pair. The CUDA kernel against the plain version,
+on a card, is in ``test_torch_simt_exec_cuda.py``.
 
 Tolerances: integer buffers exact; float buffers exact for the kernels
 with no multiply-add and no transcendental (EXACT), where XLA on the CPU
@@ -30,8 +32,11 @@ from repro.kernels.simt_exec.ref import volt_reference_run
 from repro.kernels.simt_exec.simt_exec import pallas_simt_launch
 from repro.volt_bench.suite import BENCHES as REF_BENCHES
 from repro_torch.convert import launch_params, to_numpy, to_tensors
+from repro_torch.core.frontends import opencl
+from repro_torch.core.interp import LaunchParams
 from repro_torch.core.passes.pipeline import PassConfig, run_pipeline
 from repro_torch.kernels.simt_exec import simt_exec as sx
+from repro_torch.kernels.simt_exec import codegen
 from repro_torch.kernels.simt_exec.codegen import emit_kernel
 from repro_torch.kernels.simt_exec.ops import volt_torch_run
 from repro_torch.volt_bench.suite import BENCHES
@@ -46,6 +51,22 @@ EXP_LOG = ("blackscholes", "srad_flag")
 #: float arithmetic is adds, mins and single multiplies only
 EXACT = ("vecadd", "psum", "psort", "pathfinder", "stencil", "vote_hw")
 HOST_CUDA = Path(__file__).parent / "cuda_host"
+
+
+@opencl.kernel
+def store_then_shift(x: "ptr_f32", y: "ptr_f32", n: "i32 uniform"):
+    # x is stored at the thread's cell and then read at its neighbour's
+    gid = get_global_id(0)
+    if gid < n:
+        x[gid] = x[gid] + 1.0
+        y[gid] = x[gid - 1]
+
+
+@opencl.kernel
+def shift(x: "ptr_f32 const", y: "ptr_f32", n: "i32 uniform"):
+    gid = get_global_id(0)
+    if gid < n:
+        y[gid] = x[gid - 1] * 2.0
 
 
 def _compiled(name):
@@ -243,3 +264,205 @@ def test_emitted_cuda_matches_plain_on_host(name, host_libs):
     assert err == 0
     _assert_match(to_numpy(got), to_numpy(want),
                   1e-5 if name in EXP_LOG else 0.0)
+
+
+def _at(name, grid, W):
+    """The bench's inputs at ``grid`` workgroups of ``W`` lanes: each
+    buffer's values repeated to the new length, ``n`` as far from the end
+    as the bench has it (where it covers more than half the buffers)."""
+    b, bufs, sc, params, mod, ck = _compiled(name)
+    L0, L = params.grid * params.wg_threads, grid * W
+    bufs = {k: np.resize(v, L) for k, v in bufs.items()}
+    sc = dict(sc)
+    if "n" in sc and sc["n"] > L0 // 2:
+        sc["n"] = L - (L0 - sc["n"])
+    return ck, bufs, sc, LaunchParams(grid=grid, local_size=W,
+                                      warp_size=32)
+
+
+#: (grid, W) of each mode: a grid of 13 is not a whole number of CTAs of 8
+#: warps, so the last CTA holds spare warps; 9 workgroups of 256 lanes, on
+#: a device that reports no SMs (so any grid fills it), take 3 CTAs of 4
+#: turns, each running 3 in turn (CTA b: b, b + 3, b + 6); 9 of 16 lanes
+#: (less than a warp), on the stand-in's 132 SMs, one CTA each
+MODES = {"warp": (13, 32), "cta": (9, 256), "cta16": (9, 16)}
+#: (SMs the stand-in reports, CTAs launched) of each mode
+MODE_GEOMETRY = {"warp": (132, 2), "cta": (0, 3), "cta16": (132, 9)}
+#: the cases of each mode: ballot takes at most 32 lanes
+MODE_CASES = [("warp", n) for n in TILEABLE + ["bscan_hw"]] + \
+    [("cta", n) for n in TILEABLE] + \
+    [("cta16", n) for n in TILEABLE + ["bscan_hw"]]
+
+
+def _host_build(out, name, src):
+    src = _LAUNCH.sub(r"vx_host_launch(\2, \3, [&] { \1(\4); });", src)
+    (out / f"{name}.cpp").write_text(src)
+    return subprocess.Popen(
+        ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
+         "-fPIC", "-pthread", f"-I{HOST_CUDA}",
+         f"-I{Path(sx.__file__).parent / 'csrc'}",
+         "-o", str(out / f"{name}.so"), str(out / f"{name}.cpp")],
+        stderr=subprocess.PIPE, text=True)
+
+
+def _host_load(path):
+    lib = ctypes.CDLL(str(path))
+    lib.launch.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_void_p]
+    lib.launch.restype = ctypes.c_int
+    return lib
+
+
+def _host_run(lib, ck, params, bufs, sc):
+    got = to_tensors(bufs, "cpu")
+    names = [p.name for p in ck.fn.params if p.ty.value == "ptr"]
+    ptrs = (ctypes.c_void_p * len(names))(*[got[n].data_ptr()
+                                            for n in names])
+    packed = ctypes.create_string_buffer(sx._pack_scalars(ck.fn, sc))
+    assert lib.launch(ptrs, ctypes.cast(packed, ctypes.c_void_p),
+                      params.grid, None) == 0
+    return got
+
+
+@pytest.fixture(scope="module")
+def cta_libs(tmp_path_factory):
+    """Every CTA-mode case of MODE_CASES emitted and built for the host,
+    one g++ each, all at once (warp mode's are ``host_libs``: the source
+    does not depend on the grid)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to run the emitted CUDA on the host")
+    out = tmp_path_factory.mktemp("host_cuda_cta")
+    procs = {}
+    for mode, name in MODE_CASES:
+        if mode != "warp":
+            ck, bufs, sc, params = _at(name, *MODES[mode])
+            procs[(mode, name)] = _host_build(
+                out, f"{mode}_{name}",
+                sx.kernel_source(ck.fn, params, to_tensors(bufs, "cpu")))
+    libs = {}
+    for (mode, name), p in procs.items():
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err
+        libs[(mode, name)] = _host_load(out / f"{mode}_{name}.so")
+    return libs
+
+
+@pytest.mark.parametrize("mode,name", MODE_CASES)
+def test_emitted_cuda_matches_plain_in_each_mode_on_host(mode, name,
+                                                         host_libs,
+                                                         cta_libs):
+    """Warp mode at 13 workgroups (two CTAs of 8 warps, 3 spare); CTA
+    mode at 9 workgroups of 256 lanes on 3 CTAs, each running 3 in turn
+    (the device reports no SMs, so the grid counts as large), and of 16
+    lanes one a CTA (132 SMs: a small grid). The launch's geometry is
+    read back from the stand-in and from the launcher's ``vx_ctas``."""
+    ck, bufs, sc, params = _at(name, *MODES[mode])
+    lib = host_libs[name] if mode == "warp" else cta_libs[(mode, name)]
+    sms, ctas = MODE_GEOMETRY[mode]
+    lib.vx_host_set_sm_count(sms)
+    want = sx.simt_launch_plain(ck.fn, params, to_tensors(bufs, "cpu"), sc)
+    got = _host_run(lib, ck, params, bufs, sc)
+    _assert_match(to_numpy(got), to_numpy(want),
+                  1e-5 if name in EXP_LOG else 0.0)
+    threads = 32 * codegen.WARPS_PER_CTA if mode == "warp" else MODES[mode][1]
+    assert (lib.vx_host_last_launch(0), lib.vx_host_last_launch(1)) == \
+        (ctas, threads)
+    assert ctypes.c_int.in_dll(lib, "vx_ctas").value == ctas
+
+
+def _fenced(src, buffer):
+    """For each store to ``buffer`` (a pointer param's name, or a shared
+    array's C name): whether a barrier comes right before and right
+    after it."""
+    tiles = {m.group(2): f"t{m.group(1)}"
+             for m in re.finditer(r"// b(\d+): buffer (\w+)", src)}
+    target = tiles.get(buffer, buffer)
+    lines = [ln.strip() for ln in src.splitlines()]
+    sync = ("__syncthreads();", "__syncwarp();")
+    out = [lines[k - 1] in sync and lines[k + 1] in sync
+           for k, ln in enumerate(lines)
+           if ln.startswith("vx_store<") and ln.split("(")[1].startswith(
+               target + ",")]
+    assert out, f"no store to {buffer}"
+    return out
+
+
+def _source(name, aliases=()):
+    b, bufs, sc, params, mod, ck = _compiled(name)
+    t = to_tensors(bufs, "cpu")
+    for a, b_ in aliases:
+        t[a] = t[b_]
+    return sx.kernel_source(ck.fn, params, t)
+
+
+@pytest.mark.parametrize("name,buffer", [("vecadd", "z"), ("saxpy", "y"),
+                                         ("vote_hw", "y"), ("psum", "y")])
+def test_own_cell_stores_drop_their_barriers(name, buffer):
+    """A store whose buffer is only ever indexed at the thread's own cell
+    (global_id, or vote_hw's group_id * local_size + local_id) needs no
+    barrier: vecadd and saxpy then have none at all."""
+    src = _source(name)
+    assert not any(_fenced(src, buffer))
+    if name in ("vecadd", "saxpy"):
+        assert "__syncthreads" not in src and "__syncwarp" not in src
+
+
+def test_shared_array_stores_keep_their_barriers():
+    """psum's tmp is read at lid - off: every store to it is fenced."""
+    assert all(_fenced(_source("psum"), "sh0"))
+
+
+def _tiny(handle, W=32, grid=3):
+    params = LaunchParams(grid=grid, local_size=W, warp_size=32)
+    ck = run_pipeline(handle.build(None), handle.name, PassConfig(**CFG))
+    rng = np.random.default_rng(3)
+    bufs = {p.name: rng.standard_normal(grid * W).astype(np.float32)
+            for p in ck.fn.params if p.ty.value == "ptr"}
+    return ck, params, bufs, {"n": grid * W - 5}
+
+
+def test_a_buffer_read_at_a_neighbour_keeps_its_barriers(tmp_path):
+    """store_then_shift stores x at gid and reads it at gid - 1: x's
+    store keeps its pair, y's drops it; on the host the emitted kernel
+    equals the plain version (every y sees the stored x)."""
+    ck, params, bufs, sc = _tiny(store_then_shift)
+    src = sx.kernel_source(ck.fn, params, to_tensors(bufs, "cpu"))
+    assert all(_fenced(src, "x")) and not any(_fenced(src, "y"))
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to run the emitted CUDA on the host")
+    p = _host_build(tmp_path, "store_then_shift", src)
+    assert p.wait(timeout=300) == 0, p.stderr.read()
+    got = _host_run(_host_load(tmp_path / "store_then_shift.so"), ck, params,
+                    bufs, sc)
+    want = sx.simt_launch_plain(ck.fn, params, to_tensors(bufs, "cpu"), sc)
+    _assert_match(to_numpy(got), to_numpy(want), 0.0)
+
+
+def test_aliased_buffers_keep_every_barrier(tmp_path):
+    """Where two buffers share storage (the wrapper compares their
+    address ranges), every store keeps its pair: vecadd writing z into x,
+    and shift writing y over the x it reads at gid - 1. On the host the
+    kept barriers give the plain version's answer."""
+    t = {"a": torch.zeros(64), "b": torch.zeros(64)}
+    assert not sx.aliased(t, ["a", "b"])
+    assert sx.aliased({"a": t["a"], "b": t["a"][10:]}, ["a", "b"])
+    assert all(_fenced(_source("vecadd", [("z", "x")]), "z"))
+    ck, params, bufs, sc = _tiny(shift)
+    assert not any(_fenced(sx.kernel_source(ck.fn, params,
+                                            to_tensors(bufs, "cpu")), "y"))
+    same = torch.from_numpy(bufs["x"])
+    src = sx.kernel_source(ck.fn, params, {"x": same, "y": same})
+    assert all(_fenced(src, "y"))
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to run the emitted CUDA on the host")
+    p = _host_build(tmp_path, "shift", src)
+    assert p.wait(timeout=300) == 0, p.stderr.read()
+    lib = _host_load(tmp_path / "shift.so")
+    got = same.clone()
+    want = sx.simt_launch_plain(ck.fn, params, {"x": same.clone(),
+                                                "y": same.clone()}, sc)["y"]
+    ptrs = (ctypes.c_void_p * 2)(got.data_ptr(), got.data_ptr())
+    packed = ctypes.create_string_buffer(sx._pack_scalars(ck.fn, sc))
+    assert lib.launch(ptrs, ctypes.cast(packed, ctypes.c_void_p),
+                      params.grid, None) == 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
