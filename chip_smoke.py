@@ -1,11 +1,30 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Five paths of the port, each at full width:
+Six paths of the port, each at full width:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
     plain torch version on the card and the map kernels against a numpy
     reference, and the whole-buffer ``compile_torch`` backend on the card;
+  * the VOLT Runtime's top rung, the torch program of
+    ``core/backends/torchgen.py`` on the card: the 14 benches it licenses
+    at their native shapes through ``interp.launch(torch=True)``, then
+    vecadd and psum on the compiler path's inputs (n = 2^24 - 37) and
+    transpose, reduce0, sfilter and shuffle_hw at 2^22 lanes with a
+    ragged tail through ``Runtime()`` (the card, router on). Each is
+    certified against the host's grid executor, then run as the
+    certified primary: every such launch must run on the rung on the
+    card (a refusal, a demotion, a "fail" verdict or a launch routed to
+    the host fails the run), its buffers and ExecStats bit for bit the
+    grid executor's, its buffers within the bench's tolerance of a numpy
+    reference, the cycle model's cycles equal from both stats, and
+    vecadd's and psum's buffers equal to ``simt_launch``'s. Printed per
+    bench: certification seconds, the rung's ms (CUDA events, median of
+    10 launches), the grid executor's ms on the host, the loop
+    iterations that synced with the host, and where the time goes for
+    the large launches (a profiler trace); a ``{"runtime": [...]}`` JSON
+    line. Past 90 s of the phase the remaining large benches are cut to
+    2^20 lanes (printed);
   * the dense LM serving path on granite-3-2b at full width and depth
     (random weights from ``--seed``): ``LM.prefill`` on 4 prompts of 2048
     tokens, whose 81 RMSNorms and 40 attentions go through the rmsnorm
@@ -157,6 +176,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -176,9 +196,14 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.convert import to_tensors  # noqa: E402
+from repro_torch.core import interp  # noqa: E402
+from repro_torch.core import runtime as vrt  # noqa: E402
+from repro_torch.core.backends import torchgen  # noqa: E402
 from repro_torch.core.backends.torch_backend import compile_torch  # noqa: E402
 from repro_torch.core.interp import LaunchParams  # noqa: E402
-from repro_torch.core.passes.pipeline import PassConfig, run_pipeline  # noqa: E402
+from repro_torch.core.passes.pipeline import (ABLATION_LADDER,  # noqa: E402
+                                              PassConfig, run_pipeline)
+from repro_torch.core.simx import CycleModel  # noqa: E402
 from repro_torch.core.vir import BINOPS, UNOPS, Op, Ty  # noqa: E402
 from repro_torch.kernels.simt_exec import codegen  # noqa: E402
 from repro_torch.kernels.simt_exec import simt_exec as sx  # noqa: E402
@@ -392,6 +417,249 @@ CASES = [("vecadd", 256), ("saxpy", 256), ("blackscholes", 256),
 #: x moves the same bytes (saxpy has no such pair: x is y reads one
 #: buffer, not two)
 ALIASED = {"vecadd": ("z", "x")}
+
+
+# --------------------------------------------------------------------------
+# the VOLT Runtime on the card: the torch rung (core/backends/torchgen.py)
+# --------------------------------------------------------------------------
+
+#: the benches the torch rung licenses at their native shapes (those the
+#: reference's JAX rung licenses)
+RT_LICENSED = ("kmeans", "nearn", "pathfinder", "psum", "reduce0",
+               "sfilter", "sgemm", "shuffle_hw", "shuffle_sw", "spmv",
+               "spmv_csr", "spmv_tail", "transpose", "vecadd")
+#: run through Runtime() at a realistic size; vecadd and psum on the
+#: compiler path's inputs (n = 2^24 - 37), the rest at RT_LANES
+RT_BIG = ("vecadd", "psum", "transpose", "reduce0", "sfilter", "shuffle_hw")
+RT_LANES, RT_CUT_LANES = 2**22, 2**20
+#: past this many seconds of the phase, the remaining large benches run at
+#: RT_CUT_LANES (printed)
+RT_BUDGET_S = 90.0
+RT_FUEL = 1 << 40
+RT_REPS = 10
+
+
+def _rt_big_case(name, lanes, rng):
+    """(buffers, scalars, params, numpy ref of the written buffers, atol)
+    for one large Runtime launch: at least ``lanes`` lanes, a ragged tail
+    where the bench has one."""
+    f32 = np.float32
+    if name == "transpose":
+        n = math.isqrt(lanes) + 1           # n * n >= lanes, not a multiple
+        grid = -(-(n * n) // 32)            # of 32: a ragged tail
+        x = rng.standard_normal(n * n).astype(f32)
+        b = {"x": x, "y": np.zeros(n * n, f32)}
+        return (b, {"n": n}, grid, {"y": x.reshape(n, n).T.reshape(-1)},
+                0.0)
+    n = lanes + 27
+    grid = -(-n // 32)
+    L = grid * 32
+    x = rng.standard_normal(L).astype(f32)
+    xm = np.where(np.arange(L) < n, x, f32(0))
+    if name == "reduce0":
+        return ({"x": x, "out": np.zeros(grid, f32)}, {"n": n}, grid,
+                {"out": xm.reshape(-1, 32).sum(1, dtype=f32)}, 1e-3)
+    if name == "shuffle_hw":
+        return ({"x": x, "y": np.zeros(grid, f32)}, {"n": n}, grid,
+                {"y": xm.reshape(-1, 32).sum(1, dtype=f32)}, 1e-3)
+    if name == "sfilter":
+        w = np.repeat(rng.uniform(0, 1, grid).astype(f32), 32)
+        i = np.arange(L)
+        left = np.where(i > 0, np.roll(x, 1), f32(0))
+        right = np.where(i < n - 1, np.roll(x, -1), f32(0))
+        pick = np.where(w > 0.5, left, right)
+        y = np.where(i < n, f32(0.5) * x + f32(0.5) * pick, f32(0))
+        return ({"x": x, "y": np.zeros(L, f32), "w": w}, {"n": n}, grid,
+                {"y": y.astype(f32)}, 0.0)
+    raise KeyError(name)
+
+
+def _events_ms(fn, reps: int = RT_REPS) -> float:
+    """Median CUDA-event time of one call (each call ends in a host sync)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _rt_hold(name, st, bufs, st_grid, grid_bufs, ref, atol):
+    """The card's ExecStats and buffers bit-identical to the grid
+    executor's, the buffers to the numpy reference within ``atol``, and
+    the cycle model's cycles equal from both stats. Returns the max abs
+    error against the reference."""
+    stats = lambda t: (t.instrs, dict(t.by_op), t.mem_requests,  # noqa
+                       t.mem_insts, t.shared_requests, t.atomic_serial,
+                       t.max_ipdom_depth)
+    if stats(st) != stats(st_grid):
+        raise AssertionError(f"runtime {name}: ExecStats {stats(st)} on the "
+                             f"card, {stats(st_grid)} from the grid")
+    for k, v in grid_bufs.items():
+        if bufs[k].tobytes() != v.tobytes():
+            raise AssertionError(f"runtime {name}: buffer {k} differs from "
+                                 f"the grid executor's")
+    for local in (True, False):
+        cm = CycleModel(shared_in_local=local)
+        if cm.cycles(st) != cm.cycles(st_grid):
+            raise AssertionError(f"runtime {name}: cycles differ")
+    err = 0.0
+    for k, want in ref.items():
+        got = bufs[k][:want.size]
+        if not np.isfinite(got).all():
+            raise AssertionError(f"runtime {name}.{k}: non-finite values")
+        d = float(np.abs(got.astype(np.float64) - want).max())
+        if not np.allclose(got, want, rtol=0.0, atol=atol):
+            raise AssertionError(f"runtime {name}.{k}: max abs err {d} past "
+                                 f"atol {atol}")
+        err = max(err, d)
+    return err
+
+
+def runtime_phase(dev, seed: int, cases: dict, outs: dict) -> list:
+    """The VOLT Runtime with its torch rung on the card. Every launch of
+    the phase must run on the rung on the card: a refusal, a demotion, a
+    "fail" verdict or a launch the router sends to the host fails it."""
+    TT = torchgen.TORCH_TELEMETRY
+    records = []
+    t_phase = time.perf_counter()
+
+    # (a) every licensed bench at native shape: certify, then the
+    # certified primary, through interp.launch(torch=True) (no router)
+    for name in RT_LICENSED:
+        b = suite.BENCHES[name]
+        fn = run_pipeline(b.handle.build(None), b.handle.name,
+                          ABLATION_LADDER[-1]).fn
+        bufs0, sc, params = b.make(np.random.default_rng(seed))
+        grid_bufs = {k: v.copy() for k, v in bufs0.items()}
+        t0 = time.perf_counter()
+        st_grid = interp.launch(fn, grid_bufs, params, scalar_args=sc)
+        grid_ms = (time.perf_counter() - t0) * 1e3
+        ok, why = torchgen.licence_check(fn, params, bufs0, sc, {}, dev)
+        if not ok:
+            raise AssertionError(f"runtime {name}: refused: {why}")
+        c0 = dict(TT)
+        t0 = time.perf_counter()
+        interp.launch(fn, {k: v.copy() for k, v in bufs0.items()}, params,
+                      scalar_args=sc, torch=True, device=dev)
+        cert_s = time.perf_counter() - t0
+        sig = torchgen.shape_sig(fn, params, bufs0, sc, dev)
+        verdict = torchgen.recorded(fn, sig)[0]
+        bufs = {k: v.copy() for k, v in bufs0.items()}
+        syncs0 = TT["host_syncs"]
+        st = interp.launch(fn, bufs, params, scalar_args=sc, torch=True,
+                           device=dev)
+        syncs = TT["host_syncs"] - syncs0
+        if (verdict != "pass" or interp.LAST_EXECUTOR[0] != "torch"
+                or TT["cert_runs"] - c0["cert_runs"] != 1
+                or TT["engaged"] - c0["engaged"] != 1
+                or TT["demotions"] != c0["demotions"]):
+            raise AssertionError(f"runtime {name}: verdict {verdict}, "
+                                 f"executor {interp.LAST_EXECUTOR[0]}, "
+                                 f"telemetry {TT} from {c0}")
+        ref = {k: v for k, v in b.ref(bufs0, sc).items()
+               if k in (b.check_bufs or bufs0)}
+        err = _rt_hold(name, st, bufs, st_grid, grid_bufs, ref, b.atol)
+        torch_ms = _events_ms(lambda: interp.launch(
+            fn, bufs, params, scalar_args=sc, torch=True, device=dev))
+        if name in ("nearn", "vecadd"):
+            _breakdown(lambda: interp.launch(fn, bufs, params,
+                                             scalar_args=sc, torch=True,
+                                             device=dev),
+                       torch_ms, f"runtime {name} native")
+        print(f"runtime {name:11s} native grid {params.grid} x "
+              f"{params.local_size}: verdict {verdict}, certification "
+              f"{cert_s:.3f} s, torch rung {torch_ms:.3f} ms (events, "
+              f"median of {RT_REPS}), grid executor {grid_ms:.3f} ms (host), "
+              f"{syncs} loop syncs a launch, max abs err {err:.3g} "
+              f"(atol {b.atol}), exact to the grid executor")
+        records.append({"bench": name, "size": "native",
+                        "lanes": params.grid * params.wg_threads,
+                        "verdict": verdict, "cert_s": cert_s,
+                        "torch_ms": torch_ms, "grid_ms": grid_ms,
+                        "host_syncs": syncs, "max_abs_err": err})
+
+    # (b) realistic sizes through Runtime() on the card, router on
+    rt = vrt.Runtime()
+    if not (rt.torch and rt.device.type == "cuda"):
+        raise AssertionError("Runtime() is not on the card's torch rung")
+    lanes = RT_LANES
+    for name in RT_BIG:
+        rng = np.random.default_rng(seed + 1)
+        if name in ("vecadd", "psum"):
+            _, bufs0, sc, p0, ck = cases[name]
+            fn, grid, block = ck.fn, p0.grid, p0.local_size
+            ref, atol = _numpy_ref(name, bufs0, sc)
+        else:
+            if time.perf_counter() - t_phase > RT_BUDGET_S \
+                    and lanes != RT_CUT_LANES:
+                lanes = RT_CUT_LANES
+                print(f"runtime phase: past {RT_BUDGET_S:.0f} s, the "
+                      f"remaining benches cut to {lanes} lanes")
+            bufs0, sc, grid, ref, atol = _rt_big_case(name, lanes, rng)
+            b = suite.BENCHES[name]
+            fn = run_pipeline(b.handle.build(None), b.handle.name,
+                              ABLATION_LADDER[-1]).fn
+            block = 32
+        params = LaunchParams(grid=grid, local_size=block, warp_size=32,
+                              fuel=RT_FUEL)
+        bufs = {k: v.copy() for k, v in bufs0.items()}
+        c0 = dict(TT)
+        t0 = time.perf_counter()
+        st_grid = rt.launch(fn, grid=grid, block=block, scalar_args=sc,
+                            buffers=bufs, fuel=RT_FUEL)
+        cert_s = time.perf_counter() - t0
+        cert_exec = rt.last_report.executor
+        sig = torchgen.shape_sig(fn, params, bufs0, sc, dev)
+        verdict, _, grid_ms = torchgen.recorded(fn, sig)
+        grid_bufs = {k: v.copy() for k, v in bufs.items()}
+        syncs0 = TT["host_syncs"]
+        st = rt.launch(fn, grid=grid, block=block, scalar_args=sc,
+                       buffers=bufs, fuel=RT_FUEL)
+        syncs = TT["host_syncs"] - syncs0
+        report = rt.last_report
+        if (verdict != "pass" or report.executor != "torch"
+                or report.demotions
+                or TT["cert_runs"] - c0["cert_runs"] != 1
+                or TT["engaged"] - c0["engaged"] != 1
+                or TT["routed_small"] != c0["routed_small"]):
+            raise AssertionError(f"runtime {name}: verdict {verdict}, "
+                                 f"{report.summary()}, telemetry {TT} from "
+                                 f"{c0}")
+        err = _rt_hold(name, st, bufs, st_grid, grid_bufs, ref, atol)
+        simt = ""
+        if name in outs:
+            # the same launch through the ported simt_exec kernel
+            for k, v in outs[name].items():
+                if v.cpu().numpy().tobytes() != bufs[k].tobytes():
+                    raise AssertionError(f"runtime {name}: buffer {k} "
+                                         f"differs from simt_launch's")
+            simt = ", equal to simt_launch's"
+        torch_ms = _events_ms(lambda: interp.launch(
+            fn, bufs, params, scalar_args=sc, torch=True, device=dev))
+        wall = report.wall_ms
+        _breakdown(lambda: interp.launch(fn, bufs, params, scalar_args=sc,
+                                         torch=True, device=dev),
+                   torch_ms, f"runtime {name}")
+        L = grid * block
+        print(f"runtime {name:11s} Runtime() {L} lanes (n {sc['n']}): "
+              f"certification {cert_s:.3f} s (executor {cert_exec}; grid "
+              f"executor {grid_ms:.1f} ms in it), torch rung {torch_ms:.3f} "
+              f"ms (events, median of {RT_REPS}), Runtime.launch "
+              f"{wall:.3f} ms, {syncs} loop syncs a launch, routed_small "
+              f"{TT['routed_small'] - c0['routed_small']}, max abs err "
+              f"{err:.3g} (atol {atol}), exact to the grid executor{simt}")
+        records.append({"bench": name, "size": "runtime", "lanes": L,
+                        "n": sc["n"], "verdict": verdict, "cert_s": cert_s,
+                        "torch_ms": torch_ms, "grid_ms": grid_ms,
+                        "runtime_launch_ms": wall, "host_syncs": syncs,
+                        "routed_small": 0, "max_abs_err": err})
+    return records
 
 
 # --------------------------------------------------------------------------
@@ -1473,7 +1741,25 @@ def main() -> int:
                         "ctas": ctas[name], "syncthreads": syncs,
                         "syncwarp": warps, "aliased_ms": aliased_ms})
 
-    # 6. the LM serving paths, dense, MoE and hybrid; each kernel's record
+    # 6. the VOLT Runtime on the card, its torch rung counted: telemetry
+    # set to 0 just before, read just after
+    t0 = time.perf_counter()
+    cache_dir = Path(__file__).resolve().parent / "build" / "volt_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    os.environ["VOLT_CACHE_DIR"] = str(cache_dir)
+    torchgen.reset_torch_telemetry()
+    rt_records = runtime_phase(dev, args.seed, cases, outs)
+    tel = dict(torchgen.TORCH_TELEMETRY)
+    want = len(RT_LICENSED) + len(RT_BIG)
+    if (tel["engaged"] < want or tel["certified"] != want
+            or tel["refusals"] or tel["demotions"] or tel["routed_small"]):
+        raise AssertionError(f"runtime phase telemetry {tel}")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    print(f"runtime phase: torch rung telemetry {tel}")
+    print(f"runtime phase {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"runtime": rt_records}))
+
+    # 7. the LM serving paths, dense, MoE and hybrid; each kernel's record
     # counts its launches on every path
     t0 = time.perf_counter()
     lm_records, paths = lm_phase(dev, args.seed, args.reps)
