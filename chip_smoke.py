@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Six paths of the port, each at full width:
+Seven paths of the port, each at full width:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
@@ -56,7 +56,24 @@ Six paths of the port, each at full width:
     expert FF at (384, 1, 7168) reads only the experts that hold a
     token. The plain expert FF is held against the kernel on 32 of the
     384 experts at full d and f (all of them in float32 would be 67.6
-    GB) and timed over all 384, 32 a call.
+    GB) and timed over all 384, 32 a call;
+  * training granite-3-2b at full width and depth (2.53 B params in bf16,
+    AdamW with float32 moments, remat, random weights from ``--seed``,
+    kimi's freed first): ``train_loop`` takes 4 steps of 4 x 2048 tokens,
+    whose RMSNorms and attentions go through the rmsnorm and
+    flash_attention kernels forward (twice under remat: 161 and 80 a
+    step) and through their backward kernels (81 and 40 a step). Printed:
+    each step's loss, grad norm and ms, tokens/s after the first step,
+    peak memory, the idle share and top kernels of one step, every leaf's
+    gradient norm (finite and nonzero). The backward kernels are held
+    against their plain versions at the path's shapes (and attention at
+    head dims 112 and 128), the forward's lse-writing launch against the
+    launch without lse (its output bit for bit), and two backward calls
+    against each other (bit for bit); a depth-2 model at full width takes
+    one step on the card and on the CPU from the same params and batch (1
+    x 512); and at depth 2, 2 steps, a checkpoint and 2 resumed steps
+    repeat 4 straight steps' losses bit for bit. A ``{"train": ...}`` JSON
+    line holds the steps' numbers.
 
 On each LM path every kernel is held against its plain version at the
 path's shapes, decode is held against prefill, and a short model on the
@@ -72,7 +89,9 @@ the largest |v| and |h| that the tensor-core routes carry in fp16.
 Each kernel's launches are counted on each path (counts set to 0 just
 before, read just after): a record's ``launches_by_path`` gives each
 path's own count (``compiler``; ``<model>/prefill`` and
-``<model>/serve``) and ``launches`` their sum. flash_attention and
+``<model>/serve``; ``granite-3-2b/train``) and ``launches`` their sum;
+the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``) are
+counted apart from the forward ones. flash_attention and
 moe_dispatch also count by route (``launches_by_route``: tensor_cores or
 cuda_cores, on each path); every launch of theirs on the four prefill
 paths must take the tensor cores. nvcc's ``-Xptxas -v`` registers and
@@ -155,6 +174,16 @@ check lines print both):
     the logits (tests/test_torch_lm.py); jamba's 8-layer smoke period and
     kimi's one-layer smoke config at head dim 112, their routers zeroed,
     atol 0.2, rtol 0.1 (tests/test_torch_ssm.py).
+  * the backward kernels against their plain versions, as the largest
+    |got - want| over the largest |want| of each output (dx, dscale; dq,
+    dk, dv): bf16 1e-2 (both round one float32 result to bf16: at most
+    one ulp, 2^-7 of the largest value), float32 1e-4 (float32 sums of up
+    to 8192 terms in another order); the forward's lse at 1e-5.
+  * the depth-2 train step on the card against the CPU: the loss (about
+    11.2 at init) at atol 2e-2, each leaf's gradient and each leaf after
+    AdamW at relative L2 error 2e-2 (bf16 products summed in another
+    order; tests/test_torch_train.py holds the port to jax.grad at the
+    same 2e-2).
 
 Each kernel is timed twice: CUDA events around a batch of wrapper calls,
 and the device time of its kernel from a torch.profiler trace. A simt
@@ -212,8 +241,11 @@ from repro_torch.volt_bench import suite  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention_bwd as fb  # noqa: E402
 from repro_torch.kernels.moe_dispatch import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd as rb  # noqa: E402
 from repro_torch.kernels.selective_scan import \
     selective_scan as ss  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
@@ -221,6 +253,13 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.blueprint import (count_params, init_params,  # noqa
                                           tree_map)
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.train.data import DataConfig, synthetic_batch  # noqa: E402
+from repro_torch.train.loop import LoopConfig, train_loop  # noqa: E402
+from repro_torch.train.optimizer import (AdamWConfig,  # noqa: E402
+                                         adamw_update, init_opt_state,
+                                         leaves)
+from repro_torch.train.train_step import (StepConfig,  # noqa: E402
+                                          build_train_step, value_and_grad)
 
 N = 2**24 - 37                 # ragged tail: exercises the `gid < n` guard
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
@@ -686,7 +725,8 @@ DECODE_ATOL = 0.2
 ROUTED_APART_TOL = (0.1, 0.55)       # rtol, atol of tests/test_archs.py
 DECODE_T = 64                        # teacher-forced decode-vs-prefill
 KERNELS = {"simt_exec": sx, "rmsnorm": rn, "flash_attention": fa,
-           "moe_dispatch": md, "selective_scan": ss}
+           "moe_dispatch": md, "selective_scan": ss, "rmsnorm_bwd": rb,
+           "flash_attention_bwd": fb}
 LM_SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/rmsnorm.py:23"),
@@ -698,7 +738,17 @@ LM_SOURCES = {
         "src/repro/kernels/moe_dispatch/moe_dispatch.py:38"),
     "selective_scan": (
         "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
-        "src/repro/kernels/selective_scan/selective_scan.py:59")}
+        "src/repro/kernels/selective_scan/selective_scan.py:59"),
+    # the backward kernels have no TPU counterpart: the reference
+    # differentiates plain jnp with jax.grad
+    "rmsnorm_bwd": (
+        "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
+        "none: jax.grad of src/repro/models/layers.py:28 (rmsnorm)"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_attention_bwd.cu",
+        "none: jax.grad of src/repro/models/layers.py:148 "
+        "(attention_chunked)")}
 
 
 def _count(cfg, mixer=None, ff=None) -> int:
@@ -1196,7 +1246,8 @@ def serve_path(dev, cfg, model, params, seed):
             "flash_attention": _count(cfg, "attn"),
             "moe_dispatch": moe_layers,
             "selective_scan": _count(cfg, "mamba") * math.ceil(
-                PREFILL_S / cfg.ssm_chunk)}
+                PREFILL_S / cfg.ssm_chunk),
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
     if per_prefill != want:
         raise AssertionError(f"{arch} prefill launched {per_prefill}; "
                              f"expected {want}")
@@ -1223,6 +1274,7 @@ def serve_path(dev, cfg, model, params, seed):
            if not r.done or r.error or len(r.out) != SERVE_NEW]
     if (bad or per_serve["rmsnorm"] < 1 or per_serve["simt_exec"]
             or per_serve["flash_attention"] or per_serve["selective_scan"]
+            or per_serve["rmsnorm_bwd"] or per_serve["flash_attention_bwd"]
             or (per_serve["moe_dispatch"] < 1) != (moe_layers == 0)):
         raise AssertionError(f"serving: failed requests {bad}, launches "
                              f"{per_serve}")
@@ -1571,6 +1623,333 @@ def kimi_phase(dev, seed: int, reps: int):
     return records, by_path
 
 
+# --------------------------------------------------------------------------
+# training: granite-3-2b at full width and depth, with the backward kernels
+# --------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 4
+#: the backward kernels against their plain versions: the largest
+#: |got - want| over the largest |want| of each output
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+#: the depth-2 step on the card against the CPU: the loss (about 11.2 at
+#: init), each leaf's gradient and updated params as relative L2 errors
+TRAIN_LOSS_ATOL, TRAIN_GRAD_TOL = 2e-2, 2e-2
+CPU_B, CPU_S = 1, 512
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _bwd_check(name, got, want, dtype, errs, labels):
+    rels = [_rel(a, b) for a, b in zip(got, want)]
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want))
+    if max(rels) > BWD_TOL[dtype] or not all(
+            torch.isfinite(a).all() for a in got):
+        raise AssertionError(f"{name}: relative errors {rels} past "
+                             f"{BWD_TOL[dtype]}")
+    errs[name] = max(errs.get(name, 0.0), worst)
+    return ", ".join(f"{lab} {r:.3g}" for lab, r in zip(labels, rels))
+
+
+def _fa_bwd_inputs(g, dev, B, H, Hkv, S, D, dtype):
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev).to(dtype)
+               .transpose(1, 2) for h in (H, Hkv, Hkv))
+    do = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype) \
+        .transpose(1, 2)
+    return q, k, v, do
+
+
+def train_kernel_checks(dev, cfg, seed) -> dict:
+    """Each backward kernel against its plain version at the train path's
+    shapes (rmsnorm (8192, 2048); attention (4, 32, 2048, 64) with 8 KV
+    heads, causal; head dims 112 and 128 at batch 1), bf16 and float32;
+    the forward's lse-writing launch bit for bit the launch without lse;
+    two backward calls bit for bit the same."""
+    g = torch.Generator(dev).manual_seed(seed)
+    errs: dict = {}
+    N, d = TRAIN_B * TRAIN_S, cfg.d_model
+    for dt in (torch.bfloat16, torch.float32):
+        x, s = _rms_inputs(g, dev, N, d, dt)
+        dy = torch.randn(N, d, generator=g, device=dev).to(dt)
+        y, r = rn.rmsnorm(x, s, with_rstd=True)
+        if not torch.equal(y, rn.rmsnorm(x, s)):
+            raise AssertionError("rmsnorm: the rstd-writing launch changed "
+                                 "the output")
+        got = rb.rmsnorm_bwd(x, s, r, dy)
+        msg = _bwd_check("rmsnorm_bwd", got, rb.rmsnorm_bwd_plain(
+            x, s, r, dy), dt, errs, ("dx", "dscale"))
+        again = rb.rmsnorm_bwd(x, s, r, dy)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not same:
+            raise AssertionError("rmsnorm_bwd: two calls differ")
+        print(f"check rmsnorm_bwd ({N}, {d}) {str(dt)[6:]} vs plain, "
+              f"largest relative error {msg} (tol {BWD_TOL[dt]}); the "
+              f"forward with rstd equal to without; two calls bit for bit "
+              f"equal: {same}")
+        del x, s, dy, y, r, got, again
+    shapes = [(TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+              (1, 64, 8, 112), (1, 16, 16, 128)]
+    for B, H, Hkv, D in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do = _fa_bwd_inputs(g, dev, B, H, Hkv, TRAIN_S, D, dt)
+            o, lse = fa.flash_attention(q, k, v, causal=True, with_lse=True)
+            same_o = torch.equal(o, fa.flash_attention(q, k, v, causal=True))
+            _, want_lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                                   with_lse=True)
+            e_lse = _rel(lse, want_lse)
+            if not same_o or e_lse > 1e-5:
+                raise AssertionError(f"flash_attention lse: out equal "
+                                     f"{same_o}, lse error {e_lse}")
+            got = fb.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+            msg = _bwd_check("flash_attention_bwd", got,
+                             fb.flash_attention_bwd_plain(
+                                 q, k, v, o, do, lse, causal=True),
+                             dt, errs, ("dq", "dk", "dv"))
+            again = fb.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not same:
+                raise AssertionError("flash_attention_bwd: two calls differ")
+            print(f"check flash_attention_bwd ({B}, {H}, {TRAIN_S}, {D}) kv "
+                  f"heads {Hkv} causal {str(dt)[6:]} vs plain, largest "
+                  f"relative error {msg} (tol {BWD_TOL[dt]}); the forward's "
+                  f"out with lse bit for bit the out without: {same_o}, lse "
+                  f"relative error {e_lse:.3g}; two calls bit for bit "
+                  f"equal: {same}")
+            del q, k, v, do, o, lse, want_lse, got, again
+            torch.cuda.empty_cache()
+    return errs
+
+
+def _backward_only(fn, inputs, grad_out):
+    """torch.autograd.grad of ``fn(*inputs)`` against ``grad_out``, the
+    forward run once beforehand: what is timed is the backward."""
+    leaves_ = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves_)
+    return lambda: torch.autograd.grad(out, leaves_, grad_out,
+                                       retain_graph=True)
+
+
+def train_kernel_times(dev, cfg, reps, errs, launches) -> dict:
+    """Timing rows of the two backward kernels at the train path's
+    shapes, bf16. The bound: rmsnorm's bytes (x, dy read, dx written,
+    scale, rstd, dscale); attention's five products a (query, key) pair
+    under the mask at the tensor cores' bf16 peak (the CUDA cores'
+    float32 bound printed beside it) or its bytes (q, k, v, o, do, lse
+    read, dq, dk, dv written). The yardstick: ``torch.autograd.grad``
+    through ``F.rms_norm`` and through ``scaled_dot_product_attention``
+    (``enable_gqa``), their forwards run beforehand."""
+    g = torch.Generator(dev).manual_seed(11)
+    N, d = TRAIN_B * TRAIN_S, cfg.d_model
+    sets = [(*_rms_inputs(g, dev, N, d, torch.bfloat16),
+             torch.randn(N, d, generator=g, device=dev).bfloat16())
+            for _ in range(4)]
+    sets = [(x, s, rn.rmsnorm(x, s, with_rstd=True)[1], dy)
+            for x, s, dy in sets]
+    cyc = itertools.cycle(sets)
+    x, s, _, dy = sets[0]
+    lib = _backward_only(lambda x, s: F.rms_norm(x, (d,), s, 1e-6), (x, s),
+                         dy)
+    records = {"rmsnorm_bwd": {**_kernel_row(
+        "rmsnorm_bwd", f"({N}, {d}) bf16",
+        lambda: rb.rmsnorm_bwd(*next(cyc)),
+        lambda: rb.rmsnorm_bwd_plain(*next(cyc)), lib,
+        3 * N * d * 2 + 2 * d * 2 + N * 4, 10 * N * d, F32_OPS_PER_S, reps,
+        launches["rmsnorm_bwd"]), "max_abs_err": errs["rmsnorm_bwd"],
+        "shape": [N, d]}}
+    del sets, cyc, lib
+    B, H, Hkv, S, D = (TRAIN_B, cfg.n_heads, cfg.n_kv_heads, TRAIN_S,
+                       cfg.head_dim)
+    q, k, v, do = _fa_bwd_inputs(g, dev, B, H, Hkv, S, D, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, causal=True, with_lse=True)
+    pairs = S * (S + 1) // 2
+    ops = 2 * 5 * B * H * D * pairs
+    nbytes = 2 * (4 * B * H * S * D + 4 * B * Hkv * S * D) + 4 * B * H * S
+    lib = _backward_only(
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), (q, k, v), do)
+    row = _kernel_row(
+        "flash_attention_bwd", f"({B}, {H}, {S}, {D}) kv {Hkv} causal bf16",
+        lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, causal=True),
+        lambda: fb.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                             causal=True), lib,
+        nbytes, ops, BF16_OPS_PER_S, min(reps, 5),
+        launches["flash_attention_bwd"], batch=3, calls=6)
+    print(f"flash_attention_bwd bound at the CUDA cores' float32 peak: "
+          f"{ops / F32_OPS_PER_S * 1e3:.4f} ms ({ops:.4g} FLOP)")
+    records["flash_attention_bwd"] = {
+        **row, "max_abs_err": errs["flash_attention_bwd"],
+        "shape": [B, H, Hkv, S, D],
+        "bound_cuda_cores_ms": ops / F32_OPS_PER_S * 1e3}
+    return records
+
+
+def _leaf_names(tree, path="") -> list:
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{path}/{i}")]
+    return [path]
+
+
+def _train_card_vs_cpu(dev, cfg, seed) -> None:
+    """One step of granite at full width, depth 2, on the card and on the
+    CPU (plain versions) from the same params and batch (1 x 512): the
+    loss, each leaf's gradient and each leaf after AdamW."""
+    m2 = get_model(dataclasses.replace(cfg, n_layers=2))
+    p_cpu = init_params(m2.blueprint(), torch.Generator().manual_seed(seed))
+    p_card = tree_map(lambda a: a.to(dev), p_cpu)
+    toks = torch.from_numpy(synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=CPU_S, global_batch=CPU_B, seed=seed),
+        0)["tokens"])
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = value_and_grad(m2, p_cpu, {"tokens": toks}, remat=True)
+    cpu_s = time.perf_counter() - t0
+    l_card, g_card = value_and_grad(m2, p_card, {"tokens": toks.to(dev)},
+                                    remat=True)
+    names = _leaf_names(g_cpu)
+    gerr = {n: float((a.cpu().float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+            for n, a, b in zip(names, leaves(g_card), leaves(g_cpu))}
+    opt = AdamWConfig()
+    adamw_update(p_cpu, g_cpu, init_opt_state(p_cpu, opt), opt)
+    adamw_update(p_card, g_card, init_opt_state(p_card, opt), opt)
+    perr = {n: float((a.cpu().float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+            for n, a, b in zip(names, leaves(p_card), leaves(p_cpu))}
+    gap = abs(float(l_card) - float(l_cpu))
+    print(f"check train step depth 2, full width ({CPU_B} x {CPU_S}) card "
+          f"vs cpu: loss {float(l_card):.6f} vs {float(l_cpu):.6f}, gap "
+          f"{gap:.3g} (atol {TRAIN_LOSS_ATOL}); gradient relative L2 "
+          f"errors " + ", ".join(f"{n} {e:.3g}" for n, e in gerr.items())
+          + f" (tol {TRAIN_GRAD_TOL}); params after AdamW, largest "
+          f"{max(perr.values()):.3g}; the CPU's value_and_grad "
+          f"{cpu_s:.1f} s")
+    if gap > TRAIN_LOSS_ATOL or max(gerr.values()) > TRAIN_GRAD_TOL \
+            or max(perr.values()) > TRAIN_GRAD_TOL:
+        raise AssertionError("train step: card against cpu past tolerance")
+
+
+def _train_resume(dev, cfg, seed, ckpt_root: Path) -> None:
+    """At depth 2 (full width): 2 steps, a checkpoint, a fresh train_loop
+    that resumes for 2 more; its losses must equal 4 uninterrupted steps
+    bit for bit (the backward kernels sum in a fixed order)."""
+    m2 = get_model(dataclasses.replace(cfg, n_layers=2))
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                      seed=seed)
+    scfg = StepConfig(remat=True, opt=AdamWConfig())
+    quiet = dict(log_every=0)
+    straight = train_loop(m2, data, LoopConfig(total_steps=4,
+                                               ckpt_every=10**9, **quiet),
+                          scfg, str(ckpt_root / "straight"), device=dev)
+    first = train_loop(m2, data, LoopConfig(total_steps=2, ckpt_every=2,
+                                            **quiet),
+                       scfg, str(ckpt_root / "resumed"), device=dev)
+    t0 = time.perf_counter()
+    rest = train_loop(m2, data, LoopConfig(total_steps=4, ckpt_every=10**9,
+                                           **quiet),
+                      scfg, str(ckpt_root / "resumed"), device=dev)
+    resume_s = time.perf_counter() - t0
+    both = first.losses + rest.losses
+    print(f"check resume depth 2: 4 steps straight {straight.losses}; 2, a "
+          f"checkpoint, 2 resumed from step {rest.resumed_from} {both} "
+          f"(resume and 2 steps {resume_s:.1f} s): bit for bit equal "
+          f"{both == straight.losses}")
+    if rest.resumed_from != 2 or both != straight.losses:
+        raise AssertionError("resumed losses differ from the straight run")
+
+
+def train_phase(dev, seed: int, reps: int):
+    """granite-3-2b trained at full width and depth on the card: the
+    backward kernels checked and timed, then TRAIN_STEPS steps through
+    ``train_loop`` (counted), the step's breakdown, every leaf's
+    gradient, the depth-2 step against the CPU and the depth-2 resume.
+    Returns the backward kernels' records, the counts of the path and
+    the steps' numbers."""
+    cfg = get_config(LM_ARCH)
+    errs = train_kernel_checks(dev, cfg, seed)
+    per_step = {"rmsnorm": 2 * (2 * cfg.n_layers) + 1,
+                "rmsnorm_bwd": 2 * cfg.n_layers + 1,
+                "flash_attention": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+    model = get_model(cfg)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                      seed=seed)
+    scfg = StepConfig(remat=True, opt=AdamWConfig())
+    params, secs = _sync_s(lambda: init_params(
+        model.blueprint(), torch.Generator(dev).manual_seed(data.seed)))
+    print(f"train {cfg.name}: {count_params(model.blueprint())} params, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads ({cfg.n_kv_heads} kv) x {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}; AdamW moments "
+          f"{str(scfg.opt.state_dtype)[6:]}, remat; {TRAIN_B} x {TRAIN_S} "
+          f"tokens a step; init on the card {secs:.2f} s")
+    ckpt_root = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    res = train_loop(model, data, LoopConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=10**9, log_every=1), scfg,
+        str(ckpt_root / "full"), params=params, device=dev)
+    torch.cuda.synchronize()
+    counts = _counts()
+    ROUTE_COUNTS[f"{cfg.name}/train"] = _route_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in KERNELS}
+    if counts != want:
+        raise AssertionError(f"train launched {counts}; expected {want}")
+    if not all(math.isfinite(x) for x in res.losses + res.grad_norms) \
+            or min(res.grad_norms) <= 0:
+        raise AssertionError(f"train: losses {res.losses}, grad norms "
+                             f"{res.grad_norms}")
+    tps = TRAIN_B * TRAIN_S * (TRAIN_STEPS - 1) / (sum(res.step_ms[1:]) / 1e3)
+    for i, (l, gn, ms) in enumerate(zip(res.losses, res.grad_norms,
+                                        res.step_ms)):
+        print(f"train step {i}: loss {l:.6f} grad_norm {gn:.6f} {ms:.1f} ms")
+    print(f"{cfg.name} train main path: {TRAIN_STEPS} steps, "
+          f"{tps:.0f} tokens/s over steps 1-{TRAIN_STEPS - 1}, peak memory "
+          f"{peak:.2f} GB (max_memory_allocated); launches {counts}, by "
+          f"route {ROUTE_COUNTS[f'{cfg.name}/train']}")
+
+    # every leaf's gradient at the trained params (uncounted)
+    batch = {"tokens": torch.from_numpy(synthetic_batch(
+        data, TRAIN_STEPS)["tokens"]).to(dev)}
+    _, grads = value_and_grad(model, params, batch, remat=True)
+    norms = {n: float(t.float().norm())
+             for n, t in zip(_leaf_names(grads), leaves(grads))}
+    bad = {n: v for n, v in norms.items() if not math.isfinite(v) or v <= 0}
+    print("train gradient norms by leaf: " + ", ".join(
+        f"{n} {v:.4g}" for n, v in norms.items()))
+    if bad:
+        raise AssertionError(f"train: leaves without a gradient {bad}")
+    del grads
+
+    # where one step's time goes (a fresh optimizer state; uncounted)
+    step = build_train_step(model, scfg)
+    opt = init_opt_state(params, scfg.opt)
+    step_ms = statistics.median(res.step_ms[1:])
+    _breakdown(lambda: step(params, opt, batch), step_ms,
+               f"{cfg.name} train step {TRAIN_B} x {TRAIN_S}")
+    del params, opt, batch, step, model
+    torch.cuda.empty_cache()
+    records = train_kernel_times(
+        dev, cfg, min(reps, 10), errs,
+        {k: f"{per_step[k]} a step" for k in per_step})
+    summary = {"arch": cfg.name, "tokens_per_step": TRAIN_B * TRAIN_S,
+               "tokens_per_s": tps, "step_ms": res.step_ms,
+               "losses": res.losses, "grad_norms": res.grad_norms,
+               "peak_gb": peak}
+    torch.cuda.empty_cache()
+    _train_card_vs_cpu(dev, cfg, seed)
+    _train_resume(dev, cfg, seed, ckpt_root)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    return records, {f"{cfg.name}/train": counts}, summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1607,9 +1986,9 @@ def main() -> int:
             a, b = ALIASED[name]
             alias_srcs[name] = sx.kernel_source(ck.fn, params,
                                                 {**cpu, a: cpu[b]})
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         lm_built = {m.KERNEL.kind: pool.submit(m.KERNEL.build)
-                    for m in (rn, fa, md, ss)}
+                    for m in (rn, fa, md, ss, rb, fb)}
         built = sx.build_many(list(srcs.values())
                               + list(alias_srcs.values()))
         for kind, fut in lm_built.items():
@@ -1784,6 +2163,13 @@ def main() -> int:
     paths.update(kimi_paths)
     for name in ("rmsnorm", "flash_attention", "moe_dispatch"):
         lm_records[name]["kimi"] = kimi_records.pop(name)
+    t0 = time.perf_counter()
+    train_records, train_paths, summary = train_phase(dev, args.seed,
+                                                      args.reps)
+    print(f"train phase {LM_ARCH} {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"train": summary}))
+    paths.update(train_paths)
+    lm_records.update(train_records)
     for name, r in lm_records.items():
         src, replaces = LM_SOURCES[name]
         per_path = {p: n[name] for p, n in paths.items()}

@@ -3,8 +3,8 @@
 For the compiler, data takes the place of weights: numpy buffer dicts (a
 bench's ``make(rng)`` output, ``interp.launch`` buffers), scalar args and
 a reference ``LaunchParams`` (read by attribute, so nothing of the
-reference is imported). For the LM, the reference's parameter tree,
-handed over as numpy arrays.
+reference is imported). For the LM, the reference's parameter tree and
+AdamW state, handed over as numpy arrays.
 """
 from __future__ import annotations
 
@@ -64,3 +64,25 @@ def lm_params_from_numpy(tree: Any, device, dtype_of: Any) -> Any:
         return torch.from_numpy(np.array(a, copy=True)).to(device, l.dtype)
 
     return tree_map(one, tree, dtype_of)
+
+
+def opt_state_from_numpy(state: Any, device, dtype_of: Any,
+                         state_dtype: torch.dtype = torch.float32) -> Any:
+    """The port's AdamW state from the reference's, given as numpy:
+    ``{"step": int, "m": tree, "v": tree}`` with m and v leaf for leaf
+    like ``dtype_of``, the port's blueprint of the model (shapes checked
+    against it). The step becomes a 0-d int32 tensor and each moment a
+    tensor of ``state_dtype`` (float32 by default, as the reference's
+    ``AdamWConfig``), on ``device``."""
+    def one(a: np.ndarray, l: Leaf) -> torch.Tensor:
+        if tuple(a.shape) != l.shape:
+            raise ValueError(f"moment shape {a.shape} != blueprint "
+                             f"{l.shape}")
+        return torch.from_numpy(np.array(a, copy=True)).to(device,
+                                                            state_dtype)
+
+    return {"step": torch.tensor(int(state["step"]), dtype=torch.int32,
+                                 device=device),
+            "m": tree_map(one, state["m"], dtype_of),
+            "v": tree_map(one, state["v"], dtype_of)}
+

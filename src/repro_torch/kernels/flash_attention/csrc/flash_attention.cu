@@ -10,7 +10,11 @@
 // Replaces repro/kernels/flash_attention/flash_attention.py:
 // flash_attention (_fa_kernel): softmax(q k^T / sqrt(D), causal mask
 // -1e30) v, with the running max m, sum l and accumulator in float32 and
-// the output in q's type.
+// the output in q's type. Where lse is not null, both routes also store
+// each row's log-sum-exp of the scaled scores, log(sum_k exp(s_k / sqrt(D)))
+// = m + log(l), float32 (B, H, Sq): the backward (flash_attention_bwd.cu)
+// recomputes the softmax weights from it. Serving passes null; the output
+// is the same either way.
 //
 // Bound: operations. At S = 2048, D = 64 a query row does 2 * S * D
 // multiply-adds against 4 * D bytes of its own q and o, far past the
@@ -158,9 +162,9 @@ __device__ __forceinline__ void
 fa_body(float (&Qs)[BQ][D + 1], float (&Ks)[BK][D + 1],
         float (&Vs)[BK][D], float (&Ps)[BQ][BK + 1],
         const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, T* __restrict__ o, int H, int Hkv, int Sq,
-        int Sk, int n_qt, Strides qs, Strides ks, Strides vs, int causal,
-        float sm_scale) {
+        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+        int H, int Hkv, int Sq, int Sk, int n_qt, Strides qs, Strides ks,
+        Strides vs, int causal, float sm_scale) {
   // the longest causal tiles first: block 0 takes the last query tile
   const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
   const int bh = (int)(blockIdx.x / n_qt);
@@ -242,48 +246,51 @@ fa_body(float (&Qs)[BQ][D + 1], float (&Ks)[BK][D + 1],
 #pragma unroll
     for (int i = 0; i < D / 4; ++i)
       store_f32(acc[i] / denom, orow + c4 + 4 * i);
+    if (lse != nullptr && c4 == 0)
+      lse[((long long)b * H + h) * Sq + qrow] = m + logf(l);
   }
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-          int Sq, int Sk, int n_qt, Strides qs, Strides ks, Strides vs,
-          int causal, float sm_scale) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int n_qt,
+          Strides qs, Strides ks, Strides vs, int causal, float sm_scale) {
   __shared__ float Qs[BQ][D + 1];
   __shared__ float Ks[BK][D + 1];
   __shared__ float Vs[BK][D];
   __shared__ float Ps[BQ][BK + 1];
-  fa_body<T, D>(Qs, Ks, Vs, Ps, q, k, v, o, H, Hkv, Sq, Sk, n_qt, qs, ks,
-                vs, causal, sm_scale);
+  fa_body<T, D>(Qs, Ks, Vs, Ps, q, k, v, o, lse, H, Hkv, Sq, Sk, n_qt, qs,
+                ks, vs, causal, sm_scale);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel_dyn(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-              int Sq, int Sk, int n_qt, Strides qs, Strides ks, Strides vs,
-              int causal, float sm_scale) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+              int n_qt, Strides qs, Strides ks, Strides vs, int causal,
+              float sm_scale) {
   VX_DYN_SMEM(smem);
   Tiles<D>& t = *reinterpret_cast<Tiles<D>*>(smem);
-  fa_body<T, D>(t.Q, t.K, t.V, t.P, q, k, v, o, H, Hkv, Sq, Sk, n_qt, qs,
-                ks, vs, causal, sm_scale);
+  fa_body<T, D>(t.Q, t.K, t.V, t.P, q, k, v, o, lse, H, Hkv, Sq, Sk, n_qt,
+                qs, ks, vs, causal, sm_scale);
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int Sq, int Sk, long long qsb, long long qsh,
-           long long qss, long long ksb, long long ksh, long long kss,
-           long long vsb, long long vsh, long long vss, int causal,
-           float sm_scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int H, int Hkv, int Sq, int Sk, long long qsb,
+           long long qsh, long long qss, long long ksb, long long ksh,
+           long long kss, long long vsb, long long vsh, long long vss,
+           int causal, float sm_scale, void* stream) {
   const int n_qt = (Sq + BQ - 1) / BQ;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   if constexpr (D <= kStaticD) {
     auto kernel = fa_kernel<T, D>;
     VX_LAUNCH(kernel, B * H * n_qt, kThreads, stream, (const T*)q,
-              (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk, n_qt, qs, ks,
-              vs, causal, sm_scale);
+              (const T*)k, (const T*)v, (T*)o, lse, H, Hkv, Sq, Sk, n_qt, qs,
+              ks, vs, causal, sm_scale);
   } else {
     auto kernel = fa_kernel_dyn<T, D>;
     constexpr int smem = (int)sizeof(Tiles<D>);
@@ -291,8 +298,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != 0) return attr;
     VX_LAUNCH_SMEM(kernel, B * H * n_qt, kThreads, smem, stream,
-                   (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq,
-                   Sk, n_qt, qs, ks, vs, causal, sm_scale);
+                   (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, Hkv,
+                   Sq, Sk, n_qt, qs, ks, vs, causal, sm_scale);
   }
   return (int)cudaGetLastError();
 }
@@ -304,6 +311,7 @@ using bf16 = __nv_bfloat16;
 constexpr int TC_BQ = 64;         // query rows per CTA: one warpgroup
 constexpr int TC_THREADS = 128;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct TcTiles {
@@ -365,9 +373,10 @@ v_to_f16(const bf16* __restrict__ v, __half* __restrict__ vh, int Hkv,
 template <int D>
 __global__ void __launch_bounds__(TC_THREADS, TcTiles<D>::MIN_CTAS)
 fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const __half* __restrict__ vh, bf16* __restrict__ o, int H,
-             int Hkv, int Sq, int Sk, int n_bh, Strides qs, Strides ks,
-             int causal, float scale_log2) {
+             const __half* __restrict__ vh, bf16* __restrict__ o,
+             float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+             int n_bh, Strides qs, Strides ks, int causal,
+             float scale_log2) {
   using TL = TcTiles<D>;
   constexpr int BK = TL::BK, DP = TL::DP;
   VX_DYN_SMEM(smem);
@@ -498,16 +507,20 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                      (lane & 3) * 2) =
             sm90::pack_bf16(acc[4 * j + 2 * r] * inv,
                             acc[4 * j + 2 * r + 1] * inv);
+      // m is in log2 units of the scaled scores
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((long long)b * H + h) * Sq + row] =
+            (m[r] + log2f(l[r])) * kLn2;
     }
   }
 }
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* vh,
-              void* o, int B, int H, int Hkv, int Sq, int Sk, long long qsb,
-              long long qsh, long long qss, long long ksb, long long ksh,
-              long long kss, long long vsb, long long vsh, long long vss,
-              int causal, float sm_scale, void* stream) {
+              void* o, float* lse, int B, int H, int Hkv, int Sq, int Sk,
+              long long qsb, long long qsh, long long qss, long long ksb,
+              long long ksh, long long kss, long long vsb, long long vsh,
+              long long vss, int causal, float sm_scale, void* stream) {
   const int n_qt = (Sq + TC_BQ - 1) / TC_BQ;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   const long long n_chunks = (long long)B * Hkv * Sk * (D / 8);
@@ -524,7 +537,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* vh,
   if (attr != 0) return attr;
   VX_LAUNCH_SMEM(kernel, B * H * n_qt, TC_THREADS, smem, stream,
                  (const bf16*)q, (const bf16*)k, (const __half*)vh,
-                 (bf16*)o, H, Hkv, Sq, Sk, B * H, qs, ks, causal,
+                 (bf16*)o, lse, H, Hkv, Sq, Sk, B * H, qs, ks, causal,
                  sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -534,31 +547,33 @@ int launch_tc(const void* q, const void* k, const void* v, void* vh,
 
 // q: (B, H, Sq, D), k and v: (B, Hkv, Sk, D), each read through its
 // strides (in elements, last dimension contiguous); o: contiguous
-// (B, H, Sq, D). B * H * ceil(Sq / 64) < 2^31, Sq, Sk >= 1. The
+// (B, H, Sq, D); lse: null, or a contiguous float32 (B, H, Sq) for each
+// row's log-sum-exp. B * H * ceil(Sq / 64) < 2^31, Sq, Sk >= 1. The
 // tensor-core entries (_tc_) also need q, k, v and their strides in
 // elements to be 16-byte aligned, and take vh, a contiguous fp16
 // (B, Hkv, Sk, D) scratch for v.
 #define VX_FA_ENTRY(NAME, T, D)                                            \
   extern "C" int NAME(const void* q, const void* k, const void* v,        \
-                      void* o, int B, int H, int Hkv, int Sq, int Sk,     \
-                      long long qsb, long long qsh, long long qss,        \
-                      long long ksb, long long ksh, long long kss,        \
-                      long long vsb, long long vsh, long long vss,        \
-                      int causal, float sm_scale, void* stream) {         \
-    return launch<T, D>(q, k, v, o, B, H, Hkv, Sq, Sk, qsb, qsh, qss,     \
-                        ksb, ksh, kss, vsb, vsh, vss, causal, sm_scale,   \
-                        stream);                                          \
-  }
-#define VX_FA_TC_ENTRY(NAME, D)                                            \
-  extern "C" int NAME(const void* q, const void* k, const void* v,        \
-                      void* vh, void* o, int B, int H, int Hkv, int Sq,   \
+                      void* o, void* lse, int B, int H, int Hkv, int Sq,  \
                       int Sk, long long qsb, long long qsh, long long qss,\
                       long long ksb, long long ksh, long long kss,        \
                       long long vsb, long long vsh, long long vss,        \
                       int causal, float sm_scale, void* stream) {         \
-    return launch_tc<D>(q, k, v, vh, o, B, H, Hkv, Sq, Sk, qsb, qsh, qss, \
-                        ksb, ksh, kss, vsb, vsh, vss, causal, sm_scale,   \
-                        stream);                                          \
+    return launch<T, D>(q, k, v, o, (float*)lse, B, H, Hkv, Sq, Sk, qsb,  \
+                        qsh, qss, ksb, ksh, kss, vsb, vsh, vss, causal,   \
+                        sm_scale, stream);                                \
+  }
+#define VX_FA_TC_ENTRY(NAME, D)                                            \
+  extern "C" int NAME(const void* q, const void* k, const void* v,        \
+                      void* vh, void* o, void* lse, int B, int H, int Hkv,\
+                      int Sq, int Sk, long long qsb, long long qsh,       \
+                      long long qss, long long ksb, long long ksh,        \
+                      long long kss, long long vsb, long long vsh,        \
+                      long long vss, int causal, float sm_scale,          \
+                      void* stream) {                                     \
+    return launch_tc<D>(q, k, v, vh, o, (float*)lse, B, H, Hkv, Sq, Sk,   \
+                        qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,      \
+                        causal, sm_scale, stream);                        \
   }
 
 VX_FA_ENTRY(flash_attention_f32_d32, float, 32)

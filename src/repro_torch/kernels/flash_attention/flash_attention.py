@@ -30,7 +30,10 @@ be contiguous. The output is a new contiguous (B, H, Sq, D).
 
 On CPU tensors ``flash_attention`` runs ``flash_attention_plain``, the
 float32 math of the JAX package's ``ref.py``. A CUDA tensor goes to the
-kernel or raises; there is no fallback.
+kernel or raises; there is no fallback. ``with_lse`` also returns each
+query row's log-sum-exp of the scaled, masked scores, float32
+(B, H, Sq), which the backward (``flash_attention_bwd.py``) reads; the
+output is the same with or without it.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from pathlib import Path
 
 import torch
 
+from .. import plain_dtype
 from ..build import CSRC, SourceKernel
 
 #: launches of the CUDA kernels; the plain version does not count
@@ -55,9 +59,10 @@ BLOCK_Q = 64
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGS = [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
+#: q, k, v, o, lse; B, H, Hkv, Sq, Sk; strides; causal, scale, stream
+_ARGS = [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
 #: the tensor-core entries also take v's fp16 scratch, after v
-_TC_ARGS = [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
+_TC_ARGS = [_P] * 6 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = SourceKernel(
     "flash_attention",
@@ -108,32 +113,46 @@ def _shapes(q, k, v):
     return B, H, Hkv, Sq, Sk, D
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, *, causal: bool = True
-                          ) -> torch.Tensor:
-    """``softmax(q k^T / sqrt(D), causal mask -1e30) v`` in float32, cast
-    to q's dtype; any device."""
-    B, H, Hkv, Sq, Sk, D = _shapes(q, k, v)
+def scores_plain(q: torch.Tensor, k: torch.Tensor, causal: bool
+                 ) -> torch.Tensor:
+    """``q k^T / sqrt(D)`` with the causal mask at -1e30, in float32
+    (float64 for float64 inputs), K repeated to q's heads."""
+    B, H, Hkv, Sq, Sk, D = _shapes(q, k, k)
+    t = plain_dtype(q.dtype)
     k = k.repeat_interleave(H // Hkv, dim=1)
-    v = v.repeat_interleave(H // Hkv, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(t), k.to(t)) / math.sqrt(D)
     if causal:
         mask = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
         s = s.masked_fill(~mask, -1e30)
+    return s
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          with_lse: bool = False):
+    """``softmax(q k^T / sqrt(D), causal mask -1e30) v`` in float32, cast
+    to q's dtype; any device. With ``with_lse``: (out, the rows'
+    log-sum-exp (B, H, Sq))."""
+    B, H, Hkv, Sq, Sk, D = _shapes(q, k, v)
+    s = scores_plain(q, k, causal)
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+    v = v.repeat_interleave(H // Hkv, dim=1)
+    out = torch.einsum("bhqk,bhkd->bhqd", w, v.to(s.dtype)).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if with_lse else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D) -> (B, H, Sq, D). CPU
+                    causal: bool = True, with_lse: bool = False):
+    """q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D) -> (B, H, Sq, D), and with
+    ``with_lse`` the rows' log-sum-exp (B, H, Sq) float32 beside it. CPU
     tensors take the plain version, CUDA tensors the kernel."""
     global LAUNCHES
     B, H, Hkv, Sq, Sk, D = _shapes(q, k, v)
     devices = {q.device, k.device, v.device}
     if devices == {torch.device("cpu")}:
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     with_lse=with_lse)
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: q, k, v on {devices}; "
                          "all must be on one CUDA device")
@@ -154,17 +173,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention kernel: Sk = {Sk}, "
                          f"{n_blocks} blocks")
     out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if Sq == 0:
-        return out
+        return (out, lse) if with_lse else out
     # the tensor cores take v as fp16, converted once a call
     vh = ([torch.empty(B, Hkv, Sk, D, dtype=torch.float16,
                        device=q.device).data_ptr()]
           if way == "tensor_cores" else [])
     KERNEL.call(entry(q.dtype, D, aligned), q.get_device(),
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), *vh,
-                out.data_ptr(), B, H, Hkv, Sq, Sk,
+                out.data_ptr(), None if lse is None else lse.data_ptr(),
+                B, H, Hkv, Sq, Sk,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 int(causal), 1.0 / math.sqrt(D))
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[way] += 1
-    return out
+    return (out, lse) if with_lse else out

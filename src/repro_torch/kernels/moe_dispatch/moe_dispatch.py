@@ -41,6 +41,10 @@ return at once, and the slices' sums are read for filled rows only).
 On CPU tensors ``grouped_expert_ff`` runs ``grouped_expert_ff_plain``,
 the same function in torch. A CUDA tensor goes to the kernel or raises;
 there is no fallback.
+It has no backward yet (ROADMAP A13): where autograd would record a
+launch (grad mode on, an input that requires grad), the wrapper raises
+``NotImplementedError`` rather than return an output with no
+``grad_fn``.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import refuse_grad
 from ..build import CSRC, SourceKernel
 
 #: wrapper calls that launched the CUDA kernels; the plain version does
@@ -151,6 +156,7 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     devices = {x.device, wi.device, wo.device}
     if devices == {torch.device("cpu")}:
         return grouped_expert_ff_plain(x, wi, wo, counts)
+    refuse_grad("grouped_expert_ff", "A13 (MoE training)", x, wi, wo)
     if len(devices) != 1 or x.device.type != "cuda":
         raise ValueError(f"grouped_expert_ff kernel: x, wi, wo on "
                          f"{devices}; all must be on one CUDA device")

@@ -3,7 +3,8 @@
 // Replaces repro/kernels/rmsnorm/rmsnorm.py:rmsnorm (the Pallas TPU
 // kernel, 128 rows per grid program). Per row: the float32 mean of
 // squares, then x * rsqrt(var + eps) * scale in float32, stored in x's
-// type.
+// type. Where rstd is not null, the row's rsqrt(var + eps) is stored there
+// too, in float32: the backward (rmsnorm_bwd.cu) reads it.
 //
 // Bound: bytes. Each element is read and written once and costs a few
 // operations. The design: one CTA of 256 threads a row. Each thread reads
@@ -106,7 +107,8 @@ __device__ __forceinline__ float row_sum(float v) {
 template <typename T, int NV>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_vec(const T* __restrict__ x, const T* __restrict__ scale,
-            T* __restrict__ out, int d, float eps) {
+            T* __restrict__ out, float* __restrict__ rstd, int d,
+            float eps) {
   constexpr int kVec = 16 / sizeof(T);
   const int t = threadIdx.x, nvec = d / kVec;
   const uint4* xr = reinterpret_cast<const uint4*>(
@@ -127,6 +129,7 @@ rmsnorm_vec(const T* __restrict__ x, const T* __restrict__ scale,
     }
   }
   const float r = rsqrtf(row_sum(ss) / (float)d + eps);
+  if (rstd != nullptr && t == 0) rstd[blockIdx.x] = r;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int i = t + j * kThreads;
@@ -145,7 +148,8 @@ rmsnorm_vec(const T* __restrict__ x, const T* __restrict__ scale,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-               T* __restrict__ out, int d, float eps) {
+               T* __restrict__ out, float* __restrict__ rstd, int d,
+               float eps) {
   const T* xr = x + (long long)blockIdx.x * d;
   T* outr = out + (long long)blockIdx.x * d;
   float ss = 0.f;
@@ -154,6 +158,7 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
     ss += v * v;
   }
   const float r = rsqrtf(row_sum(ss) / (float)d + eps);
+  if (rstd != nullptr && threadIdx.x == 0) rstd[blockIdx.x] = r;
   for (int i = threadIdx.x; i < d; i += kThreads)
     store_f32(to_f32(xr[i]) * r * to_f32(scale[i]), outr + i);
 }
@@ -162,8 +167,8 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
 // a thread, and every pointer is on 16 bytes (NV the fewest of 1, 2, 4, 8
 // that hold it); else the scalar route
 template <typename T>
-int launch(const void* x, const void* scale, void* out, int n, int d,
-           float eps, void* stream) {
+int launch(const void* x, const void* scale, void* out, float* rstd,
+           int n, int d, float eps, void* stream) {
   constexpr int kVec = 16 / sizeof(T);
   const int nvec = d / kVec;
   if (d % kVec == 0 && nvec <= 8 * kThreads &&
@@ -172,26 +177,30 @@ int launch(const void* x, const void* scale, void* out, int n, int d,
         : nvec <= 2 * kThreads ? rmsnorm_vec<T, 2>
         : nvec <= 4 * kThreads ? rmsnorm_vec<T, 4> : rmsnorm_vec<T, 8>;
     VX_LAUNCH(kernel, n, kThreads, stream, (const T*)x, (const T*)scale,
-              (T*)out, d, eps);
+              (T*)out, rstd, d, eps);
   } else {
     auto kernel = rmsnorm_kernel<T>;
     VX_LAUNCH(kernel, n, kThreads, stream, (const T*)x, (const T*)scale,
-              (T*)out, d, eps);
+              (T*)out, rstd, d, eps);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, scale, out: contiguous (n, d), (d,), (n, d) of one type; n >= 1
+// x, scale, out: contiguous (n, d), (d,), (n, d) of one type; n >= 1;
+// rstd: null, or (n,) float32 for each row's rsqrt(var + eps)
 extern "C" int rmsnorm_f32(const void* x, const void* scale, void* out,
-                           int n, int d, float eps, void* stream) {
-  return launch<float>(x, scale, out, n, d, eps, stream);
+                           void* rstd, int n, int d, float eps,
+                           void* stream) {
+  return launch<float>(x, scale, out, (float*)rstd, n, d, eps, stream);
 }
 
 #ifdef __CUDACC__
 extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out,
-                            int n, int d, float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, scale, out, n, d, eps, stream);
+                            void* rstd, int n, int d, float eps,
+                            void* stream) {
+  return launch<__nv_bfloat16>(x, scale, out, (float*)rstd, n, d, eps,
+                               stream);
 }
 #endif

@@ -12,6 +12,11 @@ through their plain versions on CPU tensors:
     K/V with fewer heads than q, so ``gqa_attention`` does not repeat
     them for it.
 
+Where a gradient is needed (grad mode on and an input that requires
+it), both go through the kernels' autograd Functions, ``RMSNorm`` and
+``FlashAttention``, whose backward is a hand-written kernel too; without
+one they call the forward kernels directly, as serving does.
+
 ``gqa_attention`` always goes through ``attention_chunked``: the
 reference's ``impl`` switch and its XLA lowering knobs (``chunk``,
 ``skip_masked_blocks``, ``unroll_kv``) change no result here and are not
@@ -28,8 +33,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import needs_grad
 from ..kernels.flash_attention.flash_attention import flash_attention
+from ..kernels.flash_attention.flash_attention_bwd import FlashAttention
 from ..kernels.rmsnorm.rmsnorm import rmsnorm as rmsnorm_rows
+from ..kernels.rmsnorm.rmsnorm_bwd import RMSNorm
 from .blueprint import leaf
 
 Params = Dict[str, Any]
@@ -46,8 +54,10 @@ def rmsnorm_bp(d: int):
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     d = x.shape[-1]
-    return rmsnorm_rows(x.reshape(-1, d).contiguous(), p["scale"],
-                        eps=eps).view(x.shape)
+    rows = x.reshape(-1, d).contiguous()
+    if needs_grad(rows, p["scale"]):
+        return RMSNorm.apply(rows, p["scale"], eps).view(x.shape)
+    return rmsnorm_rows(rows, p["scale"], eps=eps).view(x.shape)
 
 
 # --------------------------------------------------------------------------
@@ -165,10 +175,12 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors, through transposed (B, H, S, D) views that the kernel reads
     by their strides. The kernel tiles by itself and, when causal, never
     loads a key tile above the diagonal. Non-causal attention (the
-    reference's ``attention_naive``) takes the same kernel."""
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=causal)
-    return o.transpose(1, 2)
+    reference's ``attention_naive``) takes the same kernel; under autograd
+    the ``FlashAttention`` Function, whose backward is a kernel too."""
+    qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    if needs_grad(*qkv):
+        return FlashAttention.apply(*qkv, causal).transpose(1, 2)
+    return flash_attention(*qkv, causal=causal).transpose(1, 2)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -23,11 +23,18 @@ flash_attention kernel.
 
 Ported: attention and mamba mixers (``models/ssm.py``, jamba-style
 hybrids) with dense feed-forward (granite-style) or MoE feed-forward
-(olmoe-style, ``models/moe.py``, with an optional shared MLP). As in the
-reference, an MoE layer runs sequentially even under ``parallel_block``,
-and its load-balancing loss is dropped outside training. The xLSTM
-mixers, the encoder-decoder stack and the training loss raise
-``NotImplementedError`` naming their ROADMAP item.
+(olmoe-style, ``models/moe.py``, with an optional shared MLP), and the
+training loss ``loss_fn``. As in the reference, an MoE layer runs
+sequentially even under ``parallel_block``, and its load-balancing loss
+is carried through the stack in training and dropped in decode. Under
+``remat`` each period is a ``torch.utils.checkpoint`` region, whose
+activations are recomputed in the backward: the reference's
+``jax.checkpoint`` with ``nothing_saveable``. The stacked params are
+unbound once a call (one view a period), so the backward stacks each
+leaf's period gradients once. The xLSTM mixers, the encoder-decoder
+stack and VLM inputs raise ``NotImplementedError`` naming their ROADMAP
+item; on the card, training an MoE or mamba layer raises too, since
+their kernels have no backward yet (ROADMAP A13, A14).
 
 Like the port's fixes of ROADMAP C6, C9 and C10, its decode departs
 from the reference's on purpose in one place: under ``parallel_block``
@@ -40,9 +47,10 @@ layer sequentially, so its decode does not reproduce its own prefill
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -137,7 +145,7 @@ class LM:
 
     # -- one period of layers ---------------------------------------------------
     def _apply_layer(self, kind: LayerKind, p, x, positions, *,
-                     causal: bool):
+                     causal: bool, aux: Optional[List] = None):
         c = self.cfg
         h = L.rmsnorm(p["ln1"], x)
         if kind.mixer == "mamba":
@@ -153,35 +161,97 @@ class LM:
             # Cohere-style: attn and FF read the same normed input
             return x + mix + L.mlp(p["mlp"], h, c.gated_mlp)
         x = x + mix
-        return self._ff(kind, p, x)
+        return self._ff(kind, p, x, aux)
 
-    def _ff(self, kind: LayerKind, p, x):
+    def _ff(self, kind: LayerKind, p, x, aux: Optional[List] = None):
         """The layer's feed-forward residual, sequential after the
-        mixer."""
+        mixer; an MoE layer appends its load-balancing loss to ``aux``
+        where given."""
         c = self.cfg
         if kind.ff == "dense":
             x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), c.gated_mlp)
         elif kind.ff == "moe":
             h2 = L.rmsnorm(p["ln2"], x)
-            y, _ = MOE.moe_ff(p["moe"], h2, n_experts=c.moe_experts,
+            y, a = MOE.moe_ff(p["moe"], h2, n_experts=c.moe_experts,
                               top_k=c.moe_top_k,
                               capacity_factor=c.moe_capacity)
             if c.moe_shared_ff:
                 y = y + L.mlp(p["shared_mlp"], h2, c.gated_mlp)
             x = x + y
+            if aux is not None:
+                aux.append(a)
         return x
 
-    def _run_stack(self, stack_params, x, positions, *, kinds, causal):
-        for i in range(self.n_periods):
-            pparams = tree_map(lambda a: a[i], stack_params)
+    def _run_stack(self, stack_params, x, positions, *, kinds, causal,
+                   remat: bool = False):
+        """The periods in turn -> (x, the MoE layers' aux losses summed,
+        float32). ``remat``: each period is a checkpoint region."""
+        def period_fn(x, auxs, pparams):
+            aux: List = []
             for k, kind in enumerate(kinds):
                 x = self._apply_layer(kind, pparams[k], x, positions,
-                                      causal=causal)
-        return x
+                                      causal=causal, aux=aux)
+            for a in aux:
+                auxs = auxs + a
+            return x, auxs
+
+        auxs = torch.zeros((), dtype=torch.float32, device=x.device)
+        for pparams in _unstack(stack_params, self.n_periods):
+            if remat:
+                x, auxs = checkpoint(period_fn, x, auxs, pparams,
+                                     use_reentrant=False)
+            else:
+                x, auxs = period_fn(x, auxs, pparams)
+        return x, auxs
 
     # -- training forward ---------------------------------------------------------
     def loss_fn(self, params, batch, *, remat: bool = True):
-        raise _not_ported("LM.loss_fn (training)", "A8 (train/)")
+        """batch: tokens (B, S) int. Returns the scalar loss, float32: the
+        mean next-token NLL (the last position has no label) plus 0.01
+        times the MoE aux loss a period, as the reference's. The logits are
+        float32 with the padded vocab columns masked; ``loss_chunk`` takes
+        them a chunk of positions at a time."""
+        c = self.cfg
+        if c.enc_dec:
+            raise _not_ported("training an encoder-decoder",
+                              _MIXER_ITEM["attn_cross"])
+        if c.frontend_embeds or (c.pos == "mrope" and batch.get(
+                "mrope_positions") is not None):
+            raise _not_ported("frontend embeddings and M-RoPE positions "
+                              "in training", "A11 (VLM inputs)")
+        tokens = batch["tokens"].long()
+        B, S = tokens.shape
+        x = params["embed"][tokens].to(torch.bfloat16)
+        positions = torch.arange(S, device=tokens.device)[None, :]
+        x, aux = self._run_stack(params["stack"], x, positions,
+                                 kinds=self.period, causal=True,
+                                 remat=remat)
+        x = L.rmsnorm(params["ln_f"], x)
+        unembed = self._unembed(params)
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        valid = torch.ones(B, S, dtype=torch.float32, device=x.device)
+        valid[:, -1] = 0.0
+        if c.loss_chunk and S > c.loss_chunk:
+            n, C = S // c.loss_chunk, c.loss_chunk
+            xs = x.reshape(B, n, C, c.d_model)
+            ls, vs = labels.reshape(B, n, C), valid.reshape(B, n, C)
+            tot = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i in range(n):
+                tot = tot + self._nll_sum(xs[:, i], unembed, ls[:, i],
+                                          vs[:, i])
+        else:
+            tot = self._nll_sum(x, unembed, labels, valid)
+        nll = tot / valid.sum().clamp_min(1.0)
+        return nll + 0.01 * aux / max(1, self.n_periods)
+
+    def _nll_sum(self, x, unembed, labels, valid) -> torch.Tensor:
+        """The summed NLL of ``labels`` under the float32 logits of x,
+        counting the ``valid`` positions only."""
+        logits = torch.einsum("bsd,dv->bsv", x, unembed).float()
+        logits = _mask_vocab_pad(logits, self.cfg.vocab)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[..., None])[..., 0]
+        return ((lse - ll) * valid).sum()
 
     # -- decode -----------------------------------------------------------------
     def _layer_cache(self, kind: LayerKind, B: int, S_max: int, device):
@@ -262,10 +332,19 @@ class LM:
         B, S = tokens.shape
         x = params["embed"][tokens].to(torch.bfloat16)
         positions = torch.arange(S, device=tokens.device)[None, :]
-        x = self._run_stack(params["stack"], x, positions,
-                            kinds=self.period, causal=True)
+        x, _ = self._run_stack(params["stack"], x, positions,
+                               kinds=self.period, causal=True)
         x = L.rmsnorm(params["ln_f"], x)
         return (x[:, -1] @ self._unembed(params)).float()
+
+
+def _unstack(stack_params, n: int) -> list:
+    """The (n, ...) stacked leaves as n trees of their period's views,
+    from one ``unbind`` a leaf: its backward stacks the n gradients once,
+    where indexing ``a[i]`` n times would add n full-size gradients."""
+    parts = tree_map(lambda a: a.unbind(0), stack_params)
+    return [tree_map(lambda a, u: u[i], stack_params, parts)
+            for i in range(n)]
 
 
 def _mask_vocab_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -172,8 +172,37 @@ def test_unported_models_raise_naming_the_roadmap(arch):
 
 
 def test_loss_fn_is_not_ported(granite):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        granite[3].loss_fn(granite[4], {})
+    """``loss_fn`` is ported (tests/test_torch_train.py), except for the
+    encoder-decoder stack, which raises naming its ROADMAP item."""
+    model = get_model(get_config("seamless-m4t-large-v2", smoke=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        model.loss_fn({}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_kernels_without_backward_refuse_grad(grad):
+    """grouped_expert_ff and selective_scan have no backward kernel yet:
+    a call that autograd would record on a tensor that is not on the CPU
+    raises NotImplementedError naming the ROADMAP item, before anything
+    is launched (meta tensors stand in for CUDA ones here); without grad
+    the call goes on to the device checks, which refuse the meta
+    device."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as MD
+    from repro_torch.kernels.selective_scan import selective_scan as SS
+    meta = dict(device="meta", requires_grad=grad)
+    x, wi = torch.ones(2, 4, 64, **meta), torch.ones(2, 64, 64, **meta)
+    wo = torch.ones(2, 32, 64, **meta)
+    dA = torch.ones(1, 8, 16, 8, **meta)
+    Cm = torch.ones(1, 8, 8, device="meta")
+    want = (NotImplementedError, "ROADMAP A1[34]") if grad else \
+        (ValueError, "CUDA device")
+    with pytest.raises(want[0], match=want[1]):
+        MD.grouped_expert_ff(x, wi, wo)
+    with pytest.raises(want[0], match=want[1]):
+        SS.selective_scan(dA, dA.detach(), Cm)
+    if grad:
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+            MD.grouped_expert_ff(x, wi, wo)
 
 
 # --------------------------------------------------------------------------

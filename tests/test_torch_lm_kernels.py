@@ -2,8 +2,16 @@
 package's Pallas kernels (interpret mode) and oracles, and the CUDA
 sources' float32 instantiations run on the host.
 
+The gradients: ``rmsnorm_bwd_plain`` and ``flash_attention_bwd_plain``
+against ``jax.vjp`` of the JAX package's oracles (``rmsnorm_ref``,
+``attention_ref``) in float32 at rtol = atol = 1e-5 (the same float32
+closed forms, summed in another order); the autograd Functions' CPU path
+under ``torch.autograd.gradcheck`` in float64; the backward sources'
+float32 instantiations run on the host against the plain versions at
+1e-5 (rmsnorm) and 2e-5 (attention), as the forward sources are held.
+
 The CUDA kernels against their plain versions, on a card, are in
-``test_torch_lm_cuda.py``.
+``test_torch_lm_cuda.py`` and ``test_torch_train_cuda.py``.
 
 Tolerances are those of ``tests/test_kernels.py``: rmsnorm 1e-5 in
 float32 and 2e-2 in bfloat16; attention 2e-5 in float32 and 3e-2 in
@@ -19,6 +27,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,7 +39,9 @@ from repro.kernels.rmsnorm.ops import rmsnorm_op
 from repro.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.build import CSRC
 from repro_torch.kernels.flash_attention import flash_attention as FA
+from repro_torch.kernels.flash_attention import flash_attention_bwd as FB
 from repro_torch.kernels.rmsnorm import rmsnorm as RN
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd as RB
 
 HOST_CUDA = Path(__file__).parent / "cuda_host"
 #: chip_smoke.py's bf16 tolerance for flash_attention: rtol, atol
@@ -267,12 +278,13 @@ def test_wrappers_refuse_other_devices():
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    """Both kernels' sources built for the host, one g++ each, at once."""
+    """The four kernel sources (rmsnorm, flash_attention and their
+    backward) built for the host, one g++ each, at once."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is needed to run the CUDA sources on the host")
     out = tmp_path_factory.mktemp("host_lm_kernels")
     procs = {}
-    for mod in (RN, FA):
+    for mod in (RN, FA, RB, FB):
         so = out / f"{mod.KERNEL.kind}.so"
         procs[mod] = (so, subprocess.Popen(
             ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
@@ -295,12 +307,14 @@ def test_rmsnorm_source_matches_plain_on_host(shape, host_libs):
     g = torch.Generator().manual_seed(0)
     x = torch.randn(shape, generator=g)
     s = torch.randn(shape[1], generator=g)
-    out = torch.empty_like(x)
+    out, rstd = torch.empty_like(x), torch.empty(shape[0])
     err = host_libs[RN].rmsnorm_f32(x.data_ptr(), s.data_ptr(),
-                                    out.data_ptr(), shape[0], shape[1],
-                                    1e-6, None)
+                                    out.data_ptr(), rstd.data_ptr(),
+                                    shape[0], shape[1], 1e-6, None)
     assert err == 0
-    _close(out, RN.rmsnorm_plain(x, s).numpy(), 1e-5)
+    want, want_rstd = RN.rmsnorm_plain(x, s, with_rstd=True)
+    _close(out, want.numpy(), 1e-5)
+    _close(rstd, want_rstd.numpy(), 1e-5)
 
 
 @pytest.mark.parametrize("N", [1, 8, 129])
@@ -315,11 +329,20 @@ def test_rmsnorm_routes_match_plain_on_host(N, d, offset, host_libs):
     g = torch.Generator().manual_seed(N * d)
     x = torch.randn(N * d + offset, generator=g)[offset:].view(N, d)
     s = torch.randn(d, generator=g)
-    out = torch.empty(N, d)
+    out, rstd = torch.empty(N, d), torch.empty(N)
     err = host_libs[RN].rmsnorm_f32(x.data_ptr(), s.data_ptr(),
-                                    out.data_ptr(), N, d, 1e-6, None)
+                                    out.data_ptr(), rstd.data_ptr(), N, d,
+                                    1e-6, None)
     assert err == 0
-    _close(out, RN.rmsnorm_plain(x, s).numpy(), 1e-5)
+    want, want_rstd = RN.rmsnorm_plain(x, s, with_rstd=True)
+    _close(out, want.numpy(), 1e-5)
+    _close(rstd, want_rstd.numpy(), 1e-5)
+    # without an rstd buffer the same output
+    again = torch.empty(N, d)
+    assert host_libs[RN].rmsnorm_f32(x.data_ptr(), s.data_ptr(),
+                                     again.data_ptr(), None, N, d, 1e-6,
+                                     None) == 0
+    assert torch.equal(again, out)
 
 
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", [
@@ -340,11 +363,151 @@ def test_flash_attention_source_matches_plain_on_host(B, H, Hkv, Sq, Sk, D,
     q = torch.randn(B, Sq, H, D, generator=g).transpose(1, 2)
     k = torch.randn(B, Sk, Hkv, D, generator=g).transpose(1, 2)
     v = torch.randn(B, Sk, Hkv, D, generator=g).transpose(1, 2)
-    out = torch.empty(B, H, Sq, D)
-    err = getattr(host_libs[FA], f"flash_attention_f32_d{D}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-        Hkv, Sq, Sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+    out, lse = torch.empty(B, H, Sq, D), torch.empty(B, H, Sq)
+    fn = getattr(host_libs[FA], f"flash_attention_f32_d{D}")
+    args = (B, H, Hkv, Sq, Sk, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], int(causal), 1.0 / math.sqrt(D), None)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), *args)
+    assert err == 0
+    want, want_lse = FA.flash_attention_plain(q, k, v, causal=causal,
+                                              with_lse=True)
+    _close(out, want.numpy(), 2e-5)
+    _close(lse, want_lse.numpy(), 2e-5)
+    # without an lse buffer the same output, bit for bit
+    again = torch.empty(B, H, Sq, D)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), again.data_ptr(),
+              None, *args) == 0
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("N,d", [(3, 64), (5, 300), (40, 2048), (600, 8),
+                                 (2, 8192)])
+def test_rmsnorm_bwd_source_matches_plain_on_host(N, d, host_libs):
+    """Every width of the float32 backward source (1 to 32 columns a
+    thread), and more rows than its 528 CTAs (600), whose dscale
+    partials are summed in a fixed order."""
+    g = torch.Generator().manual_seed(N + d)
+    x, dy = torch.randn(N, d, generator=g), torch.randn(N, d, generator=g)
+    s = torch.randn(d, generator=g)
+    _, rstd = RN.rmsnorm_plain(x, s, with_rstd=True)
+    parts = min(N, RB.PARTS)
+    dx, ds = torch.empty(N, d), torch.empty(d)
+    partial = torch.empty(parts, d)
+    err = host_libs[RB].rmsnorm_bwd_f32(
+        x.data_ptr(), s.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), ds.data_ptr(), partial.data_ptr(), N, d, parts, None)
+    assert err == 0
+    want_dx, want_ds = RB.rmsnorm_bwd_plain(x, s, rstd, dy)
+    _close(dx, want_dx.numpy(), 1e-5)
+    _close(ds, want_ds.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", [
+    (1, 2, 1, 80, 80, 32, True),      # ragged tiles, GQA 2
+    (1, 4, 2, 70, 100, 64, False),    # Sq != Sk, every key
+    (1, 2, 1, 130, 130, 112, True),   # D = 112, three tiles each way
+    (1, 1, 1, 40, 70, 128, True),     # D = 128, keys past the last query
+    (2, 4, 1, 64, 64, 64, True),      # one full tile, GQA 4, two batches
+])
+def test_flash_attention_bwd_source_matches_plain_on_host(
+        B, H, Hkv, Sq, Sk, D, causal, host_libs):
+    """q, k, v, o and do read through their strides (q, k, v transposed
+    views of (B, S, H, D) tensors, as the layer passes them)."""
+    g = torch.Generator().manual_seed(Sq + D)
+    q = torch.randn(B, Sq, H, D, generator=g).transpose(1, 2)
+    k = torch.randn(B, Sk, Hkv, D, generator=g).transpose(1, 2)
+    v = torch.randn(B, Sk, Hkv, D, generator=g).transpose(1, 2)
+    o, lse = FA.flash_attention_plain(q, k, v, causal=causal, with_lse=True)
+    do = torch.randn(B, Sq, H, D, generator=g).transpose(1, 2)
+    dq = torch.empty(B, H, Sq, D)
+    dk, dv = torch.empty(B, Hkv, Sk, D), torch.empty(B, Hkv, Sk, D)
+    delta = torch.empty(B, H, Sq)
+    strides = FB._STRIDES(*(st for t in (q, k, v, o, do)
+                            for st in t.stride()[:3]))
+    err = getattr(host_libs[FB], f"flash_attention_bwd_f32_d{D}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, strides,
         int(causal), 1.0 / math.sqrt(D), None)
     assert err == 0
-    _close(out, FA.flash_attention_plain(q, k, v, causal=causal).numpy(),
-           2e-5)
+    want = FB.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    for got, w in zip((dq, dk, dv), want):
+        _close(got, w.numpy(), 2e-5)
+
+
+# --------------------------------------------------------------------------
+# the gradients: plain closed forms against jax.vjp of the oracles, and
+# the autograd Functions' CPU path under gradcheck
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(256, 64), (128, 512), (7, 300)])
+def test_rmsnorm_bwd_plain_matches_jax_grad(shape):
+    rng = np.random.default_rng(10)
+    x, dy = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    s = rng.standard_normal(shape[1]).astype(np.float32)
+    _, vjp = jax.vjp(rmsnorm_ref, jnp.array(x), jnp.array(s))
+    want_dx, want_ds = vjp(jnp.array(dy))
+    tx, ts = torch.from_numpy(x), torch.from_numpy(s)
+    _, rstd = RN.rmsnorm_plain(tx, ts, with_rstd=True)
+    dx, ds = RB.rmsnorm_bwd_plain(tx, ts, rstd, torch.from_numpy(dy))
+    _close(dx, want_dx, 1e-5)
+    _close(ds, want_ds, 1e-5)
+
+
+@pytest.mark.parametrize("D", [32, 64, 112, 128])
+@pytest.mark.parametrize("H,Hkv", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_plain_matches_jax_grad(D, H, Hkv, causal):
+    """GQA through the oracle: K and V repeated to H heads inside the
+    differentiated function, so their gradients sum over each group."""
+    rng = np.random.default_rng(D + H)
+    B, S = 2, 96
+    q = rng.standard_normal((B, H, S, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((B, H, S, D)).astype(np.float32)
+
+    def ref(q, k, v):
+        return attention_ref(q, jnp.repeat(k, H // Hkv, axis=1),
+                             jnp.repeat(v, H // Hkv, axis=1), causal=causal)
+
+    _, vjp = jax.vjp(ref, jnp.array(q), jnp.array(k), jnp.array(v))
+    want = vjp(jnp.array(do))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      with_lse=True)
+    got = FB.flash_attention_bwd_plain(tq, tk, tv, o, torch.from_numpy(do),
+                                       lse, causal=causal)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5)
+
+
+def test_rmsnorm_function_passes_gradcheck():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 8, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    s = torch.randn(8, generator=g, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(lambda x, s: RB.RMSNorm.apply(x, s, 1e-6),
+                                    (x, s))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_function_passes_gradcheck(causal):
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(1, 4, 5, 3, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    k, v = (torch.randn(1, 2, 6, 3, generator=g, dtype=torch.float64,
+                        requires_grad=True) for _ in range(2))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: FB.FlashAttention.apply(q, k, v, causal), (q, k, v))
+
+
+def test_backward_plain_versions_do_not_count():
+    x = torch.ones(4, 8, requires_grad=True)
+    q = torch.ones(1, 1, 4, 32, requires_grad=True)
+    before = (RN.LAUNCHES, RB.LAUNCHES, FA.LAUNCHES, FB.LAUNCHES)
+    RB.RMSNorm.apply(x, torch.ones(8), 1e-6).sum().backward()
+    FB.FlashAttention.apply(q, q, q, True).sum().backward()
+    assert (RN.LAUNCHES, RB.LAUNCHES, FA.LAUNCHES, FB.LAUNCHES) == before
+

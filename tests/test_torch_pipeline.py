@@ -75,7 +75,10 @@ def test_port_imports_nothing_of_jax_or_the_reference():
         "'kernels.selective_scan.selective_scan', 'core.interp', "
         "'core.interp_mem', 'core.governor', 'core.parallel', "
         "'core.simx', 'core.runtime', 'core.backends.asm', "
-        "'core.backends.torchgen')}\n"
+        "'core.backends.torchgen', 'train.data', 'train.optimizer', "
+        "'train.train_step', 'train.checkpoint', 'train.loop', "
+        "'launch.train', 'kernels.rmsnorm.rmsnorm_bwd', "
+        "'kernels.flash_attention.flash_attention_bwd')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
