@@ -66,8 +66,10 @@ Seven paths of the port, each at full width:
     each step's loss, grad norm and ms, tokens/s after the first step,
     peak memory, the idle share and top kernels of one step, every leaf's
     gradient norm (finite and nonzero). The backward kernels are held
-    against their plain versions at the path's shapes (and attention at
-    head dims 112 and 128), the forward's lse-writing launch against the
+    against their plain versions at the path's shapes (attention also at
+    head dims 112 and 128, and at granite's shape with do scaled by 1 /
+    8192, as the train step's mean loss scales it), the forward's
+    lse-writing launch against the
     launch without lse (its output bit for bit), and two backward calls
     against each other (bit for bit); a depth-2 model at full width takes
     one step on the card and on the CPU from the same params and batch (1
@@ -91,11 +93,13 @@ before, read just after): a record's ``launches_by_path`` gives each
 path's own count (``compiler``; ``<model>/prefill`` and
 ``<model>/serve``; ``granite-3-2b/train``) and ``launches`` their sum;
 the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``) are
-counted apart from the forward ones. flash_attention and
-moe_dispatch also count by route (``launches_by_route``: tensor_cores or
-cuda_cores, on each path); every launch of theirs on the four prefill
-paths must take the tensor cores. nvcc's ``-Xptxas -v`` registers and
-spills of the tensor-core kernels are printed after the build. Each kernel is timed, and
+counted apart from the forward ones. flash_attention, moe_dispatch and
+flash_attention_bwd also count by route (``launches_by_route``:
+tensor_cores or cuda_cores, on each path); every launch of theirs on the
+four prefill paths and the train path must take the tensor cores.
+nvcc's ``-Xptxas -v`` registers and spills of the tensor-core kernels
+(and of rmsnorm_bwd's vector route) are printed after the build. Each
+kernel is timed, and
 the script prints one JSON line of kernel records and a last line
 ``{"ok": true, "device": {...}}``.
 
@@ -428,9 +432,9 @@ def _device_ms(fn, calls: int = 20):
     kernel's mean time over its recorded launches, summed over the
     kernels, so a kernel counts once per call. The trace can drop launch
     records (on the H100 as few as 1 in 20), so the records are not
-    counted as launches; records per call come back beside the kernels'
-    names. None where the trace shows no device time in three tries (one
-    trace of the H100 came back empty)."""
+    counted as launches; records per call come back beside each kernel's
+    mean ms by name. None where the trace shows no device time in three
+    tries (one trace of the H100 came back empty)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -442,10 +446,15 @@ def _device_ms(fn, calls: int = 20):
         evs = [e for e in prof.key_averages()
                if e.self_device_time_total > 0]
         if evs:
-            us = sum(e.self_device_time_total / e.count for e in evs)
-            return (us / 1e3, sorted({e.key[:40] for e in evs}),
+            each: dict = {}
+            for e in evs:   # names without the common prefix, cut to 40
+                k = e.key.replace("void ", "").replace(
+                    "(anonymous namespace)::", "")[:40]
+                each[k] = each.get(k, 0.0) + (e.self_device_time_total
+                                              / e.count / 1e3)
+            return (sum(each.values()), dict(sorted(each.items())),
                     sum(e.count for e in evs) / calls)
-    return None, [], 0.0
+    return None, {}, 0.0
 
 
 CASES = [("vecadd", 256), ("saxpy", 256), ("blackscholes", 256),
@@ -760,7 +769,8 @@ def _count(cfg, mixer=None, ff=None) -> int:
 
 #: launches of the two-route kernels by route, on each counted path
 ROUTE_COUNTS: dict = {}
-ROUTED = {"flash_attention": fa, "moe_dispatch": md}
+ROUTED = {"flash_attention": fa, "moe_dispatch": md,
+          "flash_attention_bwd": fb}
 
 
 def _zero_counts() -> None:
@@ -779,11 +789,17 @@ def _route_counts() -> dict:
 
 
 #: the kernels whose registers and spills the build log is read for: the
-#: tensor-core kernels and decode's expert FF (bf16, one row a CTA)
+#: tensor-core kernels, decode's expert FF (bf16, one row a CTA) and the
+#: rmsnorm backward's vector route at one vector a thread (four CTAs an
+#: SM need at most 64 registers)
 PTXAS_NAMES = ((r"fa_tc_kernelILi(\d+)E", "fa_tc_kernel<{}>"),
                (r"moe_up_tcE", "moe_up_tc"), (r"moe_down_tcE", "moe_down_tc"),
                (r"moe_ff_partialI13__nv_bfloat16Li1E",
-                "moe_ff_partial<bf16, 1>"))
+                "moe_ff_partial<bf16, 1>"),
+               (r"fa_bwd_dkdv_tcILi(\d+)E", "fa_bwd_dkdv_tc<{}>"),
+               (r"fa_bwd_dq_tcILi(\d+)E", "fa_bwd_dq_tc<{}>"),
+               (r"rmsnorm_bwd_vecI13__nv_bfloat16Li1E",
+                "rmsnorm_bwd_vec<bf16, 1>"))
 
 
 def _ptxas_lines(kernel) -> list:
@@ -967,7 +983,7 @@ def _kernel_row(name, shape, fn, plain_fn, lib_fn, nbytes, ops, ops_rate,
     events, while it is still loaded."""
     ms = _median_ms(fn, reps, batch)
     clocks = _smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
-    dev_ms, _, per_call = _device_ms(fn, calls)
+    dev_ms, by_kernel, per_call = _device_ms(fn, calls)
     plain_ms = _median_ms(plain_fn, reps, batch=1)
     library_ms = None if lib_fn is None else _median_ms(lib_fn, reps, batch)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -983,9 +999,12 @@ def _kernel_row(name, shape, fn, plain_fn, lib_fn, nbytes, ops, ops_rate,
           + ("none" if library_ms is None else f"{library_ms:.4f} ms")
           + f"  card after the events: {clocks.splitlines()[0]} (sm, max "
           "sm, power, temp)")
+    if len(by_kernel) > 1:
+        print(f"device {name} by kernel: " + "; ".join(
+            f"{k} {v:.4f} ms" for k, v in by_kernel.items()))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "device_ms": dev_ms}
+            "device_ms": dev_ms, "device_ms_by_kernel": by_kernel}
 
 
 def _fa_row(g, dev, cfg, reps, errs):
@@ -1662,12 +1681,19 @@ def _fa_bwd_inputs(g, dev, B, H, Hkv, S, D, dtype):
     return q, k, v, do
 
 
+#: the train step's scale of do: the mean loss over 4 x 2048 tokens
+#: divides every gradient by 8192
+TRAIN_DO_SCALE = 1.0 / (TRAIN_B * TRAIN_S)
+
+
 def train_kernel_checks(dev, cfg, seed) -> dict:
     """Each backward kernel against its plain version at the train path's
     shapes (rmsnorm (8192, 2048); attention (4, 32, 2048, 64) with 8 KV
-    heads, causal; head dims 112 and 128 at batch 1), bf16 and float32;
-    the forward's lse-writing launch bit for bit the launch without lse;
-    two backward calls bit for bit the same."""
+    heads, causal; head dims 112 and 128 at batch 1), bf16 (attention's
+    on the tensor cores) and float32 (the CUDA cores); attention at
+    granite's shape once more with do at the train step's scale; the
+    forward's lse-writing launch bit for bit the launch without lse; two
+    backward calls bit for bit the same."""
     g = torch.Generator(dev).manual_seed(seed)
     errs: dict = {}
     N, d = TRAIN_B * TRAIN_S, cfg.d_model
@@ -1690,11 +1716,18 @@ def train_kernel_checks(dev, cfg, seed) -> dict:
               f"forward with rstd equal to without; two calls bit for bit "
               f"equal: {same}")
         del x, s, dy, y, r, got, again
-    shapes = [(TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
-              (1, 64, 8, 112), (1, 16, 16, 128)]
-    for B, H, Hkv, D in shapes:
+    shapes = [(TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 1.0),
+              (TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+               TRAIN_DO_SCALE),
+              (1, 64, 8, 112, 1.0), (1, 16, 16, 128, 1.0)]
+    for B, H, Hkv, D, do_scale in shapes:
         for dt in (torch.bfloat16, torch.float32):
+            if do_scale != 1.0 and dt != torch.bfloat16:
+                continue
             q, k, v, do = _fa_bwd_inputs(g, dev, B, H, Hkv, TRAIN_S, D, dt)
+            if do_scale != 1.0:
+                do = (do.float() * do_scale).to(dt)
+            way = fb.route(dt, D, fa._rows_aligned(q, k, v, do))
             o, lse = fa.flash_attention(q, k, v, causal=True, with_lse=True)
             same_o = torch.equal(o, fa.flash_attention(q, k, v, causal=True))
             _, want_lse = fa.flash_attention_plain(q, k, v, causal=True,
@@ -1713,7 +1746,8 @@ def train_kernel_checks(dev, cfg, seed) -> dict:
             if not same:
                 raise AssertionError("flash_attention_bwd: two calls differ")
             print(f"check flash_attention_bwd ({B}, {H}, {TRAIN_S}, {D}) kv "
-                  f"heads {Hkv} causal {str(dt)[6:]} vs plain, largest "
+                  f"heads {Hkv} causal {str(dt)[6:]} do x {do_scale:.6g} "
+                  f"({way}) vs plain, largest "
                   f"relative error {msg} (tol {BWD_TOL[dt]}); the forward's "
                   f"out with lse bit for bit the out without: {same_o}, lse "
                   f"relative error {e_lse:.3g}; two calls bit for bit "
@@ -1902,6 +1936,11 @@ def train_phase(dev, seed: int, reps: int):
     want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in KERNELS}
     if counts != want:
         raise AssertionError(f"train launched {counts}; expected {want}")
+    for name, by_route in ROUTE_COUNTS[f"{cfg.name}/train"].items():
+        if by_route != {"tensor_cores": counts[name], "cuda_cores": 0}:
+            raise AssertionError(f"train: {name} launched {by_route} by "
+                                 "route; every launch must take the "
+                                 "tensor cores")
     if not all(math.isfinite(x) for x in res.losses + res.grad_norms) \
             or min(res.grad_norms) <= 0:
         raise AssertionError(f"train: losses {res.losses}, grad norms "
@@ -1997,7 +2036,7 @@ def main() -> int:
     for name, (so, secs) in zip(srcs, built):
         print(f"build {name:13s} {so.name[:12]} nvcc {secs:.1f} s")
     print(f"build total {time.perf_counter() - t0:.1f} s")
-    for m in ROUTED.values():
+    for m in (*ROUTED.values(), rb):
         for line in _ptxas_lines(m.KERNEL):
             print(f"ptxas {line}")
 

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core routes of
-// flash_attention.cu and moe_dispatch.cu: shared-memory matrix
-// descriptors, wgmma (warpgroup matrix multiply-accumulate, bf16 or fp16
-// in, float32 accumulators in registers), bf16 -> fp16 conversion (of a
-// word, and of a tile in shared memory in place), and cp.async copies
-// into tiles in the 128-byte-swizzled layout that wgmma reads.
+// flash_attention.cu, flash_attention_bwd.cu and moe_dispatch.cu:
+// shared-memory matrix descriptors, wgmma (warpgroup matrix
+// multiply-accumulate, bf16 or fp16 in, float32 accumulators in
+// registers), bf16 -> fp16 conversion (of a word, and of a tile in shared
+// memory in place), and cp.async copies into tiles in the
+// 128-byte-swizzled layout that wgmma reads (copy_rows).
 //
 // The tile layout. A 16-bit operand tile (bf16 or fp16) is kept as
 // column blocks of 64 elements: a block holds R rows of 128 bytes, row r
@@ -40,9 +41,7 @@
 
 namespace sm90 {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+// ---- layout and conversions -------------------------------------------
 
 // byte offset of 16-byte chunk c (0..7) of row r in a swizzled block
 __device__ __forceinline__ uint32_t swz(int r, int c) {
@@ -56,6 +55,36 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// two floats as a bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two floats as an fp16 pair, the first in the low half, rounded to
+// nearest: 11 significant bits; |x| > 65504 becomes inf, |x| < 6.1e-5
+// keeps fewer bits (subnormal)
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a bf16 pair (one word, the first in the low half) as an fp16 pair:
+// bf16 -> float is exact (a bf16 is the top half of its float), float ->
+// fp16 as pack_f16
+__device__ __forceinline__ uint32_t bf16x2_to_f16x2(uint32_t w) {
+  return pack_f16(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// ---- the hardware: shared addresses, wgmma, cp.async (inline PTX) -----
+// The host tests build the kernels against tests/cuda_host/sm90/sm90.cuh,
+// which defines SM90_HOST_EMULATION and emulates these in its place.
+#ifndef SM90_HOST_EMULATION
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
 // 2^x by the special function unit, denormal results flushed to zero
@@ -171,27 +200,6 @@ SM90_MMA_128(F16, "f16")
 #undef SM90_R32
 #undef SM90_R64
 
-// two floats as a bf16 pair, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two floats as an fp16 pair, the first in the low half, rounded to
-// nearest: 11 significant bits; |x| > 65504 becomes inf, |x| < 6.1e-5
-// keeps fewer bits (subnormal)
-__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// a bf16 pair (one word, the first in the low half) as an fp16 pair:
-// bf16 -> float is exact (a bf16 is the top half of its float), float ->
-// fp16 as pack_f16
-__device__ __forceinline__ uint32_t bf16x2_to_f16x2(uint32_t w) {
-  return pack_f16(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-}
-
 // the 16-byte chunk at shared address a, eight bf16, rewritten in place as
 // eight fp16. A tile that an fp16 product reads goes through this after
 // its copy lands: the layout is unchanged, only the element type. The
@@ -228,15 +236,49 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// copies 4 bytes (src on 4 bytes), or writes 4 zero bytes where ``full``
+// is false (src is then not read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
 // orders this thread's shared-memory writes (cp.async included) before
 // reads by the async proxy, which is how wgmma reads its operands
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+#endif  // SM90_HOST_EMULATION
+
+// ---- tiles ------------------------------------------------------------
+
 // the first 1024-byte boundary at or past p, as a shared address
 __device__ __forceinline__ uint32_t align1024(const void* p) {
   return (smem_addr(p) + 1023u) & ~1023u;
+}
+
+// R rows of D 16-bit elements (bf16 or fp16) from src (ld elements
+// apart) into a tile at dst: ceil(D / 64) column blocks of 64, R * 128
+// bytes each, in the swizzled layout. The THREADS threads of the CTA
+// share the 16-byte chunks; rows from ``valid`` on, and the chunks of a
+// block past D, are zero-filled and not read.
+template <int R, int D, int THREADS, typename T>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const T* src,
+                                          long long ld, int valid,
+                                          int tid) {
+  constexpr int CPR = D / 8;                   // 16-byte chunks a row
+  constexpr int SLOTS = (D + 63) / 64 * 8;     // chunks a tile row holds
+  static_assert(R * SLOTS % THREADS == 0, "whole passes of the CTA");
+#pragma unroll
+  for (int i = 0; i < R * SLOTS / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / SLOTS, ch = c % SLOTS;
+    const bool in = r < valid && ch < CPR;
+    cp_async16(dst + (ch >> 3) * (R * 128) + swz(r, ch & 7),
+               src + (in ? r * ld + ch * 8 : 0), in);
+  }
 }
 
 }  // namespace sm90

@@ -329,26 +329,6 @@ struct TcTiles {
   static constexpr int MIN_CTAS = DP == 64 ? 4 : 2;
 };
 
-// R rows of D 16-bit elements (bf16 or fp16) from src (ld elements
-// apart) into the column blocks of 64 at dst; rows from ``valid`` on, and
-// the chunks of a block past D, are zero-filled and not read
-template <int R, int D, typename T>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const T* src,
-                                          long long ld, int valid,
-                                          int tid) {
-  constexpr int CPR = D / 8;                   // 16-byte chunks a row
-  constexpr int SLOTS = TcTiles<D>::DP / 8;    // chunks a tile row holds
-  static_assert(R * SLOTS % TC_THREADS == 0, "whole passes of the CTA");
-#pragma unroll
-  for (int i = 0; i < R * SLOTS / TC_THREADS; ++i) {
-    const int c = tid + i * TC_THREADS;
-    const int r = c / SLOTS, ch = c % SLOTS;
-    const bool in = r < valid && ch < CPR;
-    sm90::cp_async16(dst + (ch >> 3) * (R * 128) + sm90::swz(r, ch & 7),
-                     src + (in ? r * ld + ch * 8 : 0), in);
-  }
-}
-
 // v (B, Hkv, Sk, D) bf16, read through its strides, as a contiguous fp16
 // (B, Hkv, Sk, D) at vh: the operand type of the P V product, made once
 // a call instead of once a tile in every CTA that reads it
@@ -395,10 +375,11 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kv_end = causal ? min(Sk, min(q0 + TC_BQ, Sq)) : Sk;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
-  copy_rows<TC_BQ, D>(sq, q + b * qs.b + h * qs.h + q0 * qs.s, qs.s,
-                      Sq - q0, tid);
-  copy_rows<BK, D>(skv, kb, ks.s, kv_end, tid);
-  copy_rows<BK, D>(skv + TL::KV_BYTES, vb, D, kv_end, tid);
+  sm90::copy_rows<TC_BQ, D, TC_THREADS>(
+      sq, q + b * qs.b + h * qs.h + q0 * qs.s, qs.s, Sq - q0, tid);
+  sm90::copy_rows<BK, D, TC_THREADS>(skv, kb, ks.s, kv_end, tid);
+  sm90::copy_rows<BK, D, TC_THREADS>(skv + TL::KV_BYTES, vb, D, kv_end,
+                                     tid);
   sm90::cp_async_commit();
 
   float acc[DP / 2];
@@ -413,9 +394,10 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t + 1 < n_tiles) {   // the stage the last tile used
       const uint32_t nk = skv + ((t + 1) & 1) * 2 * TL::KV_BYTES;
       const int left = kv_end - k0 - BK;
-      copy_rows<BK, D>(nk, kb + (k0 + BK) * ks.s, ks.s, left, tid);
-      copy_rows<BK, D>(nk + TL::KV_BYTES, vb + (k0 + BK) * D, D, left,
-                       tid);
+      sm90::copy_rows<BK, D, TC_THREADS>(nk, kb + (k0 + BK) * ks.s, ks.s,
+                                         left, tid);
+      sm90::copy_rows<BK, D, TC_THREADS>(
+          nk + TL::KV_BYTES, vb + (k0 + BK) * D, D, left, tid);
     }
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();   // this tile (and q) have landed

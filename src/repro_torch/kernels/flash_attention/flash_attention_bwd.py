@@ -10,9 +10,19 @@ stores each query row's log-sum-exp, and its backward is
 ``csrc/flash_attention_bwd.cu`` (that file's note has the design): a
 pre-pass for ``delta = rowsum(do * o)``, one kernel a (batch, KV head,
 64-key tile) for dk and dv, one a (batch, head, 64-query tile) for dq,
-float32 on the CUDA cores, with no float atomics, so two calls give the
-same bits. Head dims 32, 64, 112 and 128; K and V may have fewer heads
-than q (Hkv dividing H); every input is read through its strides.
+each summing in one fixed order with no float atomics, so two calls give
+the same bits. Two routes, which ``route`` picks up front from the dtype,
+the head dim and the rows' alignment, as the forward's:
+
+  * ``tensor_cores``: bf16 at head dim 64, 112 or 128 with q, k, v and do
+    rows on 16 bytes. One warpgroup a CTA, all seven products by wgmma
+    (bf16 in, float32 accumulators), P and dS carried between products
+    in registers as bf16 pairs;
+  * ``cuda_cores``: everything else (float32; bf16 at head dim 32 or with
+    unaligned rows), float32 on the CUDA cores.
+
+Head dims 32, 64, 112 and 128; K and V may have fewer heads than q (Hkv
+dividing H); every input is read through its strides.
 
 It is built with nvcc at first use into
 ``build/flash_attention_bwd/<sha256>.so`` and launched through ctypes on
@@ -29,12 +39,14 @@ from typing import Tuple
 
 import torch
 
-from ..build import SourceKernel
+from ..build import CSRC, SourceKernel
 from . import flash_attention as FA
 
 #: launches of the CUDA backward (one a call, three kernels); the plain
 #: version does not count
 LAUNCHES = 0
+#: the same launches by route (``route``)
+LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0}
 HEAD_DIMS = FA.HEAD_DIMS
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,8 +59,28 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = SourceKernel(
     "flash_attention_bwd",
     Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu",
-    {f"flash_attention_bwd_{t}_d{d}": _ARGS
-     for t in _SUFFIX.values() for d in HEAD_DIMS})
+    {**{f"flash_attention_bwd_{t}_d{d}": _ARGS
+        for t in _SUFFIX.values() for d in HEAD_DIMS},
+     **{f"flash_attention_bwd_bf16_tc_d{d}": _ARGS
+        for d in FA.TC_HEAD_DIMS}},
+    headers=[CSRC / "sm90.cuh"])
+
+
+def route(dtype: torch.dtype, head_dim: int, rows_aligned: bool = True
+          ) -> str:
+    """The route a CUDA launch takes, by the forward's rule
+    (``flash_attention.route``): ``tensor_cores`` for bf16 at a head dim
+    of ``TC_HEAD_DIMS`` whose q, k, v and do rows start on 16 bytes, else
+    ``cuda_cores``."""
+    return FA.route(dtype, head_dim, rows_aligned)
+
+
+def entry(dtype: torch.dtype, head_dim: int, rows_aligned: bool = True
+          ) -> str:
+    """The exported C function a CUDA launch calls."""
+    tc = route(dtype, head_dim, rows_aligned) == "tensor_cores"
+    return (f"flash_attention_bwd_{_SUFFIX[dtype]}{'_tc' if tc else ''}"
+            f"_d{head_dim}")
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -97,7 +129,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) as ``flash_attention_bwd_plain``; dq (B, H, Sq, D),
     dk and dv (B, Hkv, Sk, D), contiguous. CPU tensors take the plain
-    version, CUDA tensors the kernels."""
+    version, CUDA tensors the kernels of ``route``."""
     global LAUNCHES
     B, H, Hkv, Sq, Sk, D = _check(q, k, v, o, do, lse)
     tensors = (q, k, v, o, do, lse)
@@ -118,6 +150,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
                       for t in (q, k, v, o, do))
     lse = lse.contiguous()
+    aligned = FA._rows_aligned(q, k, v, do)
+    way = route(q.dtype, D, aligned)
     blocks = max(B * H * -(-Sq // 64), B * Hkv * -(-Sk // 64))
     if Sk == 0 or blocks >= 2**31:
         raise ValueError(f"flash_attention_bwd kernel: Sk = {Sk}, "
@@ -130,13 +164,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = _STRIDES(*(st for t in (q, k, v, o, do)
                          for st in t.stride()[:3]))
-    KERNEL.call(f"flash_attention_bwd_{_SUFFIX[q.dtype]}_d{D}",
-                q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), B, H, Hkv, Sq, Sk, strides, int(causal),
-                1.0 / math.sqrt(D))
+    KERNEL.call(entry(q.dtype, D, aligned), q.get_device(), q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, strides,
+                int(causal), 1.0 / math.sqrt(D))
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[way] += 1
     return dq, dk, dv
 
 

@@ -11,22 +11,36 @@
 //   dscale = sum over the rows of dy * x * r        (cast to scale's type)
 //
 // Bound: bytes. x and dy are read and dx written once; a few operations
-// an element. The design: rmsnorm_bwd_rows runs one CTA of 256 threads
-// over the rows blockIdx.x, blockIdx.x + gridDim.x, ...; each thread
-// holds J columns (c = t + 256 j) of the row and of the CTA's dscale
-// partial sums in registers, and writes its partials once at the end to
-// a (parts, d) float32 scratch. rmsnorm_bwd_reduce then sums each column
-// over the parts in one fixed order. No float atomics: two calls on the
-// same inputs give the same bits. Loads are one element a thread,
-// neighbouring threads on neighbouring elements (16-byte vectors are a
-// later change).
+// an element. The design: one CTA of 256 threads runs over the rows
+// blockIdx.x, blockIdx.x + gridDim.x, ...; each thread holds its columns
+// of the row and of the CTA's dscale partial sums in registers, and
+// writes its partials once at the end to a (parts, d) float32 scratch.
+// rmsnorm_bwd_reduce then sums each column over the parts in one fixed
+// order. No float atomics: two calls on the same inputs give the same
+// bits. Two routes, as the forward (rmsnorm.cu) has them:
+//   * rmsnorm_bwd_vec, where the row is a whole number of 16-byte vectors
+//     and every pointer is on 16 bytes: x, dy and scale are read and dx
+//     written in 16-byte vectors (8 bf16 or 4 float32), neighbouring
+//     threads on neighbouring vectors (x, dy and dx at (8192, 2048) bf16
+//     move at about the forward's rate; loading the next row's vectors
+//     ahead of this row's reduction was tried and gained nothing);
+//   * rmsnorm_bwd_rows, the scalar route for any other row: one element a
+//     thread a load, neighbouring threads on neighbouring elements.
+// rmsnorm_bwd_reduce sums a column's partials one after another, part 0
+// first, but loads them with the whole CTA: 256 threads copy chunks of
+// 128 parts x 16 columns into shared memory, two chunks in turn, while 16
+// threads add the last chunk's column by column. (One thread a column
+// loading its own partials, 8 CTAs at d = 2048, waited on each load; 16
+// columns a CTA keep 128 CTAs loading.)
 //
 // The float32 instantiation compiles with g++ against the stand-in
 // runtime in tests/cuda_host, which runs it on the CPU.
 #include <cuda_runtime.h>
+#include <stdint.h>
 #ifdef __CUDACC__
 #include <cuda_bf16.h>
 #endif
+#include "vec16.cuh"
 
 #ifndef VX_LAUNCH
 #define VX_LAUNCH(K, G, B, S, ...) \
@@ -36,17 +50,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store_f32(float v, float* p) { *p = v; }
-#ifdef __CUDACC__
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_f32(float v, __nv_bfloat16* p) {
-  *p = __float2bfloat16(v);
-}
-#endif
 
 // the sum over the CTA's kThreads threads, the same in every thread; the
 // closing barrier lets the next row reuse the shared slots
@@ -62,7 +65,8 @@ __device__ __forceinline__ float row_sum(float v) {
   return total;
 }
 
-// dx for the rows of this CTA, and its dscale partials in partial[cta]
+// the scalar route: dx for the rows of this CTA, and its dscale partials
+// in partial[cta]
 template <typename T, int J>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_bwd_rows(const T* __restrict__ x, const T* __restrict__ scale,
@@ -110,38 +114,160 @@ rmsnorm_bwd_rows(const T* __restrict__ x, const T* __restrict__ scale,
   }
 }
 
-// dscale[c] = the sum of partial[0..parts)[c], in that order
+// the vector route: dx for the rows of this CTA, and its dscale partials
+// in partial[cta]; each thread holds at most NV vectors of kVec columns
+// (vector i = t + 256 j), x and dy as they were loaded, scale likewise
+template <typename T, int NV>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_vec(const T* __restrict__ x, const T* __restrict__ scale,
+                const float* __restrict__ rstd, const T* __restrict__ dy,
+                T* __restrict__ dx, float* __restrict__ partial, int n,
+                int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int t = threadIdx.x, nvec = d / kVec;
+  const uint4* sr = reinterpret_cast<const uint4*>(scale);
+  uint4 sv[NV], xv[NV], gv[NV];   // scale, and this row's x and dy
+  float ds[NV][kVec];
+  const uint4 zero = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = t + j * kThreads;
+    sv[j] = i < nvec ? sr[i] : zero;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) ds[j][k] = 0.f;
+  }
+  for (int row = blockIdx.x; row < n; row += gridDim.x) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (long long)row * d);
+    const uint4* dyr =
+        reinterpret_cast<const uint4*>(dy + (long long)row * d);
+    const float r = rstd[row];
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int i = t + j * kThreads;
+      if (i < nvec) {
+        xv[j] = xr[i];
+        gv[j] = dyr[i];
+        float xf[kVec], dyf[kVec], sf[kVec];
+        unpack(xv[j], xf, x);
+        unpack(gv[j], dyf, x);
+        unpack(sv[j], sf, x);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          dot += xf[k] * (sf[k] * dyf[k]);
+          ds[j][k] += dyf[k] * xf[k] * r;
+        }
+      }
+    }
+    const float mean = row_sum(dot) / (float)d;
+    const float r3m = r * r * r * mean;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + (long long)row * d);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int i = t + j * kThreads;
+      if (i < nvec) {
+        float xf[kVec], dyf[kVec], sf[kVec], o[kVec];
+        unpack(xv[j], xf, x);
+        unpack(gv[j], dyf, x);
+        unpack(sv[j], sf, x);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+          o[k] = r * (sf[k] * dyf[k]) - xf[k] * r3m;
+        dxr[i] = pack(o, x);
+      }
+    }
+  }
+  float4* pr = reinterpret_cast<float4*>(partial + (long long)blockIdx.x * d);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = t + j * kThreads;
+    if (i < nvec) {
+#pragma unroll
+      for (int k = 0; k < kVec / 4; ++k)
+        pr[i * (kVec / 4) + k] = {ds[j][4 * k], ds[j][4 * k + 1],
+                                  ds[j][4 * k + 2], ds[j][4 * k + 3]};
+    }
+  }
+}
+
+constexpr int kRedCols = 16;    // columns a reduce CTA sums
+constexpr int kRedParts = 128;  // parts a chunk holds
+
+// dscale[c] = the sum of partial[0..parts)[c], in that order: the CTA's
+// 16 columns, chunk by chunk through shared memory (the next chunk's
+// loads in flight while threads 0-15 add this one's)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_bwd_reduce(const float* __restrict__ partial, T* __restrict__ dscale,
                    int parts, int d) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= d) return;
+  __shared__ float tile[2][kRedParts][kRedCols];
+  constexpr int kLoads = kRedParts * kRedCols / kThreads;
+  const int t = threadIdx.x, c0 = blockIdx.x * kRedCols;
+  const int n_chunks = (parts + kRedParts - 1) / kRedParts;
+  float v[kLoads];
+  // element t + 256 i of chunk k: part 128 k + (t + 256 i) / 16, column
+  // c0 + t % 16; zero past the parts or d
+  auto load = [&](int k) {
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int p = k * kRedParts + (t + i * kThreads) / kRedCols;
+      const int c = c0 + t % kRedCols;
+      v[i] = p < parts && c < d ? partial[(long long)p * d + c] : 0.f;
+    }
+  };
   float acc = 0.f;
-  for (int p = 0; p < parts; ++p) acc += partial[(long long)p * d + c];
-  store_f32(acc, dscale + c);
+  load(0);
+  for (int k = 0; k < n_chunks; ++k) {
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i)
+      tile[k & 1][(t + i * kThreads) / kRedCols][t % kRedCols] = v[i];
+    __syncthreads();
+    if (k + 1 < n_chunks) load(k + 1);
+    if (t < kRedCols) {
+      const int rows = min(kRedParts, parts - k * kRedParts);
+      for (int r = 0; r < rows; ++r) acc += tile[k & 1][r][t];
+    }
+  }
+  if (t < kRedCols && c0 + t < d) store_f32(acc, dscale + c0 + t);
 }
 
-// J, the columns a thread holds, is the fewest of 1, 2, 4, ..., 32 that
-// cover d; d > 256 * 32 is refused (the wrapper checks it first)
+// The vector route where the row is a whole number of vectors and every
+// pointer is on 16 bytes (NV the fewest of 1, 2, 4, 8 that hold it: at
+// most 32 / kVec, as d <= 8192); else the scalar route, J the fewest of
+// 1, 2, 4, ..., 32 columns a thread that cover d. d > 256 * 32 is refused
+// (the wrapper checks it first).
 template <typename T>
 int launch(const void* x, const void* scale, const void* rstd,
            const void* dy, void* dx, void* dscale, void* partial, int n,
            int d, int parts, void* stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int nvec = d / kVec;
   const int j = (d + kThreads - 1) / kThreads;
-  auto rows = j <= 1 ? rmsnorm_bwd_rows<T, 1>
-      : j <= 2 ? rmsnorm_bwd_rows<T, 2>
-      : j <= 4 ? rmsnorm_bwd_rows<T, 4>
-      : j <= 8 ? rmsnorm_bwd_rows<T, 8>
-      : j <= 16 ? rmsnorm_bwd_rows<T, 16> : rmsnorm_bwd_rows<T, 32>;
   if (j > 32 || parts < 1) return 1;   // cudaErrorInvalidValue
-  VX_LAUNCH(rows, parts, kThreads, stream, (const T*)x, (const T*)scale,
-            (const float*)rstd, (const T*)dy, (T*)dx, (float*)partial, n,
-            d);
+  if (d % kVec == 0 &&
+      ((uintptr_t)x | (uintptr_t)scale | (uintptr_t)dy | (uintptr_t)dx |
+       (uintptr_t)partial) % 16 == 0) {
+    auto rows = nvec <= kThreads ? rmsnorm_bwd_vec<T, 1>
+        : nvec <= 2 * kThreads ? rmsnorm_bwd_vec<T, 2>
+        : nvec <= 4 * kThreads ? rmsnorm_bwd_vec<T, 4>
+        : rmsnorm_bwd_vec<T, 32 / kVec>;
+    VX_LAUNCH(rows, parts, kThreads, stream, (const T*)x, (const T*)scale,
+              (const float*)rstd, (const T*)dy, (T*)dx, (float*)partial, n,
+              d);
+  } else {
+    auto rows = j <= 1 ? rmsnorm_bwd_rows<T, 1>
+        : j <= 2 ? rmsnorm_bwd_rows<T, 2>
+        : j <= 4 ? rmsnorm_bwd_rows<T, 4>
+        : j <= 8 ? rmsnorm_bwd_rows<T, 8>
+        : j <= 16 ? rmsnorm_bwd_rows<T, 16> : rmsnorm_bwd_rows<T, 32>;
+    VX_LAUNCH(rows, parts, kThreads, stream, (const T*)x, (const T*)scale,
+              (const float*)rstd, (const T*)dy, (T*)dx, (float*)partial, n,
+              d);
+  }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   auto reduce = rmsnorm_bwd_reduce<T>;
-  VX_LAUNCH(reduce, (d + kThreads - 1) / kThreads, kThreads, stream,
+  VX_LAUNCH(reduce, (d + kRedCols - 1) / kRedCols, kThreads, stream,
             (const float*)partial, (T*)dscale, parts, d);
   return (int)cudaGetLastError();
 }

@@ -28,10 +28,12 @@ from ..build import SourceKernel
 LAUNCHES = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: the element access both rmsnorm sources include (16-byte vectors)
+VEC16 = Path(__file__).resolve().parent / "csrc" / "vec16.cuh"
 KERNEL = SourceKernel(
     "rmsnorm", Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu",
     {f"rmsnorm_{t}": [_P, _P, _P, _P, _I, _I, _F, _P]
-     for t in ("f32", "bf16")})
+     for t in ("f32", "bf16")}, headers=[VEC16])
 #: the C function of each dtype
 _NAME = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
 

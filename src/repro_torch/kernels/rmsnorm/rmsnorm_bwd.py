@@ -9,7 +9,9 @@ call that autograd cannot see through, so training on the card needs
 row's ``r = rsqrt(var + eps)``), its backward ``csrc/rmsnorm_bwd.cu``:
 
   * dx = r * g - x * r^3 * mean(x * g) per row, g = scale * dy, in
-    float32, cast to x's dtype;
+    float32, cast to x's dtype; rows read and written in 16-byte vectors
+    where d is a whole number of them and the pointers are on 16 bytes,
+    one element a thread otherwise (the C launcher picks);
   * dscale = the sum over rows of dy * x * r: per-CTA float32 partials,
     summed by a second kernel in one fixed order (no float atomics, so
     the result is the same bits every call).
@@ -44,7 +46,7 @@ KERNEL = SourceKernel(
     "rmsnorm_bwd",
     Path(__file__).resolve().parent / "csrc" / "rmsnorm_bwd.cu",
     {f"rmsnorm_bwd_{t}": [_P] * 7 + [_I] * 3 + [_P]
-     for t in ("f32", "bf16")})
+     for t in ("f32", "bf16")}, headers=[RN.VEC16])
 _NAME = {torch.float32: "rmsnorm_bwd_f32", torch.bfloat16: "rmsnorm_bwd_bf16"}
 
 

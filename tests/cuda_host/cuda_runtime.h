@@ -30,6 +30,7 @@
 #define __shared__ static
 
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 typedef void* cudaStream_t;

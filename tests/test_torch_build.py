@@ -10,11 +10,13 @@ import pytest
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention as FA
+from repro_torch.kernels.flash_attention import flash_attention_bwd as FB
 from repro_torch.kernels.moe_dispatch import moe_dispatch as MD
 from repro_torch.kernels.rmsnorm import rmsnorm as RN
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd as RB
 from repro_torch.kernels.selective_scan import selective_scan as SS
 
-KERNELS = (RN, FA, MD, SS)
+KERNELS = (RN, FA, MD, SS, RB, FB)
 
 
 def _sources(tmp_path: Path):
@@ -92,8 +94,16 @@ def test_every_included_header_is_declared(mod):
         assert beside or declared, f"{k.cu.name} includes {name}"
 
 
-@pytest.mark.parametrize("mod", (FA, MD), ids=lambda m: m.KERNEL.kind)
+@pytest.mark.parametrize("mod", (FA, MD, FB), ids=lambda m: m.KERNEL.kind)
 def test_tensor_core_kernels_build_with_the_shared_header(mod):
     assert build.CSRC / "sm90.cuh" in mod.KERNEL.headers
     assert build.CSRC in mod.KERNEL.includes()
     assert '#include "sm90.cuh"' in mod.KERNEL.cu.read_text()
+
+
+@pytest.mark.parametrize("mod", (RN, RB), ids=lambda m: m.KERNEL.kind)
+def test_rmsnorm_kernels_hash_their_shared_header(mod):
+    """Both rmsnorm sources include vec16.cuh from beside them; it is in
+    both build keys, so an edit to it rebuilds both."""
+    assert RN.VEC16 in mod.KERNEL.headers and RN.VEC16.exists()
+    assert '#include "vec16.cuh"' in mod.KERNEL.cu.read_text()

@@ -10,6 +10,13 @@ under ``torch.autograd.gradcheck`` in float64; the backward sources'
 float32 instantiations run on the host against the plain versions at
 1e-5 (rmsnorm) and 2e-5 (attention), as the forward sources are held.
 
+The attention sources' tensor-core routes also run on the host: their
+bf16 code built with g++ against ``tests/cuda_host/sm90`` (the inline-PTX
+helpers of ``sm90.cuh`` emulated, its layout code as it is), the forward
+at the card's bf16 tolerance, the backward at ``CARD_BWD_TOL``. The
+backward's route is held as a rounding model too: P and dS rounded to
+bf16 before their products, against the float32 plain version.
+
 The CUDA kernels against their plain versions, on a card, are in
 ``test_torch_lm_cuda.py`` and ``test_torch_train_cuda.py``.
 
@@ -243,6 +250,104 @@ def test_path_layouts_take_the_tensor_cores(H, Hkv, D):
         == "cuda_cores"
 
 
+@pytest.mark.parametrize("dtype,D,aligned,want", [
+    (torch.bfloat16, 64, True, "tensor_cores"),    # granite (4, 32, 2048, 64)
+    (torch.bfloat16, 128, True, "tensor_cores"),
+    (torch.bfloat16, 112, True, "tensor_cores"),
+    (torch.bfloat16, 112, False, "cuda_cores"),
+    (torch.bfloat16, 64, False, "cuda_cores"),     # rows off 16 bytes
+    (torch.bfloat16, 32, True, "cuda_cores"),
+    (torch.float32, 32, True, "cuda_cores"),
+    (torch.float32, 64, True, "cuda_cores"),       # the host tests' route
+    (torch.float32, 112, True, "cuda_cores"),
+    (torch.float32, 128, True, "cuda_cores")])
+def test_backward_route_names_the_entry(dtype, D, aligned, want):
+    """The backward picks its route by the forward's rule, up front, and
+    each route has its exported entry."""
+    assert FB.route(dtype, D, aligned) == want == FA.route(dtype, D, aligned)
+    name = FB.entry(dtype, D, aligned)
+    assert name in FB.KERNEL.argtypes
+    assert ("_tc_" in name) == (want == "tensor_cores")
+    assert name.startswith("flash_attention_bwd_") and name.endswith(
+        f"_d{D}")
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 64), (64, 8, 112),
+                                     (16, 16, 128), (64, 8, 128)])
+def test_train_layouts_take_the_tensor_cores_backward(H, Hkv, D):
+    """Granite's training heads (and the layouts at head dims 112 and 128)
+    as the layer and autograd hand them to the backward: q, k, v and do
+    transposed views of (B, S, H, D) tensors (S cut to 16), rows on 16
+    bytes. do one element off is not."""
+    q, k, v, do = (torch.zeros(2, 16, h, D, dtype=torch.bfloat16)
+                   .transpose(1, 2) for h in (H, Hkv, Hkv, H))
+    assert FB.route(q.dtype, D, FA._rows_aligned(q, k, v, do)) \
+        == "tensor_cores"
+    off = torch.zeros(do.numel() + 1, dtype=torch.bfloat16)[1:].view(
+        2, H, 16, D)
+    assert FB.route(q.dtype, D, FA._rows_aligned(q, k, v, off)) \
+        == "cuda_cores"
+
+
+#: chip_smoke.py's tolerance for the bf16 backward kernels: the largest
+#: |got - want| over the largest |want| of each output
+CARD_BWD_TOL = 1e-2
+
+
+def _tc_bwd_model(q, k, v, o, do, lse, causal):
+    """The backward's tensor-core route, written out: float32 scores, P,
+    delta and dP from the bf16 inputs; P and dS rounded to bf16 before the
+    products they enter (dV = P^T do, dK = dS^T q, dQ = dS k), float32
+    sums. Returns float32 (dq, dk, dv)."""
+    B, H, Hkv, Sq, Sk, D = FA._shapes(q, k, v)
+    G = H // Hkv
+    s = FA.scores_plain(q, k, causal)
+    p = torch.exp(s - lse.float()[..., None])
+    dof = do.float()
+    kr, vr = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vr) - delta)
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsb, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsb, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", pb, dof)
+    return (dq, dk.view(B, Hkv, G, Sk, D).sum(2),
+            dv.view(B, Hkv, G, Sk, D).sum(2))
+
+
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("do_scale", [1.0, 1.0 / 8192])
+def test_tensor_core_backward_rounding_model_meets_plain(D, do_scale):
+    """P and dS rounded to bf16 (2^-9 of each element) before their
+    products, float32 elsewhere, stay within the card's tolerance of the
+    float32 plain version, also with the kernels' bf16 outputs; and with
+    do at the train step's scale (the mean loss over 8192 tokens), where
+    bf16 keeps its bits and fp16 would not. Causal, GQA 4 / 2, Sq 200
+    and Sk 150 (ragged last tiles)."""
+    rng = np.random.default_rng(D)
+    q, k, v = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .bfloat16() for s in ((1, 4, 200, D), (1, 2, 150, D),
+                                     (1, 2, 150, D))]
+    do = torch.from_numpy((rng.standard_normal((1, 4, 200, D))
+                           * do_scale).astype(np.float32)).bfloat16()
+    o, lse = FA.flash_attention_plain(q, k, v, causal=True, with_lse=True)
+    got = _tc_bwd_model(q, k, v, o, do, lse, causal=True)
+    want = FB.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                        o.float(), do.float(), lse,
+                                        causal=True)
+    rels = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+    out = [float((a.bfloat16().float() - b.bfloat16().float()).abs().max()
+                 / b.abs().max()) for a, b in zip(got, want)]
+    print(f"D {D} do x {do_scale:g}: largest relative error dq, dk, dv "
+          f"{rels}, as bf16 outputs {out}; margin to {CARD_BWD_TOL}: "
+          f"{CARD_BWD_TOL / max(rels + out):.1f}x")
+    assert max(rels + out) < CARD_BWD_TOL
+    # the rounding is what moves the model: without it, float32 agrees
+    assert min(rels) > 1e-6
+
+
 def test_plain_versions_do_not_count():
     x = torch.ones(4, 8)
     before = (RN.LAUNCHES, FA.LAUNCHES, dict(FA.LAUNCHES_BY_ROUTE))
@@ -401,6 +506,51 @@ def test_rmsnorm_bwd_source_matches_plain_on_host(N, d, host_libs):
     want_dx, want_ds = RB.rmsnorm_bwd_plain(x, s, rstd, dy)
     _close(dx, want_dx.numpy(), 1e-5)
     _close(ds, want_ds.numpy(), 1e-5)
+    # dscale sums the parts one after another, part 0 first, in float32
+    acc = torch.zeros(d)
+    for row in partial:
+        acc = acc + row
+    assert torch.equal(ds, acc)
+
+
+@pytest.mark.parametrize("N,d,offset", [
+    (300, 1024, 0),    # the vector route, one vector a thread, 300 parts
+    (33, 4100, 0),     # five vectors a thread (eight held)
+    (7, 8192, 0),      # eight vectors a thread
+    (300, 1023, 0),    # d not whole vectors: the scalar route
+    (40, 2048, 1),     # x, dy one element past 16 bytes: the scalar route
+])
+def test_rmsnorm_bwd_routes_match_plain_on_host(N, d, offset, host_libs):
+    """Both routes of the float32 backward source give the plain version's
+    dx, and the same dscale bits: each CTA takes its rows in the same order
+    on either route."""
+    g = torch.Generator().manual_seed(N + d + offset)
+    x, dy = (torch.randn(N * d + offset, generator=g)[offset:].view(N, d)
+             for _ in range(2))
+    s = torch.randn(d, generator=g)
+    _, rstd = RN.rmsnorm_plain(x, s, with_rstd=True)
+    parts = min(N, RB.PARTS)
+    dx, ds = torch.empty(N, d), torch.empty(d)
+    partial = torch.empty(parts, d)
+    assert host_libs[RB].rmsnorm_bwd_f32(
+        x.data_ptr(), s.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), ds.data_ptr(), partial.data_ptr(), N, d, parts,
+        None) == 0
+    want_dx, want_ds = RB.rmsnorm_bwd_plain(x, s, rstd, dy)
+    _close(dx, want_dx.numpy(), 1e-5)
+    # dscale: sums of N terms in another order than torch's, held to 1e-5
+    # of the largest, as a column's terms may nearly cancel
+    assert float((ds - want_ds).abs().max()) \
+        <= 1e-5 * float(want_ds.abs().max())
+    # the scalar route on the same rows, from a misaligned copy of scale
+    s_off = torch.empty(d + 1)[1:]
+    s_off.copy_(s)
+    ds2 = torch.empty(d)
+    assert host_libs[RB].rmsnorm_bwd_f32(
+        x.data_ptr(), s_off.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+        torch.empty(N, d).data_ptr(), ds2.data_ptr(), partial.data_ptr(), N,
+        d, parts, None) == 0
+    assert torch.equal(ds, ds2)
 
 
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", [
@@ -434,6 +584,118 @@ def test_flash_attention_bwd_source_matches_plain_on_host(
     want = FB.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
     for got, w in zip((dq, dk, dv), want):
         _close(got, w.numpy(), 2e-5)
+
+
+# --------------------------------------------------------------------------
+# the tensor-core routes, run on the host: the bf16 code of the attention
+# sources built with g++ against tests/cuda_host/sm90 (sm90.cuh's helpers
+# emulated: wgmma reads its operands through the descriptors and the
+# 128-byte swizzle, each thread computes its accumulator fragment). The
+# forward's route, proven on the card, checks the emulation; the
+# backward's is held to the plain version at the card's tolerance.
+# --------------------------------------------------------------------------
+
+HOST_SM90 = HOST_CUDA / "sm90"
+
+
+@pytest.fixture(scope="module")
+def host_tc_libs(tmp_path_factory):
+    """flash_attention.cu and flash_attention_bwd.cu with their bf16
+    tensor-core entries, built for the host, one g++ each, at once."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to run the CUDA sources on the host")
+    out = tmp_path_factory.mktemp("host_tc_kernels")
+    procs = {}
+    for mod in (FA, FB):
+        so = out / f"{mod.KERNEL.kind}.so"
+        procs[mod] = (so, subprocess.Popen(
+            ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+             "-D__CUDACC__", f"-I{HOST_SM90}", f"-I{HOST_CUDA}", "-x", "c++",
+             "-o", str(so), str(mod.KERNEL.cu)],
+            stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for mod, (so, p) in procs.items():
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err
+        lib = ctypes.CDLL(str(so))
+        for name, types in mod.KERNEL.argtypes.items():
+            if "_tc_" in name:
+                getattr(lib, name).argtypes = types
+        libs[mod] = lib
+    return libs
+
+
+def _bf16_qkv(g, B, H, Hkv, Sq, Sk, D):
+    """q, k, v in bf16 as the layer passes them: transposed views of
+    (B, S, H, D) tensors."""
+    return (torch.randn(B, Sq, H, D, generator=g).bfloat16().transpose(1, 2),
+            *(torch.randn(B, Sk, Hkv, D, generator=g).bfloat16()
+              .transpose(1, 2) for _ in range(2)))
+
+
+TC_HOST_SHAPES = [
+    (1, 4, 2, 130, 100, 64, True),    # GQA 2, ragged tiles, Sq > Sk
+    (2, 2, 1, 64, 64, 64, True),      # one full tile, two batches
+    (1, 2, 1, 70, 150, 112, False),   # D = 112, every key, Sq < Sk
+    (1, 8, 1, 90, 90, 112, True),     # D = 112, GQA 8
+    (1, 2, 2, 100, 100, 128, True),   # D = 128
+    (1, 1, 1, 40, 70, 128, False),    # D = 128, every key
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", TC_HOST_SHAPES)
+def test_tensor_core_forward_source_matches_plain_on_host(
+        B, H, Hkv, Sq, Sk, D, causal, host_tc_libs):
+    """The forward's tensor-core entry under the emulated helpers, against
+    the plain version at the card's bf16 tolerance, lse at 1e-5."""
+    g = torch.Generator().manual_seed(Sq + D)
+    q, k, v = _bf16_qkv(g, B, H, Hkv, Sq, Sk, D)
+    out = torch.empty(B, H, Sq, D, dtype=torch.bfloat16)
+    lse = torch.empty(B, H, Sq)
+    vh = torch.empty(B, Hkv, Sk, D, dtype=torch.float16)
+    err = getattr(host_tc_libs[FA], FA.entry(torch.bfloat16, D))(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), vh.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, H, Hkv, Sq, Sk, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], int(causal), 1.0 / math.sqrt(D),
+        None)
+    assert err == 0
+    want, want_lse = FA.flash_attention_plain(q, k, v, causal=causal,
+                                              with_lse=True)
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    _close(lse, want_lse.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", TC_HOST_SHAPES)
+@pytest.mark.parametrize("do_scale", [1.0, 1.0 / 8192])
+def test_tensor_core_backward_source_matches_plain_on_host(
+        B, H, Hkv, Sq, Sk, D, causal, do_scale, host_tc_libs):
+    """The backward's tensor-core entry (delta pre-pass, dkdv, dq) under
+    the emulated helpers, against the plain version at the card's
+    tolerance (the largest |got - want| over the largest |want|), with do
+    at unit scale and at the train step's."""
+    g = torch.Generator().manual_seed(Sq + Sk + D)
+    q, k, v = _bf16_qkv(g, B, H, Hkv, Sq, Sk, D)
+    do = (torch.randn(B, Sq, H, D, generator=g) * do_scale).bfloat16() \
+        .transpose(1, 2)
+    o, lse = FA.flash_attention_plain(q, k, v, causal=causal, with_lse=True)
+    dq = torch.empty(B, H, Sq, D, dtype=torch.bfloat16)
+    dk = torch.empty(B, Hkv, Sk, D, dtype=torch.bfloat16)
+    dv = torch.empty_like(dk)
+    delta = torch.empty(B, H, Sq)
+    strides = FB._STRIDES(*(st for t in (q, k, v, o, do)
+                            for st in t.stride()[:3]))
+    err = getattr(host_tc_libs[FB], FB.entry(torch.bfloat16, D))(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, strides,
+        int(causal), 1.0 / math.sqrt(D), None)
+    assert err == 0
+    want = FB.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    rels = [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max()) for a, b in zip((dq, dk, dv), want)]
+    assert max(rels) < CARD_BWD_TOL, rels
 
 
 # --------------------------------------------------------------------------

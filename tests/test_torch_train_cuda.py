@@ -1,6 +1,7 @@
 """The backward kernels and training on the card: each backward kernel
-against its plain version, bit for bit determinism, the forward's lse,
-the guards of the kernels with no backward, and a few train_loop steps.
+against its plain version on each of its routes, bit for bit
+determinism, the forward's lse, the guards of the kernels with no
+backward, and a few train_loop steps.
 
 Imports nothing of JAX, so it runs on a machine with a GPU and no JAX:
 
@@ -76,6 +77,31 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, d, dtype):
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,offset", [
+    (8192, 2048, 0),     # granite's rows: the vector route, one a thread
+    (700, 4096, 0),      # two vectors a thread, more rows than CTAs
+    (64, 8192, 0),       # four vectors a thread (bf16)
+    (300, 2047, 0),      # odd d: the scalar route
+    (300, 2048, 1),      # x, dy one element past 16 bytes: scalar route
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_routes_match_plain(cuda, N, d, offset, dtype):
+    """Both routes of the backward: x and dy as views one element into
+    their storage where ``offset`` is 1, which the vector route's 16-byte
+    loads cannot take."""
+    g = torch.Generator(cuda).manual_seed(N + d + offset)
+    x, dy = (torch.randn(N * d + offset, generator=g, device=cuda)
+             .to(dtype)[offset:].view(N, d) for _ in range(2))
+    s = torch.randn(d, generator=g, device=cuda).to(dtype)
+    _, r = RN.rmsnorm(x, s, with_rstd=True)
+    dx, ds = RB.rmsnorm_bwd(x, s, r, dy)
+    wdx, wds = RB.rmsnorm_bwd_plain(x, s, r, dy)
+    assert _rel(dx, wdx) < TOL[dtype] and _rel(ds, wds) < TOL[dtype]
+    dx2, ds2 = RB.rmsnorm_bwd(x, s, r, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
 def _qkv(g, dev, B, H, Hkv, Sq, Sk, D, dtype):
     """q, k, v as the layer hands them over: (B, H, S, D) views of
     (B, S, H, D) tensors."""
@@ -113,6 +139,64 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, B, H, Hkv, Sq, Sk,
     assert max(errs) < TOL[dtype], errs
     again = FB.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk", [
+    (2, 2, 2, 200, 200),     # G = 1, ragged last tiles
+    (1, 8, 2, 150, 90),      # G = 4, Sq > Sk
+    (1, 8, 1, 70, 260),      # G = 8, Sq < Sk
+])
+@pytest.mark.parametrize("do_scale", [1.0, 1.0 / 8192])
+def test_flash_attention_bwd_tensor_cores_match_plain(
+        cuda, D, causal, B, H, Hkv, Sq, Sk, do_scale):
+    """The tensor-core route against the plain version, at the layer's
+    layouts, with do at unit scale and at the train step's 1 / 8192 (the
+    mean loss over 4 x 2048 tokens); counted under ``tensor_cores``; two
+    calls bit for bit the same."""
+    g = torch.Generator(cuda).manual_seed(Sq + Sk + D)
+    q, k, v = _qkv(g, cuda, B, H, Hkv, Sq, Sk, D, torch.bfloat16)
+    o, lse = FA.flash_attention(q, k, v, causal=causal, with_lse=True)
+    do = (torch.randn(B, Sq, H, D, generator=g, device=cuda) * do_scale) \
+        .bfloat16().transpose(1, 2)
+    assert FB.route(q.dtype, D, FA._rows_aligned(q, k, v, do)) \
+        == "tensor_cores"
+    before = dict(FB.LAUNCHES_BY_ROUTE)
+    got = FB.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert FB.LAUNCHES_BY_ROUTE == {**before, "tensor_cores":
+                                    before["tensor_cores"] + 1}
+    want = FB.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    errs = [_rel(a, b) for a, b in zip(got, want)]
+    assert max(errs) < TOL[torch.bfloat16], errs
+    assert all(torch.isfinite(a).all() for a in got)
+    again = FB.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_unaligned_rows_take_cuda_cores(cuda):
+    """bf16 rows off 16 bytes (q one element into its storage) and bf16 at
+    head dim 32 go to the CUDA cores, and agree with the plain version."""
+    g = torch.Generator(cuda).manual_seed(3)
+    B, H, Hkv, S = 1, 4, 2, 100
+    for D, off in ((64, 1), (32, 0)):
+        q = torch.randn(B * H * S * D + off, generator=g, device=cuda) \
+            .bfloat16()[off:].view(B, H, S, D)
+        k, v = (torch.randn(B, Hkv, S, D, generator=g, device=cuda)
+                .bfloat16() for _ in range(2))
+        o, lse = FA.flash_attention(q, k, v, causal=True, with_lse=True)
+        do = torch.randn(B, H, S, D, generator=g, device=cuda).bfloat16()
+        before = dict(FB.LAUNCHES_BY_ROUTE)
+        got = FB.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+        torch.cuda.synchronize()
+        assert FB.LAUNCHES_BY_ROUTE == {**before, "cuda_cores":
+                                        before["cuda_cores"] + 1}
+        want = FB.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True)
+        assert max(_rel(a, b) for a, b in zip(got, want)) \
+            < TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda
