@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Seven paths of the port, each at full width:
+Eight paths of the port, each at full width:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
@@ -57,9 +57,18 @@ Seven paths of the port, each at full width:
     token. The plain expert FF is held against the kernel on 32 of the
     384 experts at full d and f (all of them in float32 would be 67.6
     GB) and timed over all 384, 32 a call;
+  * the recurrent LM serving path on xlstm-1.3b at full width and depth
+    (48 layers, an sLSTM and seven mLSTMs a period, d_model 2048, 4 heads
+    of 512, no feed-forward: 1.04 B params, random weights from
+    ``--seed``, kimi's freed first): the same prefill, whose 49 RMSNorms
+    (48 ln1 and ln_f) go through the rmsnorm kernel and whose mixers are
+    plain torch (the time in the sLSTM and mLSTM layers printed apart),
+    and the same engine; its trace of where the time goes is taken on 4 x
+    512 tokens (every mixer's work grows with the tokens, and 4 x 2048
+    tokens are 344 K kernels);
   * training granite-3-2b at full width and depth (2.53 B params in bf16,
     AdamW with float32 moments, remat, random weights from ``--seed``,
-    kimi's freed first): ``train_loop`` takes 4 steps of 4 x 2048 tokens,
+    xlstm's freed first): ``train_loop`` takes 4 steps of 4 x 2048 tokens,
     whose RMSNorms and attentions go through the rmsnorm and
     flash_attention kernels forward (twice under remat: 161 and 80 a
     step) and through their backward kernels (81 and 40 a step). Printed:
@@ -87,11 +96,18 @@ width the CPU would need 46 and 39 GB and minutes). The MoE paths also
 print the share of expert assignments the capacity drops (the first MoE
 layer, prefill and decode), the tokens routed apart by card and CPU, and
 the largest |v| and |h| that the tensor-core routes carry in fp16.
+Before the LM paths, both tensor-core routes are held against their
+plain versions with one value past fp16's 65504 (ROADMAP C13): attention
+at head dims 64, 128 and 112 with one element of v at 7e4, the expert FF
+with one row's hidden past the range and with one wo element at 7e4;
+each output finite and within the route's tolerance.
 
 Each kernel's launches are counted on each path (counts set to 0 just
 before, read just after): a record's ``launches_by_path`` gives each
 path's own count (``compiler``; ``<model>/prefill`` and
-``<model>/serve``; ``granite-3-2b/train``) and ``launches`` their sum;
+``<model>/serve``; ``granite-3-2b/train``) and ``launches`` their sum
+(rmsnorm's record also names xlstm's check, flash_attention's and
+moe_dispatch's their past-fp16 checks, ``past_fp16``);
 the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``) are
 counted apart from the forward ones. flash_attention, moe_dispatch and
 flash_attention_bwd also count by route (``launches_by_route``:
@@ -160,6 +176,16 @@ check lines print both):
     the output), atol 1e-5; the same for a call chained through its
     state h against one call. dA in (0.5, 0.99), dBx and Cm at scale 0.1
     as tests/test_kernels.py draws them: |y| about 0.05.
+  * xlstm's decode against its prefill, layer by layer: each of the 48
+    layers, fed prefill's input to it, decodes its 64 outputs within
+    rtol = atol = 3e-2 (tests/test_torch_ssm.py's BLOCK_TOL; the
+    residual stream reaches about 27). Chained through the 48 layers the
+    logits are printed, not held: the two paths round bf16 apart by an
+    ulp a layer and the random-weight model amplifies it (1.18 apart,
+    std 1, on the H100; ROADMAP C15). Its smoke config's one period on
+    the card against the CPU: tests/test_archs.py's atol 0.55, rtol 0.1.
+  * the past-fp16 checks at the routes' tolerances above (outputs up to
+    7e4 for attention, 1e7 for the expert FF, so rtol decides).
   * decode against prefill (64 teacher-forced steps, the path's depth):
     atol 0.2, rtol 0, inside tests/test_archs.py's atol 0.55, rtol 0.1;
     the logits have a standard deviation of about 1 and granite's two
@@ -714,8 +740,9 @@ def runtime_phase(dev, seed: int, cases: dict, outs: dict) -> list:
 # the LM serving paths: granite-3-2b and olmoe-1b-7b at full width and depth
 # --------------------------------------------------------------------------
 
-LM_ARCH, MOE_ARCH, HYBRID_ARCH, KIMI_ARCH = (
-    "granite-3-2b", "olmoe-1b-7b", "jamba-1.5-large-398b", "kimi-k2-1t-a32b")
+LM_ARCH, MOE_ARCH, HYBRID_ARCH, KIMI_ARCH, XLSTM_ARCH = (
+    "granite-3-2b", "olmoe-1b-7b", "jamba-1.5-large-398b", "kimi-k2-1t-a32b",
+    "xlstm-1.3b")
 #: jamba on one card: every width, one layer of each kind
 HYBRID_CUT = {"n_layers": 4, "attn_every_k": 4}
 #: kimi-k2 on one card: every width, one period (one attention / MoE layer)
@@ -794,6 +821,7 @@ def _route_counts() -> dict:
 #: SM need at most 64 registers)
 PTXAS_NAMES = ((r"fa_tc_kernelILi(\d+)E", "fa_tc_kernel<{}>"),
                (r"moe_up_tcE", "moe_up_tc"), (r"moe_down_tcE", "moe_down_tc"),
+               (r"moe_down_scaledE", "moe_down_scaled"),
                (r"moe_ff_partialI13__nv_bfloat16Li1E",
                 "moe_ff_partial<bf16, 1>"),
                (r"fa_bwd_dkdv_tcILi(\d+)E", "fa_bwd_dkdv_tc<{}>"),
@@ -869,6 +897,12 @@ def lm_kernel_checks(dev, cfg, seed):
     path's shapes; returns the max abs errors by (kernel, shape, dtype)."""
     g = torch.Generator(dev).manual_seed(seed)
     errs = {}
+    _rms_checks(g, dev, cfg, errs)
+    _fa_checks(g, dev, cfg, errs)
+    return errs
+
+
+def _rms_checks(g, dev, cfg, errs):
     for N in (PREFILL_B * PREFILL_S, SERVE_SLOTS):
         for dt, tol in RMS_TOL.items():
             x, s = _rms_inputs(g, dev, N, cfg.d_model, dt)
@@ -879,8 +913,6 @@ def lm_kernel_checks(dev, cfg, seed):
             print(f"check rmsnorm ({N}, {cfg.d_model}) {str(dt)[6:]} vs "
                   f"plain max abs err {e:.3g} (tol {tol}; median |y| "
                   f"{float(want.float().abs().median()):.3g})")
-    _fa_checks(g, dev, cfg, errs)
-    return errs
 
 
 def _moe_shapes(cfg):
@@ -965,6 +997,80 @@ def moe_kernel_checks(dev, cfg, layer0, seed):
     _fa_checks(g, dev, cfg, errs)
     _moe_checks(g, dev, cfg, layer0["wi"], layer0["wo"], errs)
     return errs
+
+
+#: one value past fp16's 65504 (bf16 holds it: ROADMAP C13)
+PAST_FP16 = 7e4
+
+
+def fp16_range_checks(dev, seed) -> dict:
+    """ROADMAP C13 on the card: both tensor-core routes with one value
+    past fp16's range, each held against its plain version at its
+    tolerance (finite, as _compare requires): attention at granite's,
+    olmoe's and kimi's head dims (64, 128, 112; 1 x 1024 tokens, the
+    paths' heads), causal and not, one element of v at 7e4 and ten
+    query rows of each head of that KV head aimed at its key; the expert
+    FF at (8, 512, 2048), f 1024 (olmoe's widths, 8 experts), one row's
+    hidden past the range (an expert's gate and up columns set to 5
+    times that row of x) and one wo element at 7e4. Returns the max abs
+    errors by case."""
+    g = torch.Generator(dev).manual_seed(seed)
+    out = {"flash_attention": {}, "moe_dispatch": {}}
+    rtol, atol = FA_TOL[torch.bfloat16]
+    for arch in (LM_ARCH, MOE_ARCH, KIMI_ARCH):
+        cfg = get_config(arch)
+        q, k, v = _qkv(g, dev, cfg, 1, 1024, torch.bfloat16)
+        group = cfg.n_heads // cfg.n_kv_heads
+        v[0, 1, 700, 5] = PAST_FP16
+        q[0, group:2 * group, 800:810] = 4 * k[0, 1, 700]
+        for causal in (True, False):
+            tc = fa.LAUNCHES_BY_ROUTE["tensor_cores"]
+            got = fa.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES_BY_ROUTE["tensor_cores"] != tc + 1:
+                raise AssertionError("past-fp16 attention left the tensor "
+                                     "cores")
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            name = f"d{cfg.head_dim}{'_causal' if causal else ''}"
+            e = _compare(f"flash_attention past fp16 {name}", {"o": got},
+                         {"o": want}, rtol, atol)
+            out["flash_attention"][name] = e
+            print(f"check flash_attention (1, {cfg.n_heads}, 1024, "
+                  f"{cfg.head_dim}) kv heads {cfg.n_kv_heads} causal "
+                  f"{causal}, one v at {PAST_FP16:g}: tensor cores vs plain "
+                  f"max abs err {e:.3g} (rtol {rtol}, atol {atol}; largest "
+                  f"|o| {float(want.float().abs().max()):.4g}, finite)")
+        del q, k, v, got, want
+    rtol, atol = MOE_TOL
+    E, C, d, f = 8, 512, 2048, 1024
+    for what in ("h", "wo"):
+        x = torch.randn(E, C, d, generator=g, device=dev).bfloat16()
+        wi = (torch.randn(E, d, 2 * f, generator=g, device=dev)
+              * d ** -0.5).bfloat16()
+        wo = (torch.randn(E, f, d, generator=g, device=dev)
+              * f ** -0.5).bfloat16()
+        if what == "h":
+            wi[1, :, 150] = (5 * x[1, 3].float()).bfloat16()
+            wi[1, :, f + 150] = wi[1, :, 150]
+        else:
+            wo[2, 37, 100] = PAST_FP16
+        tc = md.LAUNCHES_BY_ROUTE["tensor_cores"]
+        got = md.grouped_expert_ff(x, wi, wo)
+        torch.cuda.synchronize()
+        if md.LAUNCHES_BY_ROUTE["tensor_cores"] != tc + 1:
+            raise AssertionError("past-fp16 expert FF left the tensor cores")
+        want = md.grouped_expert_ff_plain(x, wi, wo)
+        e = _compare(f"moe_dispatch past fp16 {what}", {"y": got},
+                     {"y": want}, rtol, atol)
+        out["moe_dispatch"][what] = e
+        print(f"check moe_dispatch ({E}, {C}, {d}) f {f}, "
+              + ("one row's |h| " f"{_max_hidden(x, wi):.4g}" if what == "h"
+                 else f"one wo at {PAST_FP16:g}")
+              + f": tensor cores vs plain max abs err {e:.3g} (rtol {rtol}, "
+              f"atol {atol}; largest |y| {float(want.float().abs().max()):.4g}"
+              ", finite)")
+        del x, wi, wo, got, want
+    return out
 
 
 def _smi(query: str) -> str:
@@ -1240,7 +1346,8 @@ def _init(dev, cfg, seed):
     return model, params
 
 
-def serve_path(dev, cfg, model, params, seed):
+def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
+               trace_S=PREFILL_S):
     """The path, counted (counts set to 0 just before each part, read
     just after): one prefill of 4 x 2048 tokens, then the engine
     answering 16 requests; then prefill and decode speed, and where their
@@ -1261,7 +1368,7 @@ def serve_path(dev, cfg, model, params, seed):
                                  f"{by_route} by route; every launch must "
                                  "take the tensor cores")
     ROUTE_COUNTS[f"{arch}/prefill"] = routes
-    want = {"simt_exec": 0, "rmsnorm": 2 * L + 1,
+    want = {"simt_exec": 0, "rmsnorm": 2 * L + 1 - _count(cfg, ff="none"),
             "flash_attention": _count(cfg, "attn"),
             "moe_dispatch": moe_layers,
             "selective_scan": _count(cfg, "mamba") * math.ceil(
@@ -1307,10 +1414,11 @@ def serve_path(dev, cfg, model, params, seed):
     by_path = {f"{arch}/prefill": per_prefill, f"{arch}/serve": per_serve}
 
     times = [_sync_s(lambda: model.prefill(params, toks))[1]
-             for _ in range(3)]
+             for _ in range(prefill_reps)]
     pre_s = statistics.median(times)
     print(f"{arch} prefill {PREFILL_B} x {PREFILL_S}: {pre_s * 1e3:.1f} ms "
-          f"(median of 3), {PREFILL_B * PREFILL_S / pre_s:.0f} tokens/s")
+          f"(median of {prefill_reps}), {PREFILL_B * PREFILL_S / pre_s:.0f} "
+          "tokens/s")
     step_toks = torch.from_numpy(rng.integers(0, cfg.vocab,
                                               (SERVE_SLOTS, 1))).to(dev)
     step_pos = torch.full((SERVE_SLOTS,), 100, device=dev)
@@ -1322,12 +1430,16 @@ def serve_path(dev, cfg, model, params, seed):
     print(f"{arch} decode_step {SERVE_SLOTS} slots, cache {SERVE_MAX_SEQ}: "
           f"{step_ms:.2f} ms (median of 10), "
           f"{SERVE_SLOTS / step_ms * 1e3:.1f} tokens/s")
-    _breakdown(lambda: model.prefill(params, toks), pre_s * 1e3,
-               f"{arch} prefill {PREFILL_B} x {PREFILL_S}")
-    v_max, h_max = _fp16_ranges(lambda: model.prefill(params, toks))
-    print(f"{arch} prefill: largest |v| into attention {v_max:.4g}, "
-          f"largest |h| of the expert FFs {h_max:.4g} (fp16 holds up to "
-          "65504)")
+    tr = toks[:, :trace_S]
+    tr_ms = (pre_s if trace_S == PREFILL_S else
+             _sync_s(lambda: model.prefill(params, tr))[1]) * 1e3
+    _breakdown(lambda: model.prefill(params, tr), tr_ms,
+               f"{arch} prefill {PREFILL_B} x {tr.shape[1]}")
+    if _count(cfg, "attn") or moe_layers:
+        v_max, h_max = _fp16_ranges(lambda: model.prefill(params, toks))
+        print(f"{arch} prefill: largest |v| into attention {v_max:.4g}, "
+              f"largest |h| of the expert FFs {h_max:.4g} (fp16 holds up "
+              "to 65504 as it is; the routes scale past it, ROADMAP C13)")
     _breakdown(step, step_ms, f"{arch} decode_step {SERVE_SLOTS} slots")
     return toks, eng, rng, by_path, step
 
@@ -1640,6 +1752,159 @@ def kimi_phase(dev, seed: int, reps: int):
                              head_dim=full.head_dim, n_layers=1)
     _smoke_card_vs_cpu(dev, sm, seed, rng)
     return records, by_path
+
+
+# --------------------------------------------------------------------------
+# the recurrent LM serving path: xlstm-1.3b at full width and depth
+# --------------------------------------------------------------------------
+
+def _mixer_s(fn) -> tuple:
+    """(seconds of one ``fn()`` in the sLSTM layers, in the mLSTM layers,
+    in all), each mixer's call between two syncs on the host clock."""
+    from repro_torch.models import xlstm as XL
+    spent = {"slstm": 0.0, "mlstm": 0.0}
+    orig = {"slstm": XL.slstm_seq, "mlstm": XL.mlstm_chunked}
+
+    def timed(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    XL.slstm_seq, XL.mlstm_chunked = timed("slstm"), timed("mlstm")
+    try:
+        _, total = _sync_s(fn)
+    finally:
+        XL.slstm_seq, XL.mlstm_chunked = orig["slstm"], orig["mlstm"]
+    return spent["slstm"], spent["mlstm"], total
+
+
+#: an xLSTM layer's decode against its prefill on the same input:
+#: tests/test_torch_ssm.py's BLOCK_TOL (rtol and atol), a bf16 ulp and more
+#: of the residual stream
+XLSTM_LAYER_TOL = 3e-2
+#: tokens a prompt of xlstm's traced prefill
+XLSTM_TRACE_S = 512
+
+
+def _xlstm_layers_decode_vs_prefill(dev, model, params, prompt):
+    """Each layer's prefill (its chunked mLSTM or sLSTM loop) recorded on
+    ``prompt``, then the same layer's decode steps over the positions,
+    fed the recorded input and carrying their own cache: held at
+    XLSTM_LAYER_TOL; returns the largest |diff| and the largest
+    |residual|."""
+    ins, outs = [], []
+    apply = model._apply_layer
+
+    def record(kind, p, x, positions, **kw):
+        y = apply(kind, p, x, positions, **kw)
+        ins.append(x)
+        outs.append(y)
+        return y
+
+    model._apply_layer = record
+    try:
+        model.prefill(params, prompt)
+    finally:
+        del model._apply_layer
+    T, P = prompt.shape[1], len(model.period)
+    cache = model.init_cache(1, T, device=dev)
+    worst = 0.0
+    for i in range(model.n_periods):
+        pp = tree_map(lambda a: a[i], params["stack"])
+        pc = tree_map(lambda a: a[i], cache)
+        for k, kind in enumerate(model.period):
+            x = ins[i * P + k]
+            steps = []
+            for t in range(T):
+                pos = torch.full((1,), t, device=dev)
+                steps.append(model._decode_layer(kind, pp[k], pc[k],
+                                                 x[:, t:t + 1], pos[:, None],
+                                                 pos))
+            worst = max(worst, _compare(
+                f"layer {i * P + k} decode vs prefill",
+                {"y": torch.cat(steps, 1)}, {"y": outs[i * P + k]},
+                XLSTM_LAYER_TOL, XLSTM_LAYER_TOL))
+    return worst, max(float(o.float().abs().max()) for o in outs)
+
+
+def xlstm_phase(dev, seed: int, reps: int):
+    """The recurrent LM serving path on xlstm-1.3b at full width and
+    depth (48 layers, an sLSTM and seven mLSTMs a period, d_model 2048, 4
+    heads of 512, no feed-forward, 1.04 B params), whose one kernel is
+    rmsnorm: 49 launches a prefill and a decode step (48 ln1 and ln_f).
+    Checked and timed; returns rmsnorm's checks and the counts by path."""
+    cfg = get_config(XLSTM_ARCH)
+    model, params = _init(dev, cfg, seed)
+    g = torch.Generator(dev).manual_seed(seed)
+    errs = {}
+    _rms_checks(g, dev, cfg, errs)
+    # one timed prefill (the sLSTM's loop makes each about 4 s), and the
+    # trace of where the time goes on 4 x 512 tokens: every mixer's work
+    # grows with the tokens, and the trace of 4 x 2048 holds 344 K kernels
+    toks, eng, rng, by_path, step = serve_path(dev, cfg, model, params,
+                                               seed, prefill_reps=1,
+                                               trace_S=XLSTM_TRACE_S)
+    s_s, m_s, tot = _mixer_s(lambda: model.prefill(params, toks))
+    n_s, n_m = _count(cfg, "slstm"), _count(cfg, "mlstm")
+    print(f"{XLSTM_ARCH} prefill {PREFILL_B} x {PREFILL_S} by mixer (each "
+          f"call between syncs): {n_s} sLSTM layers {s_s * 1e3:.1f} ms "
+          f"({s_s / (n_s * PREFILL_S) * 1e6:.1f} us a step of their "
+          f"{n_s * PREFILL_S} sequential steps), {n_m} mLSTM layers "
+          f"{m_s * 1e3:.1f} ms ({n_m * math.ceil(PREFILL_S / cfg.xlstm_chunk)}"
+          f" chunks of {cfg.xlstm_chunk}), all {tot * 1e3:.1f} ms")
+
+    # decode matches prefill, both causal (the reference's chunked mLSTM
+    # is not, ROADMAP C14): each layer, fed prefill's input to it, decodes
+    # its outputs at XLSTM_LAYER_TOL; chained over 48 layers the two
+    # round bf16 apart and the random-weight model amplifies it (ROADMAP
+    # C15), so the logits are printed beside it
+    e, scale = _xlstm_layers_decode_vs_prefill(dev, model, params,
+                                               toks[:1, :DECODE_T])
+    print(f"check decode ({DECODE_T} steps) vs prefill, layer by layer "
+          f"(each of the {cfg.n_layers} layers fed prefill's input): max "
+          f"abs err {e:.3g} (rtol = atol = {XLSTM_LAYER_TOL}; largest "
+          f"|residual| {scale:.3g})")
+    got, want, _ = _decode_vs_prefill(dev, model, params,
+                                      toks[:1, :DECODE_T], cfg)
+    print(f"decode ({DECODE_T} steps) vs prefill, chained through "
+          f"{cfg.n_layers} layers: logits max abs err "
+          f"{float((got - want).abs().max()):.3g} (logits std "
+          f"{float(want.std()):.3g}; not held, ROADMAP C15)")
+    del params, eng, step
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: the smoke config cut to one period (8
+    # layers at d_model 128), 2 x 40 tokens, at tests/test_archs.py's
+    # tolerance (the random-weight xLSTM is ill-conditioned in bf16:
+    # ROADMAP C15)
+    sm = get_config(XLSTM_ARCH, smoke=True)
+    sm = dataclasses.replace(sm, n_layers=len(sm.layer_pattern()))
+    m2 = get_model(sm)
+    p_cpu = init_params(m2.blueprint(), torch.Generator().manual_seed(seed))
+    toks2 = torch.from_numpy(rng.integers(0, sm.vocab, (2, 40)))
+    want2 = m2.prefill(p_cpu, toks2)
+    _zero_counts()
+    got2 = m2.prefill(tree_map(lambda a: a.to(dev), p_cpu), toks2.to(dev))
+    torch.cuda.synchronize()
+    rtol, atol = ROUTED_APART_TOL
+    e = _compare("xlstm smoke card vs cpu", {"l": got2.cpu()[:, :sm.vocab]},
+                 {"l": want2[:, :sm.vocab]}, rtol, atol)
+    if rn.LAUNCHES != sm.n_layers + 1:
+        raise AssertionError(f"xlstm smoke card prefill: {rn.LAUNCHES} "
+                             "rmsnorm launches")
+    print(f"check {sm.name} ({sm.n_layers} layers, d_model {sm.d_model}) "
+          f"prefill (2 x 40) card vs cpu logits max abs err {e:.3g} (atol "
+          f"{atol}, rtol {rtol}); card launches {_counts()}")
+    n = PREFILL_B * PREFILL_S
+    return {"rmsnorm": {"shape": f"({n}, {cfg.d_model}) bf16, granite's "
+                        "row", "max_abs_err": errs[("rmsnorm", n,
+                                                    torch.bfloat16)]}}, \
+        by_path
 
 
 # --------------------------------------------------------------------------
@@ -2177,8 +2442,13 @@ def main() -> int:
     print(f"runtime phase {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"runtime": rt_records}))
 
-    # 7. the LM serving paths, dense, MoE and hybrid; each kernel's record
-    # counts its launches on every path
+    # 7. both tensor-core routes with a value past fp16's range (C13)
+    t0 = time.perf_counter()
+    past_fp16 = fp16_range_checks(dev, args.seed)
+    print(f"fp16 range phase {time.perf_counter() - t0:.1f} s")
+
+    # 8. the LM serving paths, dense, MoE, hybrid and recurrent; each
+    # kernel's record counts its launches on every path
     t0 = time.perf_counter()
     lm_records, paths = lm_phase(dev, args.seed, args.reps)
     print(f"lm phase {LM_ARCH} {time.perf_counter() - t0:.1f} s")
@@ -2202,6 +2472,13 @@ def main() -> int:
     paths.update(kimi_paths)
     for name in ("rmsnorm", "flash_attention", "moe_dispatch"):
         lm_records[name]["kimi"] = kimi_records.pop(name)
+    t0 = time.perf_counter()
+    xlstm_records, xlstm_paths = xlstm_phase(dev, args.seed, args.reps)
+    print(f"lm phase {XLSTM_ARCH} {time.perf_counter() - t0:.1f} s")
+    paths.update(xlstm_paths)
+    lm_records["rmsnorm"]["xlstm"] = xlstm_records["rmsnorm"]
+    for name, r in past_fp16.items():
+        lm_records[name]["past_fp16"] = r
     t0 = time.perf_counter()
     train_records, train_paths, summary = train_phase(dev, args.seed,
                                                       args.reps)

@@ -64,11 +64,40 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // two floats as an fp16 pair, the first in the low half, rounded to
-// nearest: 11 significant bits; |x| > 65504 becomes inf, |x| < 6.1e-5
-// keeps fewer bits (subnormal)
+// nearest: 11 significant bits; |x| >= 65520 becomes inf, |x| < 6.1e-5
+// keeps fewer bits (subnormal). The callers keep their operands in range
+// by a power-of-two exponent (f16_exponent), which is exact.
 __device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
   __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^k as a float, exactly, for -126 <= k <= 127
+__device__ __forceinline__ float pow2(int k) {
+  return __int_as_float((127 + k) << 23);
+}
+
+// The exponent e >= 0 that takes a set of values whose largest magnitude
+// is m (a float, NaN ignored by the fmaxf that found it) into fp16's
+// range: every x * 2^-e rounds to a finite fp16. 0 where m < 65520, as
+// every such value already rounds finite, so a set in range is stored as
+// it was; else floor(log2 m) - 14, which leaves m * 2^-e < 2^15. At most
+// 114 (m inf).
+__device__ __forceinline__ int f16_exponent(float m) {
+  return m < 65520.f ? 0 : ((__float_as_int(m) >> 23) & 0xff) - 141;
+}
+
+// the larger magnitude of the bf16 pair in a word, as a float
+__device__ __forceinline__ float bf16x2_absmax(uint32_t w) {
+  return fmaxf(__uint_as_float((w << 16) & 0x7fff0000u),
+               __uint_as_float(w & 0x7fff0000u));
+}
+
+// a bf16 pair as an fp16 pair times 2^-e (the float products are exact)
+__device__ __forceinline__ uint32_t bf16x2_to_f16x2_scaled(uint32_t w,
+                                                           float scale) {
+  return pack_f16(__uint_as_float(w << 16) * scale,
+                  __uint_as_float(w & 0xffff0000u) * scale);
 }
 
 // a bf16 pair (one word, the first in the low half) as an fp16 pair:
@@ -76,6 +105,13 @@ __device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
 // fp16 as pack_f16
 __device__ __forceinline__ uint32_t bf16x2_to_f16x2(uint32_t w) {
   return pack_f16(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// nonzero where a bf16 of the pair in w has a magnitude of 65536 or more
+// (inf and NaN included), which fp16 cannot hold: |b| >= 0x4780 sets bit
+// 15 of |b| + 0x3880, and no carry crosses into the other half
+__device__ __forceinline__ uint32_t bf16x2_past_f16(uint32_t w) {
+  return ((w & 0x7fff7fffu) + 0x38803880u) & 0x80008000u;
 }
 
 // ---- the hardware: shared addresses, wgmma, cp.async (inline PTX) -----
@@ -200,19 +236,59 @@ SM90_MMA_128(F16, "f16")
 #undef SM90_R32
 #undef SM90_R64
 
+// each half of mx raised to the larger magnitude of its half and w's
+// (bf16 pairs; the sign bits are their xor): one instruction
+__device__ __forceinline__ uint32_t absmax_bf16x2(uint32_t mx, uint32_t w) {
+  uint32_t d;
+  asm("max.xorsign.abs.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(mx), "r"(w));
+  return d;
+}
+
 // the 16-byte chunk at shared address a, eight bf16, rewritten in place as
 // eight fp16. A tile that an fp16 product reads goes through this after
 // its copy lands: the layout is unchanged, only the element type. The
 // thread that copied the chunk converts it, so no barrier sits between
-// the two.
-__device__ __forceinline__ void bf16_to_f16(uint32_t a) {
+// the two. Raises each half of mx to the chunk's largest magnitude there
+// (absmax_bf16x2; bf16x2_past_f16 of it tells an element that became
+// inf).
+__device__ __forceinline__ void bf16_to_f16(uint32_t a, uint32_t& mx) {
   uint32_t w[4];
   asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
                : "r"(a)
                : "memory");
 #pragma unroll
-  for (int i = 0; i < 4; ++i) w[i] = bf16x2_to_f16x2(w[i]);
+  for (int i = 0; i < 4; ++i) {
+    mx = absmax_bf16x2(mx, w[i]);
+    w[i] = bf16x2_to_f16x2(w[i]);
+  }
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
+}
+
+// the 16-byte chunk at shared address a, eight fp16, times 2^k in place
+// (k <= 0: fp16 keeps the products exactly down to its subnormals)
+__device__ __forceinline__ void f16_scale(uint32_t a, int k) {
+  uint32_t w[4];
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+               : "r"(a)
+               : "memory");
+  const float s = pow2(k);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __half22float2(*reinterpret_cast<__half2*>(&w[i]));
+    w[i] = pack_f16(v.x * s, v.y * s);
+  }
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
+}
+
+// 16 bytes to shared address a
+__device__ __forceinline__ void st_shared16(uint32_t a,
+                                            const uint32_t (&w)[4]) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
                "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
                : "memory");

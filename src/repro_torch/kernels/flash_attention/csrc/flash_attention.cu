@@ -58,6 +58,24 @@
 //     jamba's shape), where converting each tile in shared memory would
 //     cost every CTA that reads the tile again: at D = 128, 8 chunks a
 //     thread a tile, about as many instructions as the softmax.
+//   * V past fp16's range. v_to_f16 takes one CTA a 64-key tile of a
+//     (batch, KV head), the tile the products read: it finds the tile's
+//     largest |v| and stores the tile as v * 2^-e, with e (f16_exponent)
+//     the smallest power of two that brings it under 2^15, and e in a
+//     byte beside it. e is 0 wherever the tile is in range, as at every
+//     path's shapes, and the tile is then converted as before. The
+//     attention kernel keeps its accumulator at the largest exponent E of
+//     the tiles read so far, like the running max of the softmax: a tile
+//     with e > E scales the accumulator by 2^(E - e) with the softmax's
+//     correction, one with e < E goes in with P times 2^(e - E) (at most
+//     1), and the epilogue multiplies by 2^E. Powers of two are exact in
+//     float32, so the only cost is fp16's subnormals for the small values
+//     of a scaled tile. A tile with e > 0 also raises a flag of its
+//     (batch, KV head), an integer atomicMax on a word the launcher zeroes
+//     (cudaMemsetAsync, no host sync): the attention kernel reads it once
+//     and runs one of two instantiations of its body, so the common path
+//     adds one load a CTA and is otherwise the unscaled loop. No other
+//     route. The backward reads v in bf16 and has no such limit.
 //   * Why fp16 and not bf16. P lies in [0, 1] (each weight is 2^(s - m)
 //     against the running max). bf16 keeps 8 significant bits: P rounded
 //     to bf16 alone (an error up to 2^-8 of each weight) puts the output
@@ -67,14 +85,13 @@
 //     2^-11), which stays inside (tests/test_torch_lm_kernels.py holds a
 //     rounding model of each). bf16 V converts to fp16 exactly for
 //     6.1e-5 <= |v| <= 65504; smaller |v| keep fewer bits (an absolute
-//     error under 2^-25), and a |v| above 65504 becomes inf: the route
-//     takes V of that range, with no clamp and no fallback (chip_smoke.py
-//     prints the largest |v| at the paths' shapes). The row sum l is the
+//     error under 2^-25), and a larger |v| is scaled first (below). The
+//     row sum l is the
 //     float32 sum of the unrounded P. One product in place of the two of
 //     a bf16 hi + lo split: two thirds of that design's tensor work, and
 //     no registers for lo.
-//   * the epilogue divides by max(l, 1e-20), casts and stores the rows
-//     below Sq.
+//   * the epilogue divides by max(l, 1e-20), multiplies by 2^E, casts
+//     and stores the rows below Sq.
 // The longest causal query tiles are launched first (blockIdx.x from the
 // last tile down across all heads); heads that share a KV head are
 // adjacent, so their K/V tiles meet in L2.
@@ -331,32 +348,79 @@ struct TcTiles {
 
 // v (B, Hkv, Sk, D) bf16, read through its strides, as a contiguous fp16
 // (B, Hkv, Sk, D) at vh: the operand type of the P V product, made once
-// a call instead of once a tile in every CTA that reads it
+// a call instead of once a tile in every CTA that reads it. One CTA a
+// 64-key tile of a (batch, KV head), tiles in key order: the tile is
+// stored as v * 2^-e and e (f16_exponent of its largest |v|) goes to
+// vexp (B, Hkv, ceil(Sk / 64)); where e > 0 it also goes to vmax (B, Hkv),
+// zeroed by the launcher.
 template <int D>
 __global__ void __launch_bounds__(256)
-v_to_f16(const bf16* __restrict__ v, __half* __restrict__ vh, int Hkv,
-         int Sk, Strides vs, long long n_chunks) {
-  for (long long c = (long long)blockIdx.x * 256 + threadIdx.x; c < n_chunks;
-       c += (long long)gridDim.x * 256) {
-    const long long row = c / (D / 8);       // (b, hk, s)
-    const int ch = (int)(c % (D / 8));
-    const int s = (int)(row % Sk);
-    const long long bh = row / Sk;
-    const uint4 w = *reinterpret_cast<const uint4*>(
-        v + bh / Hkv * vs.b + bh % Hkv * vs.h + s * vs.s + ch * 8);
-    const uint4 o = {sm90::bf16x2_to_f16x2(w.x), sm90::bf16x2_to_f16x2(w.y),
-                     sm90::bf16x2_to_f16x2(w.z), sm90::bf16x2_to_f16x2(w.w)};
-    *reinterpret_cast<uint4*>(vh + row * D + ch * 8) = o;
+v_to_f16(const bf16* __restrict__ v, __half* __restrict__ vh,
+         uint8_t* __restrict__ vexp, int* __restrict__ vmax, int Hkv,
+         int Sk, Strides vs, int n_kt) {
+  constexpr int CPR = D / 8;                     // 16-byte chunks a row
+  constexpr int N = (64 * CPR + 255) / 256;      // chunks a thread
+  __shared__ float red[8];
+  const int kt = (int)(blockIdx.x % n_kt);
+  const long long bh = blockIdx.x / n_kt;
+  const int s0 = kt * 64, tid = threadIdx.x;
+  const int rows = min(64, Sk - s0);
+  const bf16* vb = v + bh / Hkv * vs.b + bh % Hkv * vs.h;
+  uint4 w[N];
+  float mx = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = tid + i * 256, r = c / CPR;
+    w[i] = uint4{0u, 0u, 0u, 0u};
+    if (c < 64 * CPR && r < rows)
+      w[i] = *reinterpret_cast<const uint4*>(vb + (s0 + r) * vs.s +
+                                             c % CPR * 8);
+    mx = fmaxf(mx, fmaxf(fmaxf(sm90::bf16x2_absmax(w[i].x),
+                               sm90::bf16x2_absmax(w[i].y)),
+                         fmaxf(sm90::bf16x2_absmax(w[i].z),
+                               sm90::bf16x2_absmax(w[i].w))));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (tid % 32 == 0) red[tid / 32] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx = fmaxf(mx, red[i]);
+  const int e = sm90::f16_exponent(mx);
+  if (tid == 0) {
+    vexp[blockIdx.x] = (uint8_t)e;
+    if (e > 0) atomicMax(vmax + bh, e);
+  }
+  const float scale = sm90::pow2(-e);
+  __half* ob = vh + (bh * Sk + s0) * D;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = tid + i * 256, r = c / CPR;
+    if (c >= 64 * CPR || r >= rows) continue;
+    uint4 o;
+    if (e == 0) {   // in range: converted exactly, as it was
+      o = {sm90::bf16x2_to_f16x2(w[i].x), sm90::bf16x2_to_f16x2(w[i].y),
+           sm90::bf16x2_to_f16x2(w[i].z), sm90::bf16x2_to_f16x2(w[i].w)};
+    } else {
+      o = {sm90::bf16x2_to_f16x2_scaled(w[i].x, scale),
+           sm90::bf16x2_to_f16x2_scaled(w[i].y, scale),
+           sm90::bf16x2_to_f16x2_scaled(w[i].z, scale),
+           sm90::bf16x2_to_f16x2_scaled(w[i].w, scale)};
+    }
+    *reinterpret_cast<uint4*>(ob + r * D + c % CPR * 8) = o;
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS, TcTiles<D>::MIN_CTAS)
-fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const __half* __restrict__ vh, bf16* __restrict__ o,
-             float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-             int n_bh, Strides qs, Strides ks, int causal,
-             float scale_log2) {
+// The kernel's body; SCALED where a tile of its (batch, KV head)'s V has
+// an exponent above 0 (the common path, SCALED false, has no trace of it)
+template <int D, bool SCALED>
+__device__ __forceinline__ void
+fa_tc_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const __half* __restrict__ vh, const uint8_t* __restrict__ vexp,
+           bf16* __restrict__ o, float* __restrict__ lse, int H, int Hkv,
+           int Sq, int Sk, int n_bh, Strides qs, Strides ks, int causal,
+           float scale_log2) {
   using TL = TcTiles<D>;
   constexpr int BK = TL::BK, DP = TL::DP;
   VX_DYN_SMEM(smem);
@@ -370,6 +434,7 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = qt * TC_BQ;
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const __half* vb = vh + ((long long)b * Hkv + hk) * Sk * D;
+  const uint8_t* ve = vexp + ((long long)b * Hkv + hk) * ((Sk + BK - 1) / BK);
   const int tid = threadIdx.x, lane = tid % 32;
   const int r0 = q0 + tid / 32 * 16 + lane / 4;   // rows r0 and r0 + 8
   const int kv_end = causal ? min(Sk, min(q0 + TC_BQ, Sq)) : Sk;
@@ -386,9 +451,11 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  int E = 0;   // the accumulator holds the output times 2^-E
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
+    const int et = SCALED ? ve[t] : 0;   // the tile holds v * 2^-et
     const uint32_t sk = skv + (t & 1) * 2 * TL::KV_BYTES;
     const uint32_t sv = sk + TL::KV_BYTES;
     if (t + 1 < n_tiles) {   // the stage the last tile used
@@ -452,6 +519,18 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // each thread keeps its part of l; the quad's parts meet at the end
     l[0] = l[0] * corr[0] + sum[0];
     l[1] = l[1] * corr[1] + sum[1];
+    if (SCALED && et != E) {   // a tile of V scaled (uniform)
+      if (et > E) {  // the accumulator moves to the tile's scale
+        const float f = sm90::pow2(E - et);
+        corr[0] *= f;
+        corr[1] *= f;
+        E = et;
+      } else {       // P goes in at the accumulator's scale
+        const float f = sm90::pow2(et - E);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) s[i] *= f;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
     // P as the fp16 A fragments of the next product
@@ -480,7 +559,8 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float inv = 1.f / fmaxf(l[r], 1e-20f);
+    float inv = 1.f / fmaxf(l[r], 1e-20f);
+    if constexpr (SCALED) inv *= sm90::pow2(E);
     const int row = r0 + 8 * r;
     if (row < Sq) {
 #pragma unroll
@@ -498,19 +578,41 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
+__global__ void __launch_bounds__(TC_THREADS, TcTiles<D>::MIN_CTAS)
+fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const __half* __restrict__ vh,
+             const uint8_t* __restrict__ vexp, const int* __restrict__ vmax,
+             bf16* __restrict__ o, float* __restrict__ lse, int H, int Hkv,
+             int Sq, int Sk, int n_bh, Strides qs, Strides ks, int causal,
+             float scale_log2) {
+  const int bh = (int)(blockIdx.x % n_bh);
+  const int hk = bh % H / (H / Hkv), b = bh / H;
+  if (vmax[b * Hkv + hk] != 0)   // a tile of this V has e > 0 (uniform)
+    fa_tc_body<D, true>(q, k, vh, vexp, o, lse, H, Hkv, Sq, Sk, n_bh, qs,
+                        ks, causal, scale_log2);
+  else
+    fa_tc_body<D, false>(q, k, vh, vexp, o, lse, H, Hkv, Sq, Sk, n_bh, qs,
+                         ks, causal, scale_log2);
+}
+
+template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* vh,
-              void* o, float* lse, int B, int H, int Hkv, int Sq, int Sk,
-              long long qsb, long long qsh, long long qss, long long ksb,
-              long long ksh, long long kss, long long vsb, long long vsh,
-              long long vss, int causal, float sm_scale, void* stream) {
+              void* vexp, void* vmax, void* o, float* lse, int B, int H,
+              int Hkv,
+              int Sq, int Sk, long long qsb, long long qsh, long long qss,
+              long long ksb, long long ksh, long long kss, long long vsb,
+              long long vsh, long long vss, int causal, float sm_scale,
+              void* stream) {
   const int n_qt = (Sq + TC_BQ - 1) / TC_BQ;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
-  const long long n_chunks = (long long)B * Hkv * Sk * (D / 8);
-  const long long want = (n_chunks + 255) / 256;
+  const int n_kt = (Sk + TcTiles<D>::BK - 1) / TcTiles<D>::BK;
+  int err = (int)cudaMemsetAsync(vmax, 0, (size_t)B * Hkv * sizeof(int),
+                                 (cudaStream_t)stream);
+  if (err != 0) return err;
   auto conv = v_to_f16<D>;
-  VX_LAUNCH(conv, (int)(want < 132 * 8 ? want : 132 * 8), 256, stream,
-            (const bf16*)v, (__half*)vh, Hkv, Sk, vs, n_chunks);
-  const int err = (int)cudaGetLastError();
+  VX_LAUNCH(conv, B * Hkv * n_kt, 256, stream, (const bf16*)v,
+            (__half*)vh, (uint8_t*)vexp, (int*)vmax, Hkv, Sk, vs, n_kt);
+  err = (int)cudaGetLastError();
   if (err != 0) return err;
   auto kernel = fa_tc_kernel<D>;
   constexpr int smem = TcTiles<D>::SMEM;
@@ -519,7 +621,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* vh,
   if (attr != 0) return attr;
   VX_LAUNCH_SMEM(kernel, B * H * n_qt, TC_THREADS, smem, stream,
                  (const bf16*)q, (const bf16*)k, (const __half*)vh,
-                 (bf16*)o, lse, H, Hkv, Sq, Sk, B * H, qs, ks, causal,
+                 (const uint8_t*)vexp, (const int*)vmax, (bf16*)o, lse, H,
+                 Hkv, Sq, Sk, B * H, qs, ks, causal,
                  sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -533,7 +636,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* vh,
 // row's log-sum-exp. B * H * ceil(Sq / 64) < 2^31, Sq, Sk >= 1. The
 // tensor-core entries (_tc_) also need q, k, v and their strides in
 // elements to be 16-byte aligned, and take vh, a contiguous fp16
-// (B, Hkv, Sk, D) scratch for v.
+// (B, Hkv, Sk, D) scratch for v, vexp, a uint8 (B, Hkv, ceil(Sk / 64))
+// scratch for its tiles' exponents (each written before it is read), and
+// vmax, an int32 (B, Hkv) scratch (zeroed here).
 #define VX_FA_ENTRY(NAME, T, D)                                            \
   extern "C" int NAME(const void* q, const void* k, const void* v,        \
                       void* o, void* lse, int B, int H, int Hkv, int Sq,  \
@@ -547,13 +652,15 @@ int launch_tc(const void* q, const void* k, const void* v, void* vh,
   }
 #define VX_FA_TC_ENTRY(NAME, D)                                            \
   extern "C" int NAME(const void* q, const void* k, const void* v,        \
-                      void* vh, void* o, void* lse, int B, int H, int Hkv,\
-                      int Sq, int Sk, long long qsb, long long qsh,       \
-                      long long qss, long long ksb, long long ksh,        \
-                      long long kss, long long vsb, long long vsh,        \
-                      long long vss, int causal, float sm_scale,          \
-                      void* stream) {                                     \
-    return launch_tc<D>(q, k, v, vh, o, (float*)lse, B, H, Hkv, Sq, Sk,   \
+                      void* vh, void* vexp, void* vmax, void* o,          \
+                      void* lse, int B, int H, int Hkv, int Sq, int Sk,   \
+                      long long qsb,                                      \
+                      long long qsh, long long qss, long long ksb,        \
+                      long long ksh, long long kss, long long vsb,        \
+                      long long vsh, long long vss, int causal,           \
+                      float sm_scale, void* stream) {                     \
+    return launch_tc<D>(q, k, v, vh, vexp, vmax, o, (float*)lse, B, H,   \
+                        Hkv, Sq, Sk,                                      \
                         qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,      \
                         causal, sm_scale, stream);                        \
   }

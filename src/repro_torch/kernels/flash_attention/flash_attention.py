@@ -11,8 +11,10 @@ alignment:
     aligned rows. One CTA per (batch, head, 64-row query tile), products
     by wgmma (float32 accumulators): Q K^T in bf16, P V in fp16, P
     carried between the two as one fp16 part (11 bits) and v converted
-    to fp16 once a call into a scratch that the wrapper allocates (a |v|
-    above 65504 becomes inf);
+    to fp16 once a call into a scratch that the wrapper allocates, each
+    64-key tile at a power-of-two exponent that keeps it in fp16's
+    range (0, the tile as it is, wherever it is in range; the exponents
+    and a flag a (batch, KV head) in two more scratch tensors);
   * ``cuda_cores``: everything else (float32; bf16 at head dim 32 or
     with unaligned rows). One CTA per (batch, head, 64-row query tile),
     float32 on the CUDA cores.
@@ -61,8 +63,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 #: q, k, v, o, lse; B, H, Hkv, Sq, Sk; strides; causal, scale, stream
 _ARGS = [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
-#: the tensor-core entries also take v's fp16 scratch, after v
-_TC_ARGS = [_P] * 6 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
+#: the tensor-core entries also take v's fp16 scratch, its tiles'
+#: exponents and a flag a (batch, KV head), after v
+_TC_ARGS = [_P] * 8 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]
+#: keys a tile of the tensor-core route: one exponent of v each
+TC_BLOCK_K = 64
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = SourceKernel(
     "flash_attention",
@@ -142,6 +147,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return (out, torch.logsumexp(s, dim=-1)) if with_lse else out
 
 
+def v_scratch(B: int, Hkv: int, Sk: int, D: int, device):
+    """The tensor-core entries' scratch for v: its fp16 copy (B, Hkv, Sk,
+    D), one uint8 exponent a tile of ``TC_BLOCK_K`` keys, and each
+    (batch, KV head)'s largest, int32, which the launcher zeroes."""
+    return (torch.empty(B, Hkv, Sk, D, dtype=torch.float16, device=device),
+            torch.empty(B, Hkv, -(-Sk // TC_BLOCK_K), dtype=torch.uint8,
+                        device=device),
+            torch.empty(B, Hkv, dtype=torch.int32, device=device))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, with_lse: bool = False):
     """q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D) -> (B, H, Sq, D), and with
@@ -177,9 +192,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            if with_lse else None)
     if Sq == 0:
         return (out, lse) if with_lse else out
-    # the tensor cores take v as fp16, converted once a call
-    vh = ([torch.empty(B, Hkv, Sk, D, dtype=torch.float16,
-                       device=q.device).data_ptr()]
+    # the tensor cores take v as fp16, converted once a call, and its
+    # tiles' exponents
+    vh = ([t.data_ptr() for t in v_scratch(B, Hkv, Sk, D, q.device)]
           if way == "tensor_cores" else [])
     KERNEL.call(entry(q.dtype, D, aligned), q.get_device(),
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), *vh,

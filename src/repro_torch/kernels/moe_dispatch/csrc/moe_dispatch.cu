@@ -45,12 +45,37 @@
 //   keeps 11 bits (2^-11), which stays inside
 //   (tests/test_torch_moe_kernels.py holds a rounding model of each).
 //   bf16 wo converts to fp16 exactly for 6.1e-5 <= |w| <= 65504 (smaller
-//   weights keep fewer bits, an absolute error under 2^-25). An |h| or
-//   |w| above 65504 becomes inf: the route takes that range, with no
-//   clamp and no fallback; with unit-scale x and weights at the scale
-//   init_params draws, |h| is O(1) (chip_smoke.py prints the largest |h|
-//   at the paths' shapes). One down product in place of the two of a
-//   bf16 hi + lo split, and half its hidden's bytes (2 E C f each way).
+//   weights keep fewer bits, an absolute error under 2^-25). One down
+//   product in place of the two of a bf16 hi + lo split, and half its
+//   hidden's bytes (2 E C f each way).
+//   Values past fp16's range. bf16's range reaches 3.4e38, so an |h| or
+//   |w| of 65520 or more is kept in range by powers of two, which are
+//   exact (sm90::f16_exponent: 0 wherever the values are in range, so
+//   the common path stores what it always stored):
+//     - h: moe_up_tc stores each (row, 64-column tile) of h as h * 2^-e
+//       with e in a byte of hexp (E, C, ceil(f / 64)), and where e > 0
+//       raises the row's largest, hmax (E, C), by an integer atomicMax
+//       (order-free; the launcher zeroes hmax first, with no host sync).
+//     - wo: the thread that converts a chunk of a wo tile also keeps its
+//       largest magnitudes (one max.xorsign.abs.bf16x2 a word).
+//     - moe_down_tc reads its rows' hmax once, and the barrier that hands
+//       each stage to wgmma becomes a vote (__syncthreads_or) on a wo
+//       element past fp16's range or, with the first stage, a row of h
+//       with an exponent: the common path adds nothing else. A CTA that
+//       votes yes stops, sets its block's redo flag and leaves the block
+//       to a second kernel, compiled apart (moe_down_scaled: 132 CTAs
+//       that read the flags 256 at a time, so the common path pays that
+//       launch and the read, and no registers or instructions in its
+//       loop). There the tiles of a row of h whose e is below the row's
+//       largest are rescaled in shared memory before the wgmma that reads
+//       them; each stage finds its wo columns' largest exponents, keeps a
+//       running one a column (as the softmax keeps its max), scales the
+//       accumulator's columns where theirs grew and converts the stage's
+//       wo tiles from device memory at their columns' exponents; the
+//       epilogue multiplies each row by 2^hmax and each column by 2^its
+//       exponent.
+//   The output is bf16, so a value past bf16's range is inf, as in the
+//   plain version.
 //   Each stage of the ring holds three 16 KB tiles in the 128-byte-
 //   swizzled layout of sm90.cuh (x and wi's gate and up tiles, or a tile
 //   of h and two of wo; four stages, 192 KB), copied by
@@ -433,6 +458,7 @@ constexpr int A_BYTES = TC_BM * TC_BK * 2;   // 16 KB
 constexpr int B_BYTES = TC_BK * TC_BN * 2;   // 16 KB
 constexpr int B_BLOCK = TC_BK * 128;         // its 64-column blocks: 8 KB
 constexpr int B_CHUNKS = TC_BK * (TC_BN / 8) / TC_THREADS;  // a thread's
+constexpr int DOWN_COLS = 2 * TC_BN;   // output columns a down CTA
 
 // the A tile: rows < ``rows`` and k < ``kn`` of src (ld elements a row),
 // K-major
@@ -474,27 +500,153 @@ __device__ __forceinline__ void copy_b(uint32_t dst, const u16* src,
 }
 
 // the chunks of a B tile that copy_b gave this thread, bf16 to fp16 in
-// place, once they have landed
-__device__ __forceinline__ void b_to_f16(uint32_t dst, int tid) {
+// place, once they have landed; mx's halves raised to their largest
+// magnitudes
+__device__ __forceinline__ void b_to_f16(uint32_t dst, int tid,
+                                         uint32_t& mx) {
 #pragma unroll
   for (int i = 0; i < B_CHUNKS; ++i) {
     int r, ch;
-    sm90::bf16_to_f16(dst + b_slot(i, tid, r, ch));
+    sm90::bf16_to_f16(dst + b_slot(i, tid, r, ch), mx);
   }
 }
 
+// What moe_down_tc's mainloop needs to keep h and wo in fp16's range (the
+// note at the top): the hidden's exponents and, in shared memory, the
+// columns'.
+struct DownScale {
+  const uint8_t* hexp;   // the CTA's row 0 in hexp; nt bytes a row
+  int nt;                // 64-column tiles of f
+  int ra[4];             // hmax of the rows whose A chunks this thread
+                         // copies, rows tid / 8 + 32 i (0 past the count)
+  bool rows;             // some row of the CTA has hmax > 0
+  unsigned char* ex;     // shared: the columns' exponents (256 bytes),
+                         // the next ones (256) and the stage's parts
+                         // (16 x 256)
+};
+constexpr int EX_BYTES = 512 + 16 * DOWN_COLS;
+
+// Stage kt's A chunks of this thread (rows tid / 8 + 32 i, stored at
+// their own tile's exponent) moved to their row's largest, in place.
+__device__ __forceinline__ void a_rows_to_hmax(uint32_t sa, int kt,
+                                               const DownScale& ds,
+                                               int tid) {
+#pragma unroll
+  for (int i = 0; i < TC_BM * 8 / TC_THREADS; ++i) {
+    const int r = tid / 8 + 32 * i;
+    if (ds.ra[i] == 0) continue;
+    const int et = ds.hexp[(long long)r * ds.nt + kt];
+    if (et != ds.ra[i]) sm90::f16_scale(sa + sm90::swz(r, tid & 7),
+                                        et - ds.ra[i]);
+  }
+}
+
+// Stage kt's wo tiles (NB of them at sb, MN-major, k rows from k0) at the
+// columns' running exponents: the stage's largest exponent a column
+// joins the running one, the accumulator's columns whose exponent grew
+// are scaled down to it, and this thread's chunks are converted again
+// from device memory at their columns' exponents. Every thread of the
+// CTA calls it, after the stage's products before it have completed.
+template <int NB>
+__device__ __forceinline__ void
+b_cols_to_exponents(float (&acc)[NB][64], uint32_t sb,
+                    const u16* const (&b)[NB], long long ldb, int cols,
+                    int col_step, int kn, int k0, unsigned char* ex,
+                    int tid) {
+  unsigned char *cur = ex, *nxt = ex + 256, *part = ex + 512;
+  const int lane = tid % 32;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float cm[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    int r, ch = 0;
+#pragma unroll
+    for (int i = 0; i < B_CHUNKS; ++i) {
+      b_slot(i, tid, r, ch);
+      if (r >= kn || ch * 8 >= cols - j * col_step) continue;
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          b[j] + (long long)(k0 + r) * ldb + ch * 8);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        cm[2 * q] = fmaxf(cm[2 * q],
+                          fabsf(__uint_as_float(ws[q] << 16)));
+        cm[2 * q + 1] = fmaxf(cm[2 * q + 1],
+                              fabsf(__uint_as_float(ws[q] & 0xffff0000u)));
+      }
+    }
+    // the 16 threads of one column group (tid % 16) hold its 64 k rows
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      part[(tid >> 4) * 256 + j * 128 + ch * 8 + c] =
+          (unsigned char)sm90::f16_exponent(cm[c]);
+  }
+  __syncthreads();
+  {
+    int m = cur[tid];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) m = max(m, (int)part[q * 256 + tid]);
+    nxt[tid] = (unsigned char)m;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < NB; ++t)
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = t * 128 + 8 * jj + 2 * (lane & 3) + c;
+        if (cur[col] != nxt[col]) {
+          const float f = sm90::pow2((int)cur[col] - (int)nxt[col]);
+          acc[t][4 * jj + c] *= f;
+          acc[t][4 * jj + 2 + c] *= f;
+        }
+      }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < B_CHUNKS; ++i) {
+      int r, ch;
+      const uint32_t off = b_slot(i, tid, r, ch);
+      const bool in = r < kn && ch * 8 < cols - j * col_step;
+      uint4 w = {0u, 0u, 0u, 0u};
+      if (in)
+        w = *reinterpret_cast<const uint4*>(
+            b[j] + (long long)(k0 + r) * ldb + ch * 8);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+      uint32_t o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = j * 128 + ch * 8 + 2 * q;
+        o[q] = sm90::pack_f16(
+            __uint_as_float(ws[q] << 16) * sm90::pow2(-(int)nxt[col]),
+            __uint_as_float(ws[q] & 0xffff0000u) *
+                sm90::pow2(-(int)nxt[col + 1]));
+      }
+      sm90::st_shared16(sb + j * B_BYTES + off, o);
+    }
+  sm90::fence_async_smem();
+  __syncthreads();
+  cur[tid] = nxt[tid];   // read again only past a barrier
+}
+
 // acc[j] = sum over i of A_i B_j, over K, operands of type T (sm90::BF16
-// or F16; with CVT_B the B tiles arrive as bf16 and are converted to
-// fp16): A_i's rows from a[i] (lda apart, ``rows`` of them), B_j's k rows
+// or F16): A_i's rows from a[i] (lda apart, ``rows`` of them), B_j's k rows
 // from b[j] (ldb apart, cols - j * col_step columns: B_j lies col_step
 // columns past B_0, or 0 where each B_j is its own matrix); a ring of
-// STAGES stages at smem, copies two stages ahead
-template <typename T, bool CVT_B, int NA, int NB, int STAGES>
-__device__ __forceinline__ void
+// STAGES stages at smem, copies two stages ahead. With CVT_B (moe_down_tc)
+// the B tiles arrive as bf16 and go to fp16: as they are, where a vote a
+// stage finds none past fp16's range nor ``flag`` (h's rows with an
+// exponent) set, else (false returned at once, the CTA left to the
+// SCALED launch) with SCALED at their columns' exponents and h's rows at
+// their largest, as ``ds`` says.
+template <typename T, bool CVT_B, bool SCALED, int NA, int NB, int STAGES>
+__device__ __forceinline__ bool
 mainloop(float (&acc)[NB][64], uint32_t smem, const u16* const (&a)[NA],
          long long lda, int rows, const u16* const (&b)[NB],
-         long long ldb, int cols, int col_step, int K, int tid) {
+         long long ldb, int cols, int col_step, int K, int tid,
+         const DownScale* ds = nullptr, bool flag = false) {
   static_assert(STAGES >= 3, "two stages ahead and one read");
+  static_assert(CVT_B || !SCALED, "exponents are the down product's");
   constexpr int STAGE = NA * A_BYTES + NB * B_BYTES;
   const int nk = (K + TC_BK - 1) / TC_BK;
   const int wg = tid / 128;
@@ -520,15 +672,35 @@ mainloop(float (&acc)[NB][64], uint32_t smem, const u16* const (&a)[NA],
   for (int kt = 0; kt < nk; ++kt) {
     const uint32_t st = smem + (kt % STAGES) * STAGE;
     sm90::cp_async_wait<STAGES - 3>();   // stage kt has landed
-    if constexpr (CVT_B) {
+    uint32_t mx = 0;
+    if constexpr (SCALED) {
+      if (ds->rows) a_rows_to_hmax(st, kt, *ds, tid);
+    } else if constexpr (CVT_B) {
 #pragma unroll
       for (int j = 0; j < NB; ++j)
-        b_to_f16(st + NA * A_BYTES + j * B_BYTES, tid);
+        b_to_f16(st + NA * A_BYTES + j * B_BYTES, tid, mx);
     }
     sm90::fence_async_smem();
     // every copy of stage kt is visible; every warpgroup has waited for
     // its products of stage kt - 2, whose buffer the next copy reuses
-    __syncthreads();
+    if constexpr (CVT_B && !SCALED) {
+      // the vote: a wo element of the stage past fp16's range
+      if (__syncthreads_or(sm90::bf16x2_past_f16(mx) != 0 || flag)) {
+        sm90::cp_async_wait<0>();
+        sm90::wgmma_wait<0>();
+        return false;
+      }
+    } else {
+      __syncthreads();
+    }
+    if constexpr (SCALED) {
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < NB; ++j) sm90::fence_regs(acc[j]);
+      b_cols_to_exponents<NB>(acc, st + NA * A_BYTES, b, ldb, cols,
+                              col_step, K - kt * TC_BK, kt * TC_BK, ds->ex,
+                              tid);
+    }
     if (kt + STAGES - 2 < nk) load(kt + STAGES - 2);
     sm90::cp_async_commit();
     sm90::wgmma_fence();
@@ -552,13 +724,18 @@ mainloop(float (&acc)[NB][64], uint32_t smem, const u16* const (&a)[NA],
   sm90::wgmma_wait<0>();
 #pragma unroll
   for (int j = 0; j < NB; ++j) sm90::fence_regs(acc[j]);
+  return true;
 }
 
 // a stage: a tile of A and two of B, 48 KB (up: x, wi's gate and up
-// tiles; down: h, two 128-column tiles of wo); four stages, 192 KB
+// tiles; down: h, two 128-column tiles of wo); four stages, 192 KB; the
+// down kernel's column exponents after them
 constexpr int STAGES = 4;
-constexpr int SMEM = STAGES * (A_BYTES + 2 * B_BYTES) + 1024;
-constexpr int DOWN_BN = 2 * TC_BN;   // output columns a down CTA
+constexpr int RING = STAGES * (A_BYTES + 2 * B_BYTES);
+constexpr int SMEM = RING + 1024;
+constexpr int DOWN_SMEM = SMEM + EX_BYTES;
+constexpr int SCALED_CTAS = 132;   // moe_down_scaled's: one an SM
+constexpr int DOWN_BN = DOWN_COLS;
 
 // the rows of expert e that hold a token (all C where counts is null)
 __device__ __forceinline__ int filled_rows(const int* counts, int e,
@@ -570,7 +747,8 @@ __device__ __forceinline__ int filled_rows(const int* counts, int e,
 // rows past the count are not written (moe_down_tc does not read them)
 __global__ void __launch_bounds__(TC_THREADS, 1)
 moe_up_tc(const bf16* __restrict__ x, const bf16* __restrict__ wi,
-          const int* __restrict__ counts, __half* __restrict__ h, int C,
+          const int* __restrict__ counts, __half* __restrict__ h,
+          uint8_t* __restrict__ hexp, int* __restrict__ hmax, int C,
           int d, int f, int n_mb, int n_nb) {
   VX_DYN_SMEM(smem);
   const int mb = (int)(blockIdx.x % n_mb);
@@ -585,53 +763,81 @@ moe_up_tc(const bf16* __restrict__ x, const bf16* __restrict__ wi,
                            ((long long)e * C + row0) * d};
   const u16* const b[2] = {we, we + f};
   float acc[2][64];
-  mainloop<sm90::BF16, false, 1, 2, STAGES>(
+  mainloop<sm90::BF16, false, false, 1, 2, STAGES>(
       acc, sm90::align1024(smem), a, d, filled - row0, b, 2LL * f, f - j0,
       0, d, tid);
+  // h = silu(g) * u, in place of g
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float g = acc[0][i];
+    acc[0][i] = g / (1.f + expf(-g)) * acc[1][i];
+  }
   const int lane = tid % 32;
   const int r0 = row0 + tid / 128 * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  const int nt = (f + 63) / 64;
   __half* he = h + (long long)e * C * f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
-    if (row >= filled) continue;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = j0 + 8 * j + 2 * (lane & 3);
-      if (col >= f) continue;
-      float v[2];
+    for (int t = 0; t < 2; ++t) {   // a 64-column tile of h
+      // its exponent: the quad of threads holding the row holds the tile
+      float mx = 0.f;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float g = acc[0][4 * j + 2 * r + c];
-        v[c] = g / (1.f + expf(-g)) * acc[1][4 * j + 2 * r + c];
+      for (int j = 8 * t; j < 8 * t + 8; ++j)
+        mx = fmaxf(mx, fmaxf(fabsf(acc[0][4 * j + 2 * r]),
+                             fabsf(acc[0][4 * j + 2 * r + 1])));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const int ex = sm90::f16_exponent(mx);
+      if (row >= filled || j0 + 64 * t >= f) continue;
+      const long long er = (long long)e * C + row;
+      if ((lane & 3) == 0) {
+        hexp[er * nt + j0 / 64 + t] = (uint8_t)ex;
+        if (ex > 0) atomicMax(hmax + er, ex);
       }
-      *reinterpret_cast<uint32_t*>(he + (long long)row * f + col) =
-          sm90::pack_f16(v[0], v[1]);
+      const float sc = sm90::pow2(-ex);
+#pragma unroll
+      for (int j = 8 * t; j < 8 * t + 8; ++j) {
+        const int col = j0 + 8 * j + 2 * (lane & 3);
+        if (col >= f) continue;
+        *reinterpret_cast<uint32_t*>(he + (long long)row * f + col) =
+            sm90::pack_f16(acc[0][4 * j + 2 * r] * sc,
+                           acc[0][4 * j + 2 * r + 1] * sc);
+      }
     }
   }
 }
 
-// y[e, rows, cols] = h wo in fp16, stored bf16, 256 columns a CTA (two
+// y[e, rows, cols] = h wo in fp16, stored bf16, 256 columns a block (two
 // accumulators, as the up kernel's gate and up): h's tile is read once
-// for both; zero at rows past the count
-__global__ void __launch_bounds__(TC_THREADS, 1)
-moe_down_tc(const __half* __restrict__ h, const bf16* __restrict__ wo,
-            const int* __restrict__ counts, bf16* __restrict__ y, int C,
-            int d, int f, int n_mb, int n_nb) {
-  VX_DYN_SMEM(smem);
-  const int mb = (int)(blockIdx.x % n_mb);
-  const int en = (int)(blockIdx.x / n_mb);
+// for both; zero at rows past the count. Two kernels over one grid of
+// blocks: moe_down_tc (SCALED false, a CTA a block) computes every block
+// whose rows of h have no exponent and whose wo tiles hold nothing past
+// fp16's range, and sets each block's redo flag; moe_down_scaled (a few
+// CTAs walking the blocks) computes the blocks flagged, at the exponents
+// (rare). Returns with every thread done with shared memory.
+template <bool SCALED>
+__device__ __forceinline__ void
+down_block(unsigned char* smem, int blk, const __half* __restrict__ h,
+           const uint8_t* __restrict__ hexp, const int* __restrict__ hmax,
+           const bf16* __restrict__ wo, const int* __restrict__ counts,
+           bf16* __restrict__ y, int* __restrict__ redo, int C, int d,
+           int f, int n_mb, int n_nb) {
+  const int mb = blk % n_mb;
+  const int en = blk / n_mb;
   const int nb = en % n_nb, e = en / n_nb;
   const int row0 = mb * TC_BM, n0 = nb * DOWN_BN, tid = threadIdx.x;
   const int filled = filled_rows(counts, e, C);
   bf16* ye = y + (long long)e * C * d;
-  if (row0 >= filled) {   // no token: zeros, and no weight read
+  if (!SCALED && row0 >= filled) {   // no token: zeros, no weight read
     for (int i = tid; i < TC_BM * DOWN_BN / 2; i += TC_THREADS) {
       const int row = row0 + i / (DOWN_BN / 2);
       const int col = n0 + 2 * (i % (DOWN_BN / 2));
       if (row < C && col < d)
         *reinterpret_cast<uint32_t*>(ye + (long long)row * d + col) = 0u;
     }
+    if (tid == 0) redo[blk] = 0;
     return;
   }
   const u16* const a[1] = {reinterpret_cast<const u16*>(h) +
@@ -639,34 +845,105 @@ moe_down_tc(const __half* __restrict__ h, const bf16* __restrict__ wo,
   const u16* wn = reinterpret_cast<const u16*>(wo) + (long long)e * f * d +
                   n0;
   const u16* const b[2] = {wn, wn + TC_BN};
+  const uint32_t ring = sm90::align1024(smem);
+  // the hidden's row exponents: hmax of the rows this thread copies (the
+  // common path reads them with its first stage's vote, so their latency
+  // hides behind the first copies)
+  DownScale ds;
+  int any = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + tid / 8 + 32 * i;
+    ds.ra[i] = row < filled ? hmax[(long long)e * C + row] : 0;
+    any |= ds.ra[i];
+  }
+  if constexpr (SCALED) {
+    ds.nt = (f + 63) / 64;
+    ds.hexp = hexp + ((long long)e * C + row0) * ds.nt;
+    ds.ex = smem + (ring - sm90::smem_addr(smem)) + RING;
+    ds.ex[tid] = 0;   // the columns' exponents
+    ds.rows = __syncthreads_or(any) != 0;
+  }
   float acc[2][64];
-  mainloop<sm90::F16, true, 1, 2, STAGES>(
-      acc, sm90::align1024(smem), a, f, filled - row0, b, d, d - n0, TC_BN,
-      f, tid);
+  const bool done = mainloop<sm90::F16, true, SCALED, 1, 2, STAGES>(
+      acc, ring, a, f, filled - row0, b, d, d - n0, TC_BN, f, tid, &ds,
+      any != 0);
+  if constexpr (SCALED) {
+    __syncthreads();   // every column's last exponent is stored
+  } else {
+    if (tid == 0) redo[blk] = done ? 0 : 1;
+    if (!done) return;
+  }
   const int lane = tid % 32;
   const int r0 = row0 + tid / 128 * 64 + (tid % 128) / 32 * 16 + lane / 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= C) continue;
+    float rs = 1.f;
+    if constexpr (SCALED)
+      if (row < filled) rs = sm90::pow2(hmax[(long long)e * C + row]);
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int col = n0 + t * TC_BN + 8 * j + 2 * (lane & 3);
+        const int cc = t * TC_BN + 8 * j + 2 * (lane & 3);
+        const int col = n0 + cc;
         if (col >= d) continue;
+        float v0 = acc[t][4 * j + 2 * r], v1 = acc[t][4 * j + 2 * r + 1];
+        if constexpr (SCALED) {   // back from the exponents
+          v0 *= rs * sm90::pow2(ds.ex[cc]);
+          v1 *= rs * sm90::pow2(ds.ex[cc + 1]);
+        }
         *reinterpret_cast<uint32_t*>(ye + (long long)row * d + col) =
-            sm90::pack_bf16(acc[t][4 * j + 2 * r],
-                            acc[t][4 * j + 2 * r + 1]);
+            sm90::pack_bf16(v0, v1);
       }
+  }
+  if constexpr (SCALED) __syncthreads();   // ds.ex read by every thread
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+moe_down_tc(const __half* __restrict__ h, const uint8_t* __restrict__ hexp,
+            const int* __restrict__ hmax, const bf16* __restrict__ wo,
+            const int* __restrict__ counts, bf16* __restrict__ y,
+            int* __restrict__ redo, int C, int d, int f, int n_mb,
+            int n_nb) {
+  VX_DYN_SMEM(smem);
+  down_block<false>(smem, (int)blockIdx.x, h, hexp, hmax, wo, counts, y,
+                    redo, C, d, f, n_mb, n_nb);
+}
+
+// the blocks that moe_down_tc flagged, a few CTAs walking all n blocks a
+// window of TC_THREADS flags at a time (one a thread, then a vote): where
+// none is flagged, a CTA reads its windows' flags and returns
+__global__ void __launch_bounds__(TC_THREADS, 1)
+moe_down_scaled(const __half* __restrict__ h,
+                const uint8_t* __restrict__ hexp,
+                const int* __restrict__ hmax, const bf16* __restrict__ wo,
+                const int* __restrict__ counts, bf16* __restrict__ y,
+                int* __restrict__ redo, int C, int d, int f, int n_mb,
+                int n_nb, int n) {
+  VX_DYN_SMEM(smem);
+  for (int base = (int)blockIdx.x * TC_THREADS; base < n;
+       base += (int)gridDim.x * TC_THREADS) {
+    const int mine = (int)threadIdx.x + base;
+    if (!__syncthreads_or(mine < n && redo[mine] != 0)) continue;
+    for (int blk = base; blk < min(n, base + TC_THREADS); ++blk)
+      if (redo[blk])
+        down_block<true>(smem, blk, h, hexp, hmax, wo, counts, y, redo, C,
+                         d, f, n_mb, n_nb);
   }
 }
 
 int launch_tc(const void* x, const void* wi, const void* wo,
-              const void* counts, void* h, void* y, int E, int C, int d,
-              int f, void* stream) {
+              const void* counts, void* h, void* hexp, void* hmax,
+              void* redo, void* y, int E, int C, int d, int f,
+              void* stream) {
   if (C < 2 || d % 8 || f % 8) return kBadArgs;
   const int n_mb = (C + TC_BM - 1) / TC_BM;
+  int err = (int)cudaMemsetAsync(hmax, 0, (size_t)E * C * sizeof(int),
+                                 (cudaStream_t)stream);
+  if (err != 0) return err;
   auto up = moe_up_tc;
   static const int up_attr = (int)cudaFuncSetAttribute(
       up, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -674,17 +951,30 @@ int launch_tc(const void* x, const void* wi, const void* wo,
   const int n_fb = (f + TC_BN - 1) / TC_BN;
   VX_LAUNCH_SMEM(up, E * n_fb * n_mb, TC_THREADS, SMEM, stream,
                  (const bf16*)x, (const bf16*)wi, (const int*)counts,
-                 (__half*)h, C, d, f, n_mb, n_fb);
-  int err = (int)cudaGetLastError();
+                 (__half*)h, (uint8_t*)hexp, (int*)hmax, C, d, f, n_mb,
+                 n_fb);
+  err = (int)cudaGetLastError();
   if (err != 0) return err;
   auto down = moe_down_tc;
+  auto scaled = moe_down_scaled;
   static const int down_attr = (int)cudaFuncSetAttribute(
       down, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (down_attr != 0) return down_attr;
+  static const int scaled_attr = (int)cudaFuncSetAttribute(
+      scaled, cudaFuncAttributeMaxDynamicSharedMemorySize, DOWN_SMEM);
+  if (scaled_attr != 0) return scaled_attr;
   const int n_db = (d + DOWN_BN - 1) / DOWN_BN;
-  VX_LAUNCH_SMEM(down, E * n_db * n_mb, TC_THREADS, SMEM, stream,
-                 (const __half*)h, (const bf16*)wo, (const int*)counts,
-                 (bf16*)y, C, d, f, n_mb, n_db);
+  const int n = E * n_db * n_mb;
+  VX_LAUNCH_SMEM(down, n, TC_THREADS, SMEM, stream, (const __half*)h,
+                 (const uint8_t*)hexp, (const int*)hmax, (const bf16*)wo,
+                 (const int*)counts, (bf16*)y, (int*)redo, C, d, f, n_mb,
+                 n_db);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  VX_LAUNCH_SMEM(scaled, n < SCALED_CTAS ? n : SCALED_CTAS, TC_THREADS,
+                 DOWN_SMEM, stream, (const __half*)h, (const uint8_t*)hexp,
+                 (const int*)hmax, (const bf16*)wo, (const int*)counts,
+                 (bf16*)y, (int*)redo, C, d, f, n_mb, n_db, n);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__
@@ -716,11 +1006,15 @@ extern "C" int moe_ff_bf16(const void* x, const void* wi, const void* wo,
 }
 
 // The tensor-core route: x, wi, wo, counts, y as above, bf16, C >= 2, d
-// and f multiples of 8; h: (E, C, f) fp16 scratch for the hidden.
-// E * ceil(C / 128) * ceil(max(d, f) / 128) < 2^31.
+// and f multiples of 8; scratch: h (E, C, f) fp16, hexp (E, C,
+// ceil(f / 64)) uint8 and hmax (E, C) int32 (zeroed here) for the
+// hidden, redo int32, one a CTA of the down product, E * ceil(C / 128) *
+// ceil(d / 256). E * ceil(C / 128) * ceil(max(d, f) / 128) < 2^31.
 extern "C" int moe_ff_bf16_tc(const void* x, const void* wi, const void* wo,
-                              const void* counts, void* h, void* y, int E,
-                              int C, int d, int f, void* stream) {
-  return launch_tc(x, wi, wo, counts, h, y, E, C, d, f, stream);
+                              const void* counts, void* h, void* hexp,
+                              void* hmax, void* redo, void* y, int E, int C,
+                              int d, int f, void* stream) {
+  return launch_tc(x, wi, wo, counts, h, hexp, hmax, redo, y, E, C, d, f,
+                   stream);
 }
 #endif

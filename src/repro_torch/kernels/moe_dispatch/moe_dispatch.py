@@ -8,9 +8,13 @@ shapes:
   * ``tensor_cores``: bf16 at C > 1 (prefill) with d and f multiples of
     8. Two grouped GEMMs by wgmma (float32 accumulators): the gate and up
     products in bf16 with h = silu(g) * u written as one fp16 part (11
-    bits; an |h| above 65504 becomes inf) into an (E, C, f) scratch that
-    the wrapper allocates, then h @ wo in fp16 (each wo tile converted in
-    shared memory);
+    bits) into an (E, C, f) scratch that the wrapper allocates, then h @
+    wo in fp16 (each wo tile converted in shared memory). h and wo past
+    fp16's range are kept in it by power-of-two exponents (h's a row
+    and 64-column tile, in two more scratch tensors; wo's a column, in
+    shared memory), which are 0 wherever the values are in range: the
+    down product's common kernel leaves a block that meets one to a
+    second kernel, flagged in a fourth scratch tensor;
   * ``cuda_cores``: everything else (float32; decode's C = 1; bf16 rows
     the 16-byte copies cannot take). One CTA per (expert, slice of the
     hidden columns, block of capacity rows), float32 on the CUDA cores,
@@ -26,7 +30,9 @@ counts of its dispatch table, where every free slot is the zero row.
 
 It is built with nvcc at first use into ``build/moe_dispatch/<sha256>.so``
 and launched through ctypes on the current stream. ``LAUNCHES`` counts
-wrapper calls: one call launches two kernels.
+wrapper calls: one call launches two kernels on the CUDA cores, three
+on the tensor cores (the up product, the down product and its scaled
+pass, which finds nothing to do wherever the values are in range).
 
 Unlike the Pallas kernel, any capacity C and any width f are taken (the
 block size is the kernel's own business), and C = 0 gives an empty
@@ -79,7 +85,7 @@ KERNEL = SourceKernel(
     Path(__file__).resolve().parent / "csrc" / "moe_dispatch.cu",
     {**{f"moe_ff_{t}": [_P] * 6 + [_I] * 6 + [_P]
         for t in _SUFFIX.values()},
-     "moe_ff_bf16_tc": [_P] * 6 + [_I] * 4 + [_P]},
+     "moe_ff_bf16_tc": [_P] * 9 + [_I] * 4 + [_P]},
     headers=[CSRC / "sm90.cuh"])
 
 
@@ -179,21 +185,35 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     out = torch.empty_like(x)
     if C == 0 or E == 0:
         return out
-    # the hidden as fp16 (tensor cores) or the slices' float32 sums (CUDA
-    # cores)
-    scratch = (torch.empty(E, C, f, dtype=torch.float16, device=x.device)
-               if way == "tensor_cores" else
-               torch.empty(n_slices, E, C, d, dtype=torch.float32,
-                           device=x.device))
+    # the hidden as fp16 with its exponents (tensor cores) or the slices'
+    # float32 sums (CUDA cores)
+    scratch = (tc_scratch(E, C, d, f, x.device) if way == "tensor_cores" else
+               [torch.empty(n_slices, E, C, d, dtype=torch.float32,
+                            device=x.device)])
     args = (x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
             None if counts is None else counts.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), E, C, d, f)
+            *(t.data_ptr() for t in scratch), out.data_ptr(), E, C, d, f)
     if way == "cuda_cores":
         args += (fs, n_slices)
     KERNEL.call(entry(x.dtype, C, d, f), x.get_device(), *args)
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[way] += 1
     return out
+
+
+def tc_scratch(E: int, C: int, d: int, f: int, device):
+    """The tensor-core entry's scratch: for the hidden, h (E, C, f) fp16,
+    the exponent of each row's 64-column tiles (E, C, ceil(f / 64))
+    uint8 and each row's largest (E, C) int32, which the launcher zeroes;
+    and a flag a CTA of the down product (128 rows, 256 columns), int32,
+    that its common launch sets where it leaves the CTA to the scaled
+    one."""
+    return (torch.empty(E, C, f, dtype=torch.float16, device=device),
+            torch.empty(E, C, -(-f // 64), dtype=torch.uint8,
+                        device=device),
+            torch.empty(E, C, dtype=torch.int32, device=device),
+            torch.empty(E * -(-C // TC_BLOCK) * -(-d // (2 * TC_BLOCK)),
+                        dtype=torch.int32, device=device))
 
 
 def slicing(E: int, C: int, f: int):

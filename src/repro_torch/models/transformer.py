@@ -1,5 +1,5 @@
-"""Unified LM assembly: the attention and mamba paths of the reference's
-LM, with dense or MoE feed-forward.
+"""Unified LM assembly: the attention, mamba and xLSTM paths of the
+reference's LM, with dense, MoE or no feed-forward.
 
 Port of ``repro.models.transformer``. A model is a stack of identical
 *periods*; a period is a short list of layers. Params of a period are
@@ -7,7 +7,8 @@ stacked on a leading axis, as in the reference, and a Python loop over
 that axis takes the place of ``lax.scan``.
 
 Decode carries a per-period cache tree (KV pages for attention layers,
-the conv and SSM states for mamba layers), stacked the same way. Unlike
+the conv and SSM states for mamba layers, the mLSTM's (C, n, m) and the
+sLSTM's (h, c, n, m) for xLSTM layers), stacked the same way. Unlike
 the reference, ``decode_step`` updates the cache in place and returns
 the same cache object: it writes the new keys and values (one indexed
 store per layer instead of a one-hot select over the whole cache) and
@@ -21,23 +22,27 @@ and ``attn_unroll_kv`` are the reference's XLA lowering choices; the
 port reads none of them, and prefill's attention always goes through the
 flash_attention kernel.
 
-Ported: attention and mamba mixers (``models/ssm.py``, jamba-style
-hybrids) with dense feed-forward (granite-style) or MoE feed-forward
-(olmoe-style, ``models/moe.py``, with an optional shared MLP), and the
-training loss ``loss_fn``. As in the reference, an MoE layer runs
+Ported: attention, mamba (``models/ssm.py``, jamba-style hybrids) and
+xLSTM mixers (``models/xlstm.py``, xlstm-1.3b: no feed-forward) with
+dense feed-forward (granite-style) or MoE feed-forward (olmoe-style,
+``models/moe.py``, with an optional shared MLP), and the training loss
+``loss_fn``. As in the reference, an MoE layer runs
 sequentially even under ``parallel_block``, and its load-balancing loss
 is carried through the stack in training and dropped in decode. Under
 ``remat`` each period is a ``torch.utils.checkpoint`` region, whose
 activations are recomputed in the backward: the reference's
 ``jax.checkpoint`` with ``nothing_saveable``. The stacked params are
 unbound once a call (one view a period), so the backward stacks each
-leaf's period gradients once. The xLSTM mixers, the encoder-decoder
-stack and VLM inputs raise ``NotImplementedError`` naming their ROADMAP
-item; on the card, training an MoE or mamba layer raises too, since
-their kernels have no backward yet (ROADMAP A13, A14).
+leaf's period gradients once. The encoder-decoder stack and VLM inputs
+raise ``NotImplementedError`` naming their ROADMAP item; on the card,
+training an MoE or mamba layer raises too, since their kernels have no
+backward yet (ROADMAP A13, A14).
 
-Like the port's fixes of ROADMAP C6, C9 and C10, its decode departs
-from the reference's on purpose in one place: under ``parallel_block``
+Like the port's fixes of ROADMAP C6, C9 and C10, its xLSTM prefill is
+causal where the reference's chunked mLSTM reads the rest of its chunk
+(ROADMAP C14): the port's prefill and ``loss_fn`` equal its decode
+recurrence, the reference's decode. Its decode departs from the
+reference's on purpose in one place: under ``parallel_block``
 a dense layer decodes as prefill computes it, ``x + attn(h) + mlp(h)``
 from one normed input (command-r-plus). The reference's
 ``_decode_layer`` never reads ``parallel_block`` and decodes such a
@@ -56,6 +61,7 @@ from ..device import resolve_device
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
+from . import xlstm as XL
 from .blueprint import Leaf, leaf, tree_map
 
 Params = Any
@@ -83,9 +89,7 @@ def _stack_bp(bp, n: int):
                        else l.scale_dim + 1), bp)
 
 
-_MIXER_ITEM = {"mlstm": "A6 (models/xlstm.py)",
-               "slstm": "A6 (models/xlstm.py)",
-               "attn_cross": "A11 (encoder-decoder)"}
+_MIXER_ITEM = {"attn_cross": "A11 (encoder-decoder)"}
 
 
 class LM:
@@ -108,9 +112,13 @@ class LM:
         elif kind.mixer == "mamba":
             bp["mamba"] = SSM.mamba_bp(c.d_model, c.ssm_d_inner,
                                        c.ssm_d_state, c.ssm_d_conv)
+        elif kind.mixer == "mlstm":
+            bp["mlstm"] = XL.mlstm_bp(c.d_model, c.n_heads)
+        elif kind.mixer == "slstm":
+            bp["slstm"] = XL.slstm_bp(c.d_model, c.n_heads)
         else:
             raise _not_ported(f"the {kind.mixer} mixer",
-                              _MIXER_ITEM.get(kind.mixer, "A6"))
+                              _MIXER_ITEM[kind.mixer])
         if kind.ff == "dense":
             bp["ln2"] = L.rmsnorm_bp(c.d_model)
             bp["mlp"] = L.mlp_bp(c.d_model, c.d_ff, c.gated_mlp)
@@ -152,6 +160,11 @@ class LM:
             mix = SSM.mamba_scan_chunked(p["mamba"], h,
                                          d_state=c.ssm_d_state,
                                          chunk=c.ssm_chunk)
+        elif kind.mixer == "mlstm":
+            mix = XL.mlstm_chunked(p["mlstm"], h, n_heads=c.n_heads,
+                                   chunk=c.xlstm_chunk)
+        elif kind.mixer == "slstm":
+            mix = XL.slstm_seq(p["slstm"], h)
         else:
             mix = L.gqa_attention(
                 p["attn"], h, positions, n_heads=c.n_heads,
@@ -263,9 +276,18 @@ class LM:
                                         dtype=torch.bfloat16, device=device),
                     "ssm": torch.zeros((n, B, c.ssm_d_inner, c.ssm_d_state),
                                        dtype=torch.float32, device=device)}
+        if kind.mixer == "mlstm":
+            st = XL.mlstm_init_state(n * B, c.n_heads,
+                                     c.d_model // c.n_heads, device)
+            return {k: t.reshape((n, B) + t.shape[1:])
+                    for k, t in st.items()}
+        if kind.mixer == "slstm":
+            return tuple(t.reshape(n, B, c.d_model)
+                         for t in XL.slstm_init_state(n * B, c.d_model,
+                                                      device=device))
         if kind.mixer != "attn":
             raise _not_ported(f"the {kind.mixer} decode cache",
-                              _MIXER_ITEM.get(kind.mixer, "A6"))
+                              _MIXER_ITEM[kind.mixer])
         shape = (n, B, S_max, c.n_kv_heads, c.head_dim)
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
@@ -277,12 +299,23 @@ class LM:
         return [self._layer_cache(k, B, S_max, dev) for k in self.period]
 
     def recurrent_state(self, cache):
-        """The cache's recurrent leaves (those of mamba layers), each
-        (n_periods, B, ...): state that a decode step advances for every
-        slot it runs, where KV pages only gain a row. Empty for a model
-        of attention layers only."""
-        return [t for kind, layer in zip(self.period, cache)
-                if kind.mixer == "mamba" for t in layer.values()]
+        """The cache's recurrent leaves (those of mamba and xLSTM layers),
+        each (n_periods, B, ...), as (leaf, its initial value) pairs:
+        state that a decode step advances for every slot it runs, where
+        KV pages only gain a row. Every leaf starts at 0 but the
+        stabilisers ``m`` of the mLSTM and sLSTM, which start at
+        ``XL.M_INIT``. Empty for a model of attention layers only."""
+        out = []
+        for kind, layer in zip(self.period, cache):
+            if kind.mixer == "mamba":
+                out += [(t, 0.0) for t in layer.values()]
+            elif kind.mixer == "mlstm":
+                out += [(t, XL.M_INIT if k == "m" else 0.0)
+                        for k, t in layer.items()]
+            elif kind.mixer == "slstm":
+                out += [(t, XL.M_INIT if i == 3 else 0.0)
+                        for i, t in enumerate(layer)]
+        return out
 
     def decode_step(self, params, cache, tokens, pos, enc_out=None):
         """tokens: (B,1) int; pos: (B,) current lengths.
@@ -308,6 +341,13 @@ class LM:
         if kind.mixer == "mamba":
             mix, _ = SSM.mamba_decode_step(p["mamba"], h, cache,
                                            d_state=c.ssm_d_state)
+            return self._ff(kind, p, x + mix)
+        if kind.mixer == "mlstm":
+            mix, _ = XL.mlstm_decode_step(p["mlstm"], h, cache,
+                                          n_heads=c.n_heads)
+            return self._ff(kind, p, x + mix)
+        if kind.mixer == "slstm":
+            mix, _ = XL.slstm_decode_step(p["slstm"], h, cache)
             return self._ff(kind, p, x + mix)
         q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
         k = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wk"])

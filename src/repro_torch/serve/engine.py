@@ -19,11 +19,15 @@ place; the ``serve.decode`` site fires before it, so a retry after an
 injected fault runs on unchanged state, and a rerun of a step that
 failed part-way writes the same KV rows.
 
-Recurrent state (the mamba layers' conv and SSM states) differs from KV
-rows: every slot that a step runs is advanced, and a slot's state holds
+Recurrent state (the mamba layers' conv and SSM states, the xLSTM
+layers' memories, normalisers and stabilisers) differs from KV rows:
+every slot that a step runs is advanced, and a slot's state holds
 everything the slot has seen. So, unlike the reference (ROADMAP C9), the
-engine zeroes a slot's recurrent state when it starts to feed a prompt
-into it, and a prompt-feed step, which runs filler tokens in every
+engine resets a slot's recurrent state when it starts to feed a prompt
+into it, each leaf to its initial value (``LM.recurrent_state``: zero,
+but -1e30 for the xLSTM stabilisers ``m``, whose first step would
+otherwise take another scale and another ``max(|q n|, 1)`` clamp than a
+fresh cache's), and a prompt-feed step, which runs filler tokens in every
 other slot, leaves the other slots' recurrent state as it found it: it
 copies their rows of the recurrent leaves before the step and writes
 them back after. Each request then gets the tokens it would get alone,
@@ -80,7 +84,9 @@ class ServeEngine:
         self.queue: "collections.deque[Request]" = collections.deque()
         self.active: List[Optional[Request]] = [None] * slots
         self.cache = model.init_cache(slots, max_seq, device=self.device)
-        self._recurrent = model.recurrent_state(self.cache)
+        rec = model.recurrent_state(self.cache)
+        self._recurrent = [t for t, _ in rec]
+        self._initial = [v for _, v in rec]
         self.pos = np.zeros((slots,), np.int32)
         self.last_tok = np.zeros((slots,), np.int32)
         self.telemetry: Dict[str, int] = collections.defaultdict(int)
@@ -159,12 +165,12 @@ class ServeEngine:
                 f"({self.max_seq})")
         # feed all but the last prompt token through decode_step;
         # step() feeds the last one and samples the first new token.
-        # Restarting from pos 0 with a zero recurrent state rewrites the
-        # same KV rows and states, so a retry after a mid-prefill
+        # Restarting from pos 0 with the initial recurrent state rewrites
+        # the same KV rows and states, so a retry after a mid-prefill
         # transient is idempotent.
         self.pos[s] = 0
-        for t in self._recurrent:
-            t[:, s].zero_()
+        for t, v in zip(self._recurrent, self._initial):
+            t[:, s].fill_(v)
         others = torch.tensor([o for o in range(self.slots) if o != s],
                               dtype=torch.long, device=self.device
                               ) if self._recurrent else None

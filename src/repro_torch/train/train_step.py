@@ -38,12 +38,14 @@ class StepConfig:
 def value_and_grad(model, params, batch: Dict[str, torch.Tensor], *,
                    remat: bool) -> Tuple[torch.Tensor, Any]:
     """(loss, grads) of ``model.loss_fn`` at params: grads a tree of the
-    params' structure, each leaf in its param's dtype. params are not
-    changed; autograd runs on detached aliases of them."""
+    params' structure, each leaf in its param's dtype, zeros for a leaf
+    the loss does not read (the mLSTM's ``norm``, as ``jax.grad`` gives).
+    params are not changed; autograd runs on detached aliases of them."""
     ps = tree_map(lambda a: a.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss = model.loss_fn(ps, batch, remat=remat)
-        gs = iter(torch.autograd.grad(loss, leaves(ps)))
+        gs = iter(torch.autograd.grad(loss, leaves(ps),
+                                      materialize_grads=True))
     return loss.detach(), tree_map(lambda _: next(gs), params)
 
 

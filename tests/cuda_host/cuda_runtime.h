@@ -148,6 +148,18 @@ using std::max;
 using std::min;
 
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t = 0) {
+  std::memset(p, v, n);
+  return 0;
+}
+inline int atomicMax(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(
+                        p, &old, v, false, __ATOMIC_SEQ_CST,
+                        __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
 inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   *v = vx_host::sm_count;

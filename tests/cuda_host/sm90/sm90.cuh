@@ -19,7 +19,9 @@
 //     meet in a 64 x 16 tile between two block barriers: the block must
 //     be one warpgroup of 128 threads, every thread calling it together,
 //     as wgmma's .sync.aligned requires;
-//   * 2^x is exp2 (no flush of denormals).
+//   * 2^x is exp2 (no flush of denormals);
+//   * the shared-memory rewrites of fp16 and bf16 chunks (bf16_to_f16,
+//     f16_scale, st_shared16) are plain copies through the buffer.
 // It checks the kernels' tiles, fragments, masks and order of work, not
 // their speed, and not the real header's PTX.
 #pragma once
@@ -155,11 +157,42 @@ inline void fence_async_smem() {}
 #include "../../../src/repro_torch/kernels/csrc/sm90.cuh"
 
 namespace sm90 {
-// after the real header: it converts with the real bf16x2_to_f16x2
-inline void bf16_to_f16(uint32_t a) {
+// max.xorsign.abs.bf16x2: each half the larger magnitude (a NaN loses),
+// its sign the xor of the two
+inline uint32_t absmax_bf16x2(uint32_t mx, uint32_t w) {
+  uint32_t d = 0;
+  for (int s = 0; s < 32; s += 16) {
+    const uint32_t a = (mx >> s) & 0xffffu, b = (w >> s) & 0xffffu;
+    const float fa = std::fabs(__uint_as_float(a << 16));
+    const float fb = std::fabs(__uint_as_float(b << 16));
+    const uint32_t m = (fb > fa || fa != fa) ? (b & 0x7fffu) : (a & 0x7fffu);
+    d |= (m | ((a ^ b) & 0x8000u)) << s;
+  }
+  return d;
+}
+// after the real header: these convert with its bf16x2_to_f16x2, pow2
+// and pack_f16
+inline void bf16_to_f16(uint32_t a, uint32_t& mx) {
   uint32_t w[4];
   std::memcpy(w, host::smem(a), 16);
-  for (int i = 0; i < 4; ++i) w[i] = bf16x2_to_f16x2(w[i]);
+  for (int i = 0; i < 4; ++i) {
+    mx = absmax_bf16x2(mx, w[i]);
+    w[i] = bf16x2_to_f16x2(w[i]);
+  }
+  std::memcpy(host::smem(a), w, 16);
+}
+inline void f16_scale(uint32_t a, int k) {
+  uint32_t w[4];
+  std::memcpy(w, host::smem(a), 16);
+  const float s = pow2(k);
+  for (int i = 0; i < 4; ++i) {
+    float v[2];
+    host::unpack<F16>(w[i], v);
+    w[i] = pack_f16(v[0] * s, v[1] * s);
+  }
+  std::memcpy(host::smem(a), w, 16);
+}
+inline void st_shared16(uint32_t a, const uint32_t (&w)[4]) {
   std::memcpy(host::smem(a), w, 16);
 }
 }  // namespace sm90

@@ -144,6 +144,57 @@ def test_flash_attention_tensor_cores_match_plain(cuda, B, H, Hkv, Sq, Sk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tensor_cores_take_v_past_fp16_range(cuda, D,
+                                                             causal):
+    """ROADMAP C13 on the card: one element of v at 7e4, past fp16's
+    65504, and query rows that put most of their weight on its key. The
+    output is finite and within the card's bf16 tolerance of the plain
+    version (tests/test_torch_lm_kernels.py runs the same on the host)."""
+    g = torch.Generator(cuda).manual_seed(D)
+    B, H, Hkv, Sq, Sk = 1, 4, 2, 300, 500
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=cuda)
+               .bfloat16().transpose(1, 2)
+               for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+    v[0, 1, 200, 5] = 7e4
+    q[0, 2:4, 250:260] = 4 * k[0, 1, 200]
+    tc = FA.LAUNCHES_BY_ROUTE["tensor_cores"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES_BY_ROUTE["tensor_cores"] == tc + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    assert float(want.float().abs().max()) > 65504
+    assert torch.isfinite(got.float()).all()
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_smoke_xlstm_on_the_card_goes_through_rmsnorm(cuda):
+    """xlstm-1.3b's smoke LM, one period: prefill on the card goes
+    through the rmsnorm kernel (one launch per layer and ln_f, no ln2:
+    d_ff is 0) and meets the CPU within tests/test_archs.py's atol 0.55,
+    rtol 0.1 (the two round bf16 differently and the random-weight xLSTM
+    is ill-conditioned: ROADMAP C15)."""
+    import dataclasses
+    cfg = get_config("xlstm-1.3b", smoke=True)
+    cfg = dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern()))
+    model = get_model(cfg)
+    params = init_params(model.blueprint(), torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    want = model.prefill(params, toks)
+    rn = RN.LAUNCHES
+    got = model.prefill(tree_map(lambda a: a.to(cuda), params),
+                        toks.to(cuda))
+    torch.cuda.synchronize()
+    assert RN.LAUNCHES - rn == cfg.n_layers + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0.1, atol=0.55)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,aligned,way", [
     (torch.bfloat16, True, "tensor_cores"),
     (torch.bfloat16, False, "cuda_cores"),

@@ -643,28 +643,76 @@ TC_HOST_SHAPES = [
 ]
 
 
+def _tc_forward_on_host(lib, q, k, v, causal):
+    """(out, lse, the exponents of v's tiles, the flag of each (batch, KV
+    head)) of the forward's tensor-core entry run on the host; the flags
+    start at 7 (the launcher zeroes them)."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    out = torch.empty(B, H, Sq, D, dtype=torch.bfloat16)
+    lse = torch.empty(B, H, Sq)
+    vh, vexp, vmax = FA.v_scratch(B, Hkv, Sk, D, "cpu")
+    vmax.fill_(7)
+    err = getattr(lib, FA.entry(torch.bfloat16, D))(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), vh.data_ptr(),
+        vexp.data_ptr(), vmax.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        B, H, Hkv, Sq, Sk,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+        1.0 / math.sqrt(D), None)
+    assert err == 0
+    return out, lse, vexp, vmax
+
+
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", TC_HOST_SHAPES)
 def test_tensor_core_forward_source_matches_plain_on_host(
         B, H, Hkv, Sq, Sk, D, causal, host_tc_libs):
     """The forward's tensor-core entry under the emulated helpers, against
-    the plain version at the card's bf16 tolerance, lse at 1e-5."""
+    the plain version at the card's bf16 tolerance, lse at 1e-5. Every
+    tile of v is in fp16's range: each exponent is 0."""
     g = torch.Generator().manual_seed(Sq + D)
     q, k, v = _bf16_qkv(g, B, H, Hkv, Sq, Sk, D)
-    out = torch.empty(B, H, Sq, D, dtype=torch.bfloat16)
-    lse = torch.empty(B, H, Sq)
-    vh = torch.empty(B, Hkv, Sk, D, dtype=torch.float16)
-    err = getattr(host_tc_libs[FA], FA.entry(torch.bfloat16, D))(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), vh.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, H, Hkv, Sq, Sk, *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], int(causal), 1.0 / math.sqrt(D),
-        None)
-    assert err == 0
+    out, lse, vexp, vmax = _tc_forward_on_host(host_tc_libs[FA], q, k, v,
+                                               causal)
     want, want_lse = FA.flash_attention_plain(q, k, v, causal=causal,
                                               with_lse=True)
     rtol, atol = CARD_BF16_TOL
     torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
                                atol=atol)
     _close(lse, want_lse.numpy(), 1e-5)
+    assert (vexp == 0).all() and (vmax == 0).all()
+
+
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_forward_takes_v_past_fp16_range_on_host(
+        D, causal, host_tc_libs):
+    """ROADMAP C13: one element of v at 7e4, past fp16's 65504, in the
+    second key tile of one KV head (bf16's range reaches 3.4e38, as the
+    plain version's float32 does); a few rows put most of their weight
+    on its key. The output is finite and within the card's bf16
+    tolerance of the plain version, the lse at 1e-5; that tile's
+    exponent is 2 and every other is 0, and only that KV head's flag is
+    up. (Before the fix the route converted v to fp16 as it was and gave
+    inf.)"""
+    rng = np.random.default_rng(D + causal)
+    B, H, Hkv, Sq, Sk = 1, 4, 2, 100, 150
+    q, k, v = [torch.from_numpy(rng.standard_normal(
+        (B, S, h, D)).astype(np.float32)).bfloat16().transpose(1, 2)
+        for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
+    v[0, 1, 70, 5] = 7e4
+    q[0, 2:4, 80:90] = 4 * k[0, 1, 70]      # heads of KV head 1
+    out, lse, vexp, vmax = _tc_forward_on_host(host_tc_libs[FA], q, k, v,
+                                               causal)
+    want, want_lse = FA.flash_attention_plain(q, k, v, causal=causal,
+                                              with_lse=True)
+    assert torch.isfinite(out.float()).all()
+    assert float(want.float().abs().max()) > 65504
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    _close(lse, want_lse.numpy(), 1e-5)
+    assert vexp.tolist() == [[[0, 0, 0], [0, 2, 0]]]
+    assert vmax.tolist() == [[0, 2]]
 
 
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", TC_HOST_SHAPES)

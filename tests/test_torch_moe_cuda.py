@@ -92,6 +92,33 @@ def test_grouped_expert_ff_tensor_cores_match_plain(cuda, shape):
                                atol=atol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["h", "wo"])
+def test_grouped_expert_ff_tensor_cores_take_values_past_fp16_range(
+        cuda, what):
+    """ROADMAP C13 on the card: a hidden value past fp16's 65504 (one
+    expert's gate and up columns set to 5 x one row of its x) or one wo
+    element at 7e4. The output is finite and within the card's bf16
+    tolerance of the plain version (tests/test_torch_moe_kernels.py runs
+    the same on the host)."""
+    E, C, d, f = 4, 300, 256, 520
+    x, wi, wo = _path_inputs(cuda, (E, C, d, f), 5)
+    if what == "h":
+        wi[1, :, 150] = (5 * x[1, 3].float()).bfloat16()
+        wi[1, :, f + 150] = wi[1, :, 150]
+    else:
+        wo[2, 37, 100] = 7e4
+    tc = MD.LAUNCHES_BY_ROUTE["tensor_cores"]
+    got = MD.grouped_expert_ff(x, wi, wo)
+    torch.cuda.synchronize()
+    assert MD.LAUNCHES_BY_ROUTE["tensor_cores"] == tc + 1
+    want = MD.grouped_expert_ff_plain(x, wi, wo)
+    assert torch.isfinite(got.float()).all()
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 def _path_inputs(dev, shape, seed):
     """x at unit scale and the weights drawn as init_params draws them,
     bf16."""

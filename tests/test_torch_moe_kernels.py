@@ -14,6 +14,7 @@ tensor-core route's rounding model is held at chip_smoke.py's bf16
 tolerance, rtol 1e-2 and atol 2e-3.
 """
 import ctypes
+import math
 import shutil
 import subprocess
 from pathlib import Path
@@ -344,3 +345,130 @@ def test_source_with_counts_matches_plain_on_host(shape, how, host_lib):
     err, y = _host_run(host_lib, x, wi, wo, *MD.slicing(E, C, f), counts)
     assert err == 0
     _close(y, MD.grouped_expert_ff_plain(x, wi, wo, counts).numpy(), 1e-5)
+
+
+# --------------------------------------------------------------------------
+# the tensor-core route run on the host: moe_ff_bf16_tc (moe_up_tc and
+# moe_down_tc) built with g++ against tests/cuda_host/sm90, whose wgmma
+# reads its operands through the descriptors and the 128-byte swizzle, as
+# tests/test_torch_lm_kernels.py runs attention's
+# --------------------------------------------------------------------------
+
+HOST_SM90 = HOST_CUDA / "sm90"
+
+
+@pytest.fixture(scope="module")
+def host_tc_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to run the CUDA sources on the host")
+    so = tmp_path_factory.mktemp("host_moe_tc") / "moe_dispatch_tc.so"
+    p = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+         "-D__CUDACC__", f"-I{HOST_SM90}", f"-I{HOST_CUDA}", "-x", "c++",
+         "-o", str(so), str(MD.KERNEL.cu)],
+        capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.moe_ff_bf16_tc.argtypes = MD.KERNEL.argtypes["moe_ff_bf16_tc"]
+    return lib
+
+
+def _host_tc_run(lib, x, wi, wo, counts=None):
+    """(y, hexp, hmax, redo) of the tensor-core entry on the host; y and
+    the scratch filled with garbage first, hmax with 7s (the launcher
+    zeroes it)."""
+    E, C, d = x.shape
+    f = wo.shape[1]
+    h, hexp, hmax, redo = MD.tc_scratch(E, C, d, f, "cpu")
+    h.fill_(float("nan"))
+    hexp.fill_(99)
+    hmax.fill_(7)
+    redo.fill_(7)
+    y = torch.full_like(x, float("nan"))
+    err = lib.moe_ff_bf16_tc(
+        x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+        None if counts is None else counts.data_ptr(), h.data_ptr(),
+        hexp.data_ptr(), hmax.data_ptr(), redo.data_ptr(), y.data_ptr(),
+        E, C, d, f, None)
+    assert err == 0
+    return y, hexp, hmax, redo
+
+
+@pytest.mark.parametrize("shape,how", [
+    ((2, 130, 64, 136), None),      # two row blocks, a short column block
+    ((3, 40, 136, 200), "mixed"),   # counts: an empty expert, a full one
+    ((1, 20, 264, 72), "full"),     # two down column blocks
+])
+def test_tensor_core_source_matches_plain_on_host(shape, how, host_tc_lib):
+    """The route's two kernels under the emulated helpers, at x, wi, wo
+    of the path's scales, against the plain version at the card's bf16
+    tolerance; every exponent 0 (the values are in range), rows past a
+    count zero."""
+    x, wi, wo = _path_inputs(shape, 20)
+    E, C, d, f = shape
+    counts = None if how is None else _counts(E, C, how, seed=2)
+    y, hexp, hmax, redo = _host_tc_run(host_tc_lib, x, wi, wo, counts)
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(
+        y.float(), MD.grouped_expert_ff_plain(x, wi, wo, counts).float(),
+        rtol=rtol, atol=atol)
+    assert (hmax == 0).all() and (redo == 0).all()
+    filled = (torch.arange(C)[None, :] < (torch.full((E, 1), C)
+                                          if counts is None
+                                          else counts[:, None]))
+    assert (hexp[filled] == 0).all()
+    if counts is not None:
+        assert (y[~filled] == 0).all()
+
+
+def _c13_inputs(what):
+    """ROADMAP C13's inputs for the expert FF, (E, C, d, f) (2, 70, 64,
+    200): "h", expert 1's gate and up columns 150 set to 5 x row 3 of its
+    x, so that row 3's hidden there is about 1e5, past fp16's 65504, and
+    every other row's stays under 1e4; "wo", one element of expert 0's
+    wo at 7e4."""
+    x, wi, wo = _path_inputs((2, 70, 64, 200), 21)
+    if what == "h":
+        wi[1, :, 150] = (5 * x[1, 3].float()).bfloat16()
+        wi[1, :, 200 + 150] = wi[1, :, 150]
+    else:
+        wo[0, 37, 50] = 7e4
+    return x, wi, wo
+
+
+@pytest.mark.parametrize("what", ["h", "wo"])
+def test_tensor_core_source_takes_values_past_fp16_range_on_host(
+        what, host_tc_lib):
+    """ROADMAP C13: a hidden value or a wo element past fp16's range
+    (bf16's reaches 3.4e38, as the plain version's float32 does). The
+    output is finite and within the card's bf16 tolerance of the plain
+    version. The hidden's exponents are 0 but at the row and tile past
+    the range, and only the down product's CTAs that meet it are left to
+    the scaled launch. (Before the fix the route stored h and converted
+    wo to fp16 as they were and gave inf.)"""
+    x, wi, wo = _c13_inputs(what)
+    y, hexp, hmax, redo = _host_tc_run(host_tc_lib, x, wi, wo)
+    want = MD.grouped_expert_ff_plain(x, wi, wo)
+    hid = torch.bmm(x.float(), wi.float())
+    hid = F.silu(hid[..., :200]) * hid[..., 200:]
+    assert torch.isfinite(y.float()).all()
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(y.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    want_e = 0
+    if what == "h":
+        big = hid.abs() > 65504
+        assert big.nonzero().tolist() == [[1, 3, 150]]
+        assert float(hid.abs()[~big].max()) < 1e4
+        # the tile's largest under 2^15: floor(log2 |h|) - 14
+        want_e = int(math.floor(math.log2(float(hid[1, 3, 150].abs())))) - 14
+        assert want_e >= 2
+        assert int(hmax[1, 3]) == want_e and int(hexp[1, 3, 2]) == want_e
+        hexp[1, 3, 2] = 0
+    assert (hexp == 0).all() and int(hmax.sum()) == want_e
+    # the down product's CTAs left to the scaled launch: those of expert 1
+    # (rows of h with an exponent) or of expert 0's wo columns 0-255 (one
+    # CTA: d 64 is one block of 256 columns), over its row blocks
+    n_mb = -(-70 // 128)
+    assert redo.tolist() == ([0] * n_mb + [1] * n_mb if what == "h"
+                             else [1] * n_mb + [0] * n_mb)

@@ -480,3 +480,55 @@ def test_jamba_transient_faults_are_retried_on_clean_state(jamba_models):
         eng.run_until_drained()
     assert pre.fired > 0
     assert [r.out for r in reqs] == solo
+
+
+@pytest.fixture(scope="module")
+def xlstm_model():
+    """xlstm-1.3b's smoke LM (16 layers: an sLSTM and seven mLSTMs a
+    period), random params, and three short prompts."""
+    from repro_torch.models.blueprint import init_params
+    cfg = get_config("xlstm-1.3b", smoke=True)
+    model = get_model(cfg)
+    params = init_params(model.blueprint(),
+                         torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(3, 7))
+                            ).astype(np.int32) for _ in range(3)]
+    return model, params, prompts
+
+
+def test_xlstm_slot_reset_restores_initial_state(xlstm_model):
+    """A prompt fed into a used slot starts from the state of a fresh
+    cache: every recurrent leaf at its initial value, the stabilisers m
+    at -1e30 and not zero."""
+    model, params, prompts = xlstm_model
+    eng = ServeEngine(model, params, slots=2, max_seq=32)
+    # a period's sLSTM (h, c, n, m) and seven mLSTMs' (C, n, m), each
+    # leaf stacked over the two periods
+    assert len(eng._recurrent) == 4 + 7 * 3
+    for t in eng._recurrent:
+        t.normal_()
+    seen = []
+    decode = eng._decode
+
+    def spy(toks, pos):
+        seen.append([t[:, 1].clone() for t in eng._recurrent])
+        return decode(toks, pos)
+
+    eng._decode = spy
+    eng._prefill(1, Request(rid=0, prompt=prompts[0], max_new=2))
+    fresh = model.recurrent_state(model.init_cache(2, 32, device="cpu"))
+    assert [v for _, v in fresh].count(-1e30) == 1 + 7
+    for got, (t, v) in zip(seen[0], fresh):
+        assert torch.equal(got, t[:, 1])
+        assert (got == v).all()
+
+
+def test_xlstm_reused_slot_answers_as_a_fresh_cache(xlstm_model):
+    """Each request gets its solo tokens in a slot another request used
+    before it, and in a batch."""
+    model, params, prompts = xlstm_model
+    solo, reused, batch = _arrangements(ServeEngine, Request, model, params,
+                                        prompts)
+    assert reused == solo
+    assert batch == solo

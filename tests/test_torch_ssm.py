@@ -134,6 +134,37 @@ def test_scan_calls_the_kernel_wrapper_once_per_chunk(block, monkeypatch):
         ((2, 8, D_INNER, N), True)]
 
 
+def test_scan_grads_match_reference(block):
+    """Every leaf's gradient and x's through the chunked scan (its plain
+    version on the CPU) against jax.grad of the reference's, in float32
+    (the point is the algorithm), at ``tests/test_torch_train.py``'s
+    GRAD_TOL (relative L2 a leaf): the whole hybrid LM is too
+    ill-conditioned in bf16 to hold them (ROADMAP C15,
+    tests/test_torch_archs_train.py)."""
+    ref_p, p = block
+    ref_p = jax.tree.map(lambda a: a.astype(jnp.float32), ref_p)
+    p = {k: v.float() for k, v in p.items()}
+    xj, xt = _x((2, 32, D), 60)
+    xj, xt = xj.astype(jnp.float32), xt.float()
+    w = np.random.default_rng(61).standard_normal((2, 32, D)).astype(
+        np.float32)
+    want_p, want_x = jax.jit(jax.grad(
+        lambda q, a: (RS.mamba_scan_chunked(q, a, d_state=N, chunk=CHUNK)
+                      .astype(jnp.float32) * w).sum(), argnums=(0, 1)))(
+        ref_p, xj)
+    ps = {k: v.detach().requires_grad_() for k, v in p.items()}
+    xs = xt.detach().requires_grad_()
+    (PS.mamba_scan_chunked(ps, xs, d_state=N, chunk=CHUNK).float()
+     * torch.from_numpy(w)).sum().backward()
+    got = {k: v.grad for k, v in ps.items()}
+    got["x"], want_p["x"] = xs.grad, want_x
+    for k, want in want_p.items():
+        want = np.asarray(want, np.float32)
+        err = (np.linalg.norm(got[k].float().numpy() - want)
+               / np.linalg.norm(want))
+        assert err <= 2e-2, (k, err)
+
+
 def test_decode_steps_match_reference(block):
     """The recurrent step and its states, token by token; the port
     advances its state in place."""
