@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Eight paths of the port, each at full width:
+Eleven paths of the port, each at full width:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
@@ -84,7 +84,43 @@ Eight paths of the port, each at full width:
     one step on the card and on the CPU from the same params and batch (1
     x 512); and at depth 2, 2 steps, a checkpoint and 2 resumed steps
     repeat 4 straight steps' losses bit for bit. A ``{"train": ...}`` JSON
-    line holds the steps' numbers.
+    line holds the steps' numbers;
+  * the encoder-decoder on seamless-m4t-large-v2 at full width and depth,
+    nothing cut (24 encoder and 24 decoder layers, d_model 1024, 16 heads
+    of 64, d_ff 8192 with gelu, vocab 256,206: 1.63 B params, random
+    weights from ``--seed``, granite's freed first). First the routes it
+    puts on the attention kernels, each on the tensor cores against its
+    plain version and timed beside ``scaled_dot_product_attention``: the
+    forward non-causal at (4, 16, 2048, 64), at 2048 queries against
+    1500 keys, at one query row against 2048 keys at 8 slots (and at
+    qwen2-vl's head dim 128 against 4096 keys, checked only), the
+    backward non-causal at 2048 queries against 1500 keys (do at unit
+    scale and at the train step's). Then, each counted: the encoder over
+    8 x 2048 frames (49 RMSNorms, 24 non-causal attentions); ``prefill``
+    of 4 x 2048 tokens, the decoder alone as the reference's (49, 24);
+    ``decode_step`` at 8 slots against the encoder's output (73, and 24
+    cross-attentions of one query row; ms, idle share, kernels by name);
+    64 teacher-forced decode steps against the decoder's full forward
+    over the same tokens and encoder output (held layer by layer at
+    XLSTM_LAYER_TOL if the chained logits miss, ROADMAP C15); 4 steps of
+    ``build_train_step`` at the reference's train split, 4 x 2048 tokens
+    and 4 x 2048 frames (tokens/s after step 0, step ms, peak memory,
+    idle share); a step at depth 2 (encoder and decoder) on the card
+    against the CPU, 1 x 256 tokens and 128 frames, so that the tokens
+    reach the decoder (ROADMAP C16);
+  * training qwen2-vl-72b at full width cut to one layer (d_model 8192, 64
+    heads of 128 on 8 KV heads, d_ff 29,568, vocab 152,064: 3.37 B
+    params; 80 layers are 72 B): 4 steps of ``build_train_step`` with 4 x
+    2048 tokens, 256 patch embeddings and M-RoPE positions laid out as
+    Qwen2-VL does (the patches at t = 0 on a 16 x 16 grid, the text from
+    the grid's largest index on), then its step on the card against the
+    CPU on 1 x 64 tokens with 16 patches (the loss and every leaf's
+    gradient; AdamW is granite's, held there). A ``{"train_encdec_vlm":
+    ...}`` JSON line holds both paths' steps;
+  * the port's four examples (``examples/torch_*.py``: the quickstart,
+    the SIMT demo, serving with ``--storm`` and ``--launch-storm``, 20
+    steps of the ~110 M training example), each on the card in a process
+    of its own, all at once; each must exit 0.
 
 On each LM path every kernel is held against its plain version at the
 path's shapes, decode is held against prefill, and a short model on the
@@ -105,14 +141,17 @@ each output finite and within the route's tolerance.
 Each kernel's launches are counted on each path (counts set to 0 just
 before, read just after): a record's ``launches_by_path`` gives each
 path's own count (``compiler``; ``<model>/prefill`` and
-``<model>/serve``; ``granite-3-2b/train``) and ``launches`` their sum
+``<model>/serve``; ``granite-3-2b/train``; seamless's ``/encode``,
+``/prefill``, ``/decode`` and ``/train``; ``qwen2-vl-72b/train``) and ``launches`` their sum
 (rmsnorm's record also names xlstm's check, flash_attention's and
 moe_dispatch's their past-fp16 checks, ``past_fp16``);
 the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``) are
 counted apart from the forward ones. flash_attention, moe_dispatch and
 flash_attention_bwd also count by route (``launches_by_route``:
 tensor_cores or cuda_cores, on each path); every launch of theirs on the
-four prefill paths and the train path must take the tensor cores.
+four prefill paths, the train paths and seamless's paths must take the
+tensor cores. flash_attention's and flash_attention_bwd's records hold
+the cross routes' rows under ``seamless``.
 nvcc's ``-Xptxas -v`` registers and spills of the tensor-core kernels
 (and of rmsnorm_bwd's vector route) are printed after the build. Each
 kernel is timed, and
@@ -158,7 +197,9 @@ check lines print both):
     and V to fp16 (exact in fp16's normal range), so its output too is
     within about one ulp of the float32 result. (P in one bf16 part,
     2^-8, misses this tolerance where a few keys carry a row's weight,
-    as in the first rows of a causal head.)
+    as in the first rows of a causal head.) The cross routes
+    (non-causal: every row spreads its weight over all Sk keys, |o| about
+    (e / Sk) ** 0.5) are held at the same tolerances.
   * moe_dispatch at (64, 1280, 2048) and (64, 1, 2048), f 1024, at
     (16, 1280, 8192) and (16, 1, 8192), f 24576, and at (384, 212, 7168)
     and (384, 1, 7168), f 2048 (on 32 of the 384 experts), each with
@@ -282,6 +323,7 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.blueprint import (count_params, init_params,  # noqa
                                           tree_map)
+from repro_torch.models.registry import mrope_grid_positions  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.train.data import DataConfig, synthetic_batch  # noqa: E402
 from repro_torch.train.loop import LoopConfig, train_loop  # noqa: E402
@@ -1791,12 +1833,13 @@ XLSTM_LAYER_TOL = 3e-2
 XLSTM_TRACE_S = 512
 
 
-def _xlstm_layers_decode_vs_prefill(dev, model, params, prompt):
-    """Each layer's prefill (its chunked mLSTM or sLSTM loop) recorded on
-    ``prompt``, then the same layer's decode steps over the positions,
-    fed the recorded input and carrying their own cache: held at
-    XLSTM_LAYER_TOL; returns the largest |diff| and the largest
-    |residual|."""
+def _layers_decode_vs_forward(dev, model, params, prompt, enc_out=None):
+    """Each layer's prefill (its chunked mLSTM or sLSTM loop, its
+    attention) recorded on ``prompt``, then the same layer's decode steps
+    over the positions, fed the recorded input and carrying their own
+    cache: held at XLSTM_LAYER_TOL; returns the largest |diff| and the
+    largest |residual|. With ``enc_out`` the forward is the decoder's
+    against it (``LM._decoder_forward``) and each decode step reads it too."""
     ins, outs = [], []
     apply = model._apply_layer
 
@@ -1808,7 +1851,10 @@ def _xlstm_layers_decode_vs_prefill(dev, model, params, prompt):
 
     model._apply_layer = record
     try:
-        model.prefill(params, prompt)
+        if enc_out is None:
+            model.prefill(params, prompt)
+        else:
+            model._decoder_forward(params, prompt, enc_out)
     finally:
         del model._apply_layer
     T, P = prompt.shape[1], len(model.period)
@@ -1824,7 +1870,7 @@ def _xlstm_layers_decode_vs_prefill(dev, model, params, prompt):
                 pos = torch.full((1,), t, device=dev)
                 steps.append(model._decode_layer(kind, pp[k], pc[k],
                                                  x[:, t:t + 1], pos[:, None],
-                                                 pos))
+                                                 pos, enc_out))
             worst = max(worst, _compare(
                 f"layer {i * P + k} decode vs prefill",
                 {"y": torch.cat(steps, 1)}, {"y": outs[i * P + k]},
@@ -1863,8 +1909,8 @@ def xlstm_phase(dev, seed: int, reps: int):
     # its outputs at XLSTM_LAYER_TOL; chained over 48 layers the two
     # round bf16 apart and the random-weight model amplifies it (ROADMAP
     # C15), so the logits are printed beside it
-    e, scale = _xlstm_layers_decode_vs_prefill(dev, model, params,
-                                               toks[:1, :DECODE_T])
+    e, scale = _layers_decode_vs_forward(dev, model, params,
+                                         toks[:1, :DECODE_T])
     print(f"check decode ({DECODE_T} steps) vs prefill, layer by layer "
           f"(each of the {cfg.n_layers} layers fed prefill's input): max "
           f"abs err {e:.3g} (rtol = atol = {XLSTM_LAYER_TOL}; largest "
@@ -2095,41 +2141,56 @@ def _leaf_names(tree, path="") -> list:
     return [path]
 
 
-def _train_card_vs_cpu(dev, cfg, seed) -> None:
-    """One step of granite at full width, depth 2, on the card and on the
-    CPU (plain versions) from the same params and batch (1 x 512): the
-    loss, each leaf's gradient and each leaf after AdamW."""
-    m2 = get_model(dataclasses.replace(cfg, n_layers=2))
-    p_cpu = init_params(m2.blueprint(), torch.Generator().manual_seed(seed))
-    p_card = tree_map(lambda a: a.to(dev), p_cpu)
-    toks = torch.from_numpy(synthetic_batch(DataConfig(
-        vocab=cfg.vocab, seq_len=CPU_S, global_batch=CPU_B, seed=seed),
-        0)["tokens"])
+def _train_card_vs_cpu(dev, cfg, seed, batch=None, label="depth 2",
+                       adamw=True) -> None:
+    """One step of a short model at full width (granite's: depth 2) on
+    the card and on the CPU (plain versions) from the same params (drawn
+    on the card, copied to the host) and batch (granite's: 1 x 512
+    tokens): the loss, each leaf's gradient and, with ``adamw``, each
+    leaf after AdamW. ``cfg`` is the short config."""
+    m2 = get_model(cfg)
+    p_card = init_params(m2.blueprint(), torch.Generator(dev).manual_seed(
+        seed))
+    p_cpu = tree_map(lambda a: a.cpu(), p_card)
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(synthetic_batch(DataConfig(
+            vocab=cfg.vocab, seq_len=CPU_S, global_batch=CPU_B, seed=seed),
+            0)["tokens"])}
+    shape = " x ".join(map(str, batch["tokens"].shape))
     t0 = time.perf_counter()
-    l_cpu, g_cpu = value_and_grad(m2, p_cpu, {"tokens": toks}, remat=True)
+    l_cpu, g_cpu = value_and_grad(m2, p_cpu, batch, remat=True)
     cpu_s = time.perf_counter() - t0
-    l_card, g_card = value_and_grad(m2, p_card, {"tokens": toks.to(dev)},
-                                    remat=True)
+    l_card, g_card = value_and_grad(
+        m2, p_card, {k: v.to(dev) for k, v in batch.items()}, remat=True)
     names = _leaf_names(g_cpu)
     gerr = {n: float((a.cpu().float() - b.float()).norm()
                      / b.float().norm().clamp_min(1e-30))
-            for n, a, b in zip(names, leaves(g_card), leaves(g_cpu))}
-    opt = AdamWConfig()
-    adamw_update(p_cpu, g_cpu, init_opt_state(p_cpu, opt), opt)
-    adamw_update(p_card, g_card, init_opt_state(p_card, opt), opt)
-    perr = {n: float((a.cpu().float() - b.float()).norm()
-                     / b.float().norm().clamp_min(1e-30))
-            for n, a, b in zip(names, leaves(p_card), leaves(p_cpu))}
+            for n, a, b in zip(names, leaves(g_card), leaves(g_cpu))
+            if b.float().any()}
+    zero = [n for n, b in zip(names, leaves(g_cpu)) if not b.float().any()]
+    zero_card = [n for n, a in zip(names, leaves(g_card))
+                 if not a.float().any()]
+    perr: dict = {}
+    if adamw:
+        opt = AdamWConfig()
+        adamw_update(p_cpu, g_cpu, init_opt_state(p_cpu, opt), opt)
+        adamw_update(p_card, g_card, init_opt_state(p_card, opt), opt)
+        perr = {n: float((a.cpu().float() - b.float()).norm()
+                         / b.float().norm().clamp_min(1e-30))
+                for n, a, b in zip(names, leaves(p_card), leaves(p_cpu))}
     gap = abs(float(l_card) - float(l_cpu))
-    print(f"check train step depth 2, full width ({CPU_B} x {CPU_S}) card "
+    print(f"check train step {label}, full width ({shape}) {cfg.name} card "
           f"vs cpu: loss {float(l_card):.6f} vs {float(l_cpu):.6f}, gap "
           f"{gap:.3g} (atol {TRAIN_LOSS_ATOL}); gradient relative L2 "
           f"errors " + ", ".join(f"{n} {e:.3g}" for n, e in gerr.items())
-          + f" (tol {TRAIN_GRAD_TOL}); params after AdamW, largest "
-          f"{max(perr.values()):.3g}; the CPU's value_and_grad "
-          f"{cpu_s:.1f} s")
+          + f" (tol {TRAIN_GRAD_TOL}); zero gradients on both sides "
+          f"{zero}; " + (f"params after AdamW, largest "
+                         f"{max(perr.values()):.3g}; " if perr else
+                         "AdamW not run; ")
+          + f"the CPU's value_and_grad {cpu_s:.1f} s")
     if gap > TRAIN_LOSS_ATOL or max(gerr.values()) > TRAIN_GRAD_TOL \
-            or max(perr.values()) > TRAIN_GRAD_TOL:
+            or max(perr.values(), default=0.0) > TRAIN_GRAD_TOL \
+            or zero != zero_card:
         raise AssertionError("train step: card against cpu past tolerance")
 
 
@@ -2248,10 +2309,378 @@ def train_phase(dev, seed: int, reps: int):
                "losses": res.losses, "grad_norms": res.grad_norms,
                "peak_gb": peak}
     torch.cuda.empty_cache()
-    _train_card_vs_cpu(dev, cfg, seed)
+    _train_card_vs_cpu(dev, dataclasses.replace(cfg, n_layers=2), seed)
     _train_resume(dev, cfg, seed, ckpt_root)
     shutil.rmtree(ckpt_root, ignore_errors=True)
     return records, {f"{cfg.name}/train": counts}, summary
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder and the VLM: seamless-m4t-large-v2 at full width and
+# depth (serving and training), qwen2-vl-72b's one-layer cut (training)
+# --------------------------------------------------------------------------
+
+ENCDEC_ARCH, VLM_ARCH = "seamless-m4t-large-v2", "qwen2-vl-72b"
+#: qwen2-vl on one card: every width, one layer (80 layers are 72 B
+#: params)
+VLM_CUT = {"n_layers": 1}
+#: the encoder's source frames at serving: 8 slots of 2048 positions
+ENC_B, ENC_S = SERVE_SLOTS, 2048
+#: the cross-attention routes a card run holds, (B, H, Hkv, Sq, Sk, D):
+#: the encoder (non-causal, Sq = Sk), cross-attention in training
+#: (S_tgt 2048 against S_src 1500), at decode (one query row against 2048
+#: source positions at 8 slots) and at qwen2-vl's head dim 128 (not timed)
+CROSS_FWD = {"encoder": (4, 16, 16, 2048, 2048, 64),
+             "cross_train": (4, 16, 16, 2048, 1500, 64),
+             "cross_decode": (8, 16, 16, 1, 2048, 64),
+             "cross_decode_d128": (8, 64, 8, 1, 4096, 128)}
+CROSS_BWD = (4, 16, 16, 2048, 1500, 64)
+#: the VLM's image: 16 x 16 patches, 256 frames (the reference's
+#: min(256, S))
+VLM_GRID = (16, 16)
+
+
+def _cross_qkv(g, dev, B, H, Hkv, Sq, Sk, D):
+    return tuple(torch.randn(B, S, h, D, generator=g, device=dev)
+                 .bfloat16().transpose(1, 2)
+                 for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+
+
+def _sdpa(q, k, v, causal=False):
+    return F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+
+
+def cross_kernel_checks(dev, seed, reps, launches) -> tuple:
+    """The encoder-decoder's attention routes on the tensor cores against
+    their plain versions at FA_TOL (the lse at 1e-5) and BWD_TOL, each
+    (but D 128's) timed beside SDPA: returns the forward rows by route
+    and the backward's row, with their max abs errors."""
+    g = torch.Generator(dev).manual_seed(seed + 22)
+    rtol, atol = FA_TOL[torch.bfloat16]
+    fwd = {}
+    for name, (B, H, Hkv, Sq, Sk, D) in CROSS_FWD.items():
+        q, k, v = _cross_qkv(g, dev, B, H, Hkv, Sq, Sk, D)
+        way = fa.route(torch.bfloat16, D, fa._rows_aligned(q, k, v))
+        if way != "tensor_cores":
+            raise AssertionError(f"flash_attention {name}: route {way}")
+        got, lse = fa.flash_attention(q, k, v, causal=False, with_lse=True)
+        want, want_lse = fa.flash_attention_plain(q, k, v, causal=False,
+                                                  with_lse=True)
+        e = _compare(f"flash_attention {name}", {"o": got}, {"o": want},
+                     rtol, atol)
+        e_lse = _rel(lse, want_lse)
+        if e_lse > 1e-5:
+            raise AssertionError(f"flash_attention {name}: lse {e_lse}")
+        print(f"check flash_attention {name} ({B}, {H}, {Sq}, {D}) against "
+              f"{Sk} keys, kv heads {Hkv}, non-causal bf16 ({way}) vs plain "
+              f"max abs err {e:.3g} (rtol {rtol}, atol {atol}; median |o| "
+              f"{float(want.float().abs().median()):.3g}); lse relative "
+              f"error {e_lse:.3g}")
+        if name != "cross_decode_d128":
+            nbytes = 2 * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D)
+            row = _kernel_row(
+                "flash_attention", f"({B}, {H}, {Sq}, {D}) x {Sk} keys "
+                "non-causal bf16",
+                lambda: fa.flash_attention(q, k, v, causal=False),
+                lambda: fa.flash_attention_plain(q, k, v, causal=False),
+                lambda: _sdpa(q, k, v), nbytes, 4 * B * H * D * Sq * Sk,
+                BF16_OPS_PER_S, reps, launches[name])
+            fwd[name] = {**row, "max_abs_err": e, "shape": [B, H, Hkv, Sq,
+                                                            Sk, D]}
+        del q, k, v, got, want, lse, want_lse
+    B, H, Hkv, Sq, Sk, D = CROSS_BWD
+    q, k, v = _cross_qkv(g, dev, B, H, Hkv, Sq, Sk, D)
+    do = torch.randn(B, Sq, H, D, generator=g, device=dev).bfloat16() \
+        .transpose(1, 2)
+    o, lse = fa.flash_attention(q, k, v, causal=False, with_lse=True)
+    errs: dict = {}
+    for scale in (1.0, TRAIN_DO_SCALE):
+        d = (do.float() * scale).bfloat16() if scale != 1.0 else do
+        got = fb.flash_attention_bwd(q, k, v, o, d, lse, causal=False)
+        msg = _bwd_check("flash_attention_bwd", got,
+                         fb.flash_attention_bwd_plain(q, k, v, o, d, lse,
+                                                      causal=False),
+                         torch.bfloat16, errs, ("dq", "dk", "dv"))
+        again = fb.flash_attention_bwd(q, k, v, o, d, lse, causal=False)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("flash_attention_bwd non-causal: two "
+                                 "calls differ")
+        print(f"check flash_attention_bwd ({B}, {H}, {Sq}, {D}) against "
+              f"{Sk} keys non-causal bf16 do x {scale:.6g} "
+              f"({fb.route(torch.bfloat16, D)}) vs plain, largest "
+              f"relative error {msg} (tol {BWD_TOL[torch.bfloat16]}); two "
+              f"calls bit for bit equal")
+    nbytes = 2 * (4 * B * H * Sq * D + 4 * B * Hkv * Sk * D) + 4 * B * H * Sq
+    row = _kernel_row(
+        "flash_attention_bwd", f"({B}, {H}, {Sq}, {D}) x {Sk} keys "
+        "non-causal bf16",
+        lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, causal=False),
+        lambda: fb.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                             causal=False),
+        _backward_only(_sdpa, (q, k, v), do), nbytes,
+        2 * 5 * B * H * D * Sq * Sk, BF16_OPS_PER_S, min(reps, 5),
+        launches["bwd"], batch=3, calls=6)
+    bwd = {**row, "max_abs_err": errs["flash_attention_bwd"],
+           "shape": [B, H, Hkv, Sq, Sk, D]}
+    return fwd, bwd
+
+
+def _counted(fn, label, want):
+    """``fn()`` with the counts set to 0 just before and read just after:
+    every kernel of ``want`` launched exactly that often, none other, and
+    every flash_attention and flash_attention_bwd launch on the tensor
+    cores; returns (its result, its wall s, the counts)."""
+    _zero_counts()
+    out, secs = _sync_s(fn)
+    counts = _counts()
+    ROUTE_COUNTS[label] = routes = _route_counts()
+    full = {k: want.get(k, 0) for k in KERNELS}
+    if counts != full:
+        raise AssertionError(f"{label} launched {counts}; expected {full}")
+    for name, by_route in routes.items():
+        if by_route != {"tensor_cores": counts[name], "cuda_cores": 0}:
+            raise AssertionError(f"{label}: {name} launched {by_route} by "
+                                 "route; every launch must take the tensor "
+                                 "cores")
+    print(f"{label}: launches {counts}, by route {routes}; {secs:.3f} s")
+    return out, secs, counts
+
+
+def _train_steps(model, params, batch, scfg, label, per_step, tokens):
+    """TRAIN_STEPS steps of ``build_train_step`` on the card (counted),
+    then one step's breakdown (uncounted): returns the summary."""
+    step = build_train_step(model, scfg)
+    opt = init_opt_state(params, scfg.opt)
+    torch.cuda.reset_peak_memory_stats()
+    ms, mets = [], []
+
+    def steps():
+        for _ in range(TRAIN_STEPS):
+            (_, _, m), s = _sync_s(lambda: step(params, opt, batch))
+            ms.append(s * 1e3)
+            mets.append(m)
+
+    _, _, counts = _counted(steps, label, {k: v * TRAIN_STEPS
+                                           for k, v in per_step.items()})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in mets]
+    norms = [float(m["grad_norm"]) for m in mets]
+    if not all(math.isfinite(x) for x in losses + norms) or min(norms) <= 0:
+        raise AssertionError(f"{label}: losses {losses}, grad norms {norms}")
+    tps = tokens * (TRAIN_STEPS - 1) / (sum(ms[1:]) / 1e3)
+    for i, (l, gn, t) in enumerate(zip(losses, norms, ms)):
+        print(f"{label} step {i}: loss {l:.6f} grad_norm {gn:.6f} {t:.1f} ms")
+    print(f"{label}: {TRAIN_STEPS} steps, {tps:.0f} tokens/s over steps "
+          f"1-{TRAIN_STEPS - 1}, peak memory {peak:.2f} GB "
+          f"(max_memory_allocated), microbatches {scfg.microbatches}")
+    _breakdown(lambda: step(params, opt, batch), statistics.median(ms[1:]),
+               f"{label} step")
+    del opt
+    return {"path": label, "tokens_per_step": tokens, "tokens_per_s": tps,
+            "step_ms": ms, "losses": losses, "grad_norms": norms,
+            "peak_gb": peak, "microbatches": scfg.microbatches}, counts
+
+
+def encdec_phase(dev, seed: int, reps: int):
+    """seamless-m4t-large-v2 at full width and depth: the cross routes
+    checked and timed, then serving (the encoder over 8 x 2048 frames, a
+    prefill of 4 x 2048 tokens, decode_step against the encoder's output
+    at 8 slots, 64 teacher-forced steps against the decoder's forward)
+    and TRAIN_STEPS train steps at the reference's split, each counted;
+    a depth-2 step on the card against the CPU. Returns the kernels'
+    rows, the counts by path and the train summary."""
+    cfg = get_config(ENCDEC_ARCH)
+    arch, L, E = cfg.name, cfg.n_layers, cfg.enc_layers
+    fwd, bwd = cross_kernel_checks(dev, seed, reps, {
+        "encoder": f"{E} an encoder call", "cross_train":
+        f"{L} a train step forward", "cross_decode": f"{L} a decode step",
+        "bwd": f"{L} a train step"})
+    model, params = _init(dev, cfg, seed)
+    g = torch.Generator(dev).manual_seed(seed)
+    by_path = {}
+
+    # serving: the encoder, prefill (no encoder: the reference's), decode
+    frames = torch.randn(ENC_B, ENC_S, cfg.d_model, generator=g,
+                         device=dev).bfloat16()
+    enc, _, by_path[f"{arch}/encode"] = _counted(
+        lambda: model._encode(params, frames), f"{arch}/encode",
+        {"rmsnorm": 2 * E + 1, "flash_attention": E})
+    if enc.shape != frames.shape or not torch.isfinite(enc.float()).all():
+        raise AssertionError(f"encoder output {tuple(enc.shape)}")
+    enc_s = statistics.median(_sync_s(lambda: model._encode(params, frames))
+                              [1] for _ in range(3))
+    print(f"{arch} encoder {ENC_B} x {ENC_S} frames: {enc_s * 1e3:.1f} ms "
+          f"(median of 3), {ENC_B * ENC_S / enc_s:.0f} frames/s")
+    toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=g,
+                         device=dev)
+    logits, _, by_path[f"{arch}/prefill"] = _counted(
+        lambda: model.prefill(params, toks), f"{arch}/prefill",
+        {"rmsnorm": 2 * L + 1, "flash_attention": L})
+    if logits.shape != (PREFILL_B, cfg.padded_vocab) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    pre_s = statistics.median(_sync_s(lambda: model.prefill(params, toks))[1]
+                              for _ in range(3))
+    print(f"{arch} prefill {PREFILL_B} x {PREFILL_S}: {pre_s * 1e3:.1f} ms "
+          f"(median of 3), {PREFILL_B * PREFILL_S / pre_s:.0f} tokens/s")
+    _breakdown(lambda: model.prefill(params, toks), pre_s * 1e3,
+               f"{arch} prefill {PREFILL_B} x {PREFILL_S}")
+    cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_SEQ, device=dev)
+    step_toks = torch.randint(0, cfg.vocab, (SERVE_SLOTS, 1), generator=g,
+                              device=dev)
+    step_pos = torch.full((SERVE_SLOTS,), 100, device=dev)
+
+    def step():
+        return model.decode_step(params, cache, step_toks, step_pos, enc)
+
+    (logits, _), _, by_path[f"{arch}/decode"] = _counted(
+        step, f"{arch}/decode", {"rmsnorm": 3 * L + 1, "flash_attention": L})
+    if logits.shape != (SERVE_SLOTS, 1, cfg.padded_vocab) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"decode logits {tuple(logits.shape)}")
+    step_ms = statistics.median(_sync_s(step)[1] for _ in range(10)) * 1e3
+    print(f"{arch} decode_step {SERVE_SLOTS} slots against {ENC_S} source "
+          f"positions, cache {SERVE_MAX_SEQ}: {step_ms:.2f} ms (median of "
+          f"10), {SERVE_SLOTS / step_ms * 1e3:.1f} tokens/s")
+    _breakdown(step, step_ms, f"{arch} decode_step {SERVE_SLOTS} slots")
+
+    # teacher-forced decode against the decoder's forward, one sequence
+    prompt, enc1 = toks[:1, :DECODE_T], enc[:1]
+    full = model._decoder_forward(params, prompt, enc1)[0, :, :cfg.vocab]
+    c1 = model.init_cache(1, DECODE_T, device=dev)
+    got = torch.cat([model.decode_step(
+        params, c1, prompt[:, t:t + 1], torch.full((1,), t, device=dev),
+        enc1)[0][0, :, :cfg.vocab] for t in range(DECODE_T)])
+    rtol, atol = ROUTED_APART_TOL
+    worst = float((got - full).abs().max())
+    ok = torch.allclose(got, full, rtol=rtol, atol=atol)
+    print(f"check {arch} decode ({DECODE_T} teacher-forced steps against "
+          f"the encoder) vs the decoder's forward, every position: max abs "
+          f"err {worst:.3g} (rtol {rtol}, atol {atol}; logits std "
+          f"{float(full.std()):.3g}): {'ok' if ok else 'past it'}")
+    if not ok:   # ROADMAP C15: held layer by layer, as xlstm's
+        e, scale = _layers_decode_vs_forward(dev, model, params,
+                                             prompt, enc1)
+        print(f"check {arch} decode vs forward layer by layer: each of "
+              f"{L} layers within {XLSTM_LAYER_TOL} (largest |diff| "
+              f"{e:.3g}, largest |residual| {scale:.3g})")
+    del cache, c1, logits, enc, frames, full, got
+
+    # training at the reference's split: 4 x 2048 tokens, 4 x 2048 frames
+    tg = torch.Generator(dev).manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                                     generator=tg, device=dev),
+             "frontend_embeds": torch.randn(TRAIN_B, TRAIN_S, cfg.d_model,
+                                            generator=tg, device=dev)
+             .bfloat16()}
+    fwd_rms, fwd_fa = (2 * E + 1) + (3 * L + 1), E + 2 * L
+    remat = {"rmsnorm": 2 * E + 3 * L, "flash_attention": E + 2 * L}
+    summary, by_path[f"{arch}/train"] = _train_steps(
+        model, params, batch, StepConfig(remat=True, opt=AdamWConfig()),
+        f"{arch}/train", {"rmsnorm": fwd_rms + remat["rmsnorm"],
+                          "flash_attention": fwd_fa + remat[
+                              "flash_attention"],
+                          "rmsnorm_bwd": fwd_rms,
+                          "flash_attention_bwd": fwd_fa},
+        TRAIN_B * TRAIN_S)
+    del params, batch, model
+    torch.cuda.empty_cache()
+    # depth 2 card against cpu, half as many frames as tokens (C16)
+    cg = torch.Generator().manual_seed(seed)
+    short = dataclasses.replace(cfg, n_layers=2, enc_layers=2)
+    _train_card_vs_cpu(dev, short, seed, batch={
+        "tokens": torch.randint(0, cfg.vocab, (1, 256), generator=cg),
+        "frontend_embeds": torch.randn(1, 128, cfg.d_model,
+                                       generator=cg).bfloat16()},
+        label="decoder and encoder depth 2, 128 frames")
+    torch.cuda.empty_cache()
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd}, by_path, \
+        summary
+
+
+def vlm_phase(dev, seed: int, reps: int):
+    """qwen2-vl-72b cut to one layer at full width: TRAIN_STEPS train
+    steps (counted) with 256 patch embeddings and M-RoPE positions laid
+    out as Qwen2-VL does; its step against the CPU's on a short batch
+    (the loss and every leaf's gradient)."""
+    cfg = dataclasses.replace(get_config(VLM_ARCH), **VLM_CUT)
+    arch = cfg.name
+    print(f"qwen2-vl cut for one card: n_layers 80 -> {cfg.n_layers}")
+    model, params = _init(dev, cfg, seed)
+    tg = torch.Generator(dev).manual_seed(seed + 2)
+    gh, gw = VLM_GRID
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                                     generator=tg, device=dev),
+             "frontend_embeds": torch.randn(TRAIN_B, gh * gw, cfg.d_model,
+                                            generator=tg, device=dev)
+             .bfloat16(),
+             "mrope_positions": mrope_grid_positions(TRAIN_B, TRAIN_S, gh,
+                                                     gw, device=dev)}
+    L = cfg.n_layers
+    summary, counts = _train_steps(
+        model, params, batch, StepConfig(remat=True, opt=AdamWConfig()),
+        f"{arch}/train", {"rmsnorm": (2 * L + 1) + 2 * L,
+                          "flash_attention": 2 * L,
+                          "rmsnorm_bwd": 2 * L + 1,
+                          "flash_attention_bwd": L}, TRAIN_B * TRAIN_S)
+    del params, batch, model
+    torch.cuda.empty_cache()
+    cg = torch.Generator().manual_seed(seed)
+    _train_card_vs_cpu(dev, cfg, seed, batch={
+        "tokens": torch.randint(0, cfg.vocab, (1, 64), generator=cg),
+        "frontend_embeds": torch.randn(1, 16, cfg.d_model,
+                                       generator=cg).bfloat16(),
+        "mrope_positions": mrope_grid_positions(1, 64, 4, 4)},
+        label="depth 1, 16 patches", adamw=False)
+    torch.cuda.empty_cache()
+    return {f"{arch}/train": counts}, summary
+
+
+#: the port's examples on the card, each at a small size (the script's
+#: arguments)
+EXAMPLES = [("torch_quickstart.py", []), ("torch_volt_simt_demo.py", []),
+            ("torch_serve_lm.py", []), ("torch_serve_lm.py", ["--storm"]),
+            ("torch_serve_lm.py", ["--launch-storm"]),
+            ("torch_train_lm.py", ["--steps", "20", "--batch", "4",
+                                   "--seq", "128"])]
+
+
+def examples_phase() -> None:
+    """Each of the port's examples on the card (no ``--device``), in a
+    process of its own, all at once: each must exit 0; its last line is
+    printed."""
+    root = Path(__file__).resolve().parent
+    scratch = root / "build" / "examples"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               VOLT_CACHE_DIR=str(scratch / "volt_cache"))
+    procs = []
+    for i, (script, args) in enumerate(EXAMPLES):
+        extra = (["--ckpt", str(scratch / "ckpt")]
+                 if script == "torch_train_lm.py" else [])
+        procs.append(((script, args), subprocess.Popen(
+            [sys.executable, str(root / "examples" / script), *args,
+             *extra], cwd=scratch, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    bad = []
+    for (script, args), p in procs:
+        try:
+            out, err = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        last = (out.strip().splitlines() or ["(no output)"])[-1]
+        print(f"example {script} {' '.join(args)}: rc {p.returncode}; "
+              f"{last}")
+        if p.returncode != 0:
+            bad.append((script, args, err[-2000:]))
+    shutil.rmtree(scratch, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"examples failed on the card: {bad}")
+
+
 
 
 def main() -> int:
@@ -2486,6 +2915,21 @@ def main() -> int:
     print(json.dumps({"train": summary}))
     paths.update(train_paths)
     lm_records.update(train_records)
+    t0 = time.perf_counter()
+    cross_rows, encdec_paths, encdec_train = encdec_phase(dev, args.seed,
+                                                          args.reps)
+    print(f"lm phase {ENCDEC_ARCH} {time.perf_counter() - t0:.1f} s")
+    paths.update(encdec_paths)
+    for name, rows in cross_rows.items():
+        lm_records[name]["seamless"] = rows
+    t0 = time.perf_counter()
+    vlm_paths, vlm_train = vlm_phase(dev, args.seed, args.reps)
+    print(f"train phase {VLM_ARCH} {time.perf_counter() - t0:.1f} s")
+    paths.update(vlm_paths)
+    print(json.dumps({"train_encdec_vlm": [encdec_train, vlm_train]}))
+    t0 = time.perf_counter()
+    examples_phase()
+    print(f"examples phase {time.perf_counter() - t0:.1f} s")
     for name, r in lm_records.items():
         src, replaces = LM_SOURCES[name]
         per_path = {p: n[name] for p, n in paths.items()}

@@ -49,6 +49,13 @@ def tree_map(f: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
     return f(tree, *rest)
 
 
+def leaves(tree: Tree) -> list:
+    """The leaves of a tree of dicts and lists, in ``tree_map``'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
 # -- materialization ----------------------------------------------------------
 
 #: a leaf of more elements is drawn in slices of this many (1 GiB of

@@ -25,18 +25,33 @@ flash_attention kernel.
 Ported: attention, mamba (``models/ssm.py``, jamba-style hybrids) and
 xLSTM mixers (``models/xlstm.py``, xlstm-1.3b: no feed-forward) with
 dense feed-forward (granite-style) or MoE feed-forward (olmoe-style,
-``models/moe.py``, with an optional shared MLP), and the training loss
+``models/moe.py``, with an optional shared MLP), the encoder-decoder
+stack (seamless-m4t: an encoder of ``enc_layers`` non-causal attention
+layers over the frames ``frontend_embeds``, and a decoder whose
+``attn_cross`` layers attend to the encoder's output, non-causal and
+without RoPE, through the same flash_attention kernel), the VLM inputs
+(qwen2-vl: ``frontend_embeds`` written over the first embeddings and
+the (3, B, S) ``mrope_positions`` of M-RoPE), and the training loss
 ``loss_fn``. As in the reference, an MoE layer runs
 sequentially even under ``parallel_block``, and its load-balancing loss
 is carried through the stack in training and dropped in decode. Under
 ``remat`` each period is a ``torch.utils.checkpoint`` region, whose
 activations are recomputed in the backward: the reference's
-``jax.checkpoint`` with ``nothing_saveable``. The stacked params are
-unbound once a call (one view a period), so the backward stacks each
-leaf's period gradients once. The encoder-decoder stack and VLM inputs
-raise ``NotImplementedError`` naming their ROADMAP item; on the card,
-training an MoE or mamba layer raises too, since their kernels have no
+``jax.checkpoint`` with ``nothing_saveable``; the encoder's output and
+the M-RoPE positions enter each region as arguments. The stacked params
+are unbound once a call (one view a period), so the backward stacks each
+leaf's period gradients once. On the card, training an MoE or mamba
+layer raises ``NotImplementedError``, since their kernels have no
 backward yet (ROADMAP A13, A14).
+
+As the reference's, an encoder-decoder's ``loss_fn`` writes the frames
+over the decoder's token embeddings as well as encoding them, so at
+the reference's train split (as many frames as tokens) the decoder reads
+the frames alone and the tokens only give the labels; more frames than
+tokens raise ``ValueError`` (ROADMAP C16). ``prefill`` runs no encoder
+and no cross-attention; ``decode_step`` takes the encoder's output from
+its caller and projects its keys and values again in every layer at
+every step, as the reference does.
 
 Like the port's fixes of ROADMAP C6, C9 and C10, its xLSTM prefill is
 causal where the reference's chunked mLSTM reads the rest of its chunk
@@ -62,13 +77,9 @@ from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
 from . import xlstm as XL
-from .blueprint import Leaf, leaf, tree_map
+from .blueprint import Leaf, leaf, leaves, tree_map
 
 Params = Any
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 # --------------------------------------------------------------------------
@@ -89,7 +100,8 @@ def _stack_bp(bp, n: int):
                        else l.scale_dim + 1), bp)
 
 
-_MIXER_ITEM = {"attn_cross": "A11 (encoder-decoder)"}
+#: the encoder's one layer kind: self-attention, dense feed-forward
+ENC_KIND = LayerKind("attn", "dense")
 
 
 class LM:
@@ -106,9 +118,13 @@ class LM:
     def _layer_bp(self, kind: LayerKind):
         c = self.cfg
         bp: Dict[str, Any] = {"ln1": L.rmsnorm_bp(c.d_model)}
-        if kind.mixer == "attn":
+        if kind.mixer in ("attn", "attn_cross"):
             bp["attn"] = L.attn_bp(c.d_model, c.n_heads, c.n_kv_heads,
                                    c.head_dim)
+            if kind.mixer == "attn_cross":
+                bp["xattn"] = L.attn_bp(c.d_model, c.n_heads,
+                                        c.n_kv_heads, c.head_dim)
+                bp["lnx"] = L.rmsnorm_bp(c.d_model)
         elif kind.mixer == "mamba":
             bp["mamba"] = SSM.mamba_bp(c.d_model, c.ssm_d_inner,
                                        c.ssm_d_state, c.ssm_d_conv)
@@ -117,8 +133,7 @@ class LM:
         elif kind.mixer == "slstm":
             bp["slstm"] = XL.slstm_bp(c.d_model, c.n_heads)
         else:
-            raise _not_ported(f"the {kind.mixer} mixer",
-                              _MIXER_ITEM[kind.mixer])
+            raise ValueError(kind.mixer)
         if kind.ff == "dense":
             bp["ln2"] = L.rmsnorm_bp(c.d_model)
             bp["mlp"] = L.mlp_bp(c.d_model, c.d_ff, c.gated_mlp)
@@ -132,9 +147,6 @@ class LM:
 
     def blueprint(self):
         c = self.cfg
-        if c.enc_dec:
-            raise _not_ported("the encoder-decoder stack",
-                              _MIXER_ITEM["attn_cross"])
         period_bp = [self._layer_bp(k) for k in self.period]
         bp: Dict[str, Any] = {
             "embed": leaf((c.padded_vocab, c.d_model), ("vocab", "embed"),
@@ -145,6 +157,10 @@ class LM:
         if not c.tie_embeddings:
             bp["unembed"] = leaf((c.d_model, c.padded_vocab),
                                  ("embed", "vocab"), scale_dim=0)
+        if c.enc_dec:
+            bp["enc_stack"] = _stack_bp([self._layer_bp(ENC_KIND)],
+                                        c.enc_layers)
+            bp["enc_ln_f"] = L.rmsnorm_bp(c.d_model)
         return bp
 
     def _unembed(self, params) -> torch.Tensor:
@@ -153,7 +169,8 @@ class LM:
 
     # -- one period of layers ---------------------------------------------------
     def _apply_layer(self, kind: LayerKind, p, x, positions, *,
-                     causal: bool, aux: Optional[List] = None):
+                     causal: bool, enc_out=None, mrope=None,
+                     aux: Optional[List] = None):
         c = self.cfg
         h = L.rmsnorm(p["ln1"], x)
         if kind.mixer == "mamba":
@@ -169,12 +186,23 @@ class LM:
             mix = L.gqa_attention(
                 p["attn"], h, positions, n_heads=c.n_heads,
                 n_kv=c.n_kv_heads, causal=causal, rope_theta=c.rope_theta,
-                use_rope=(c.pos != "none"))
+                use_rope=(c.pos != "none"), mrope_positions=mrope)
         if c.parallel_block and kind.ff == "dense":
             # Cohere-style: attn and FF read the same normed input
             return x + mix + L.mlp(p["mlp"], h, c.gated_mlp)
-        x = x + mix
+        x = self._cross(kind, p, x + mix, enc_out)
         return self._ff(kind, p, x, aux)
+
+    def _cross(self, kind: LayerKind, p, x, enc_out):
+        """An ``attn_cross`` layer's cross-attention residual against the
+        encoder's output (none without one): non-causal, no RoPE."""
+        if kind.mixer != "attn_cross" or enc_out is None:
+            return x
+        c = self.cfg
+        hx = L.rmsnorm(p["lnx"], x)
+        return x + L.gqa_attention(p["xattn"], hx, None, n_heads=c.n_heads,
+                                   n_kv=c.n_kv_heads, causal=False,
+                                   use_rope=False, kv_in=enc_out)
 
     def _ff(self, kind: LayerKind, p, x, aux: Optional[List] = None):
         """The layer's feed-forward residual, sequential after the
@@ -196,49 +224,84 @@ class LM:
         return x
 
     def _run_stack(self, stack_params, x, positions, *, kinds, causal,
-                   remat: bool = False):
+                   enc_out=None, mrope=None, remat: bool = False):
         """The periods in turn -> (x, the MoE layers' aux losses summed,
-        float32). ``remat``: each period is a checkpoint region."""
-        def period_fn(x, auxs, pparams):
+        float32). ``remat``: each period is a checkpoint region, which
+        takes the encoder's output and the M-RoPE positions as arguments
+        (the encoder's gradient flows back through every region)."""
+        def period_fn(x, auxs, enc_out, mrope, pparams):
             aux: List = []
             for k, kind in enumerate(kinds):
                 x = self._apply_layer(kind, pparams[k], x, positions,
-                                      causal=causal, aux=aux)
+                                      causal=causal, enc_out=enc_out,
+                                      mrope=mrope, aux=aux)
             for a in aux:
                 auxs = auxs + a
             return x, auxs
 
         auxs = torch.zeros((), dtype=torch.float32, device=x.device)
-        for pparams in _unstack(stack_params, self.n_periods):
+        for pparams in _unstack(stack_params):
             if remat:
-                x, auxs = checkpoint(period_fn, x, auxs, pparams,
-                                     use_reentrant=False)
+                x, auxs = checkpoint(period_fn, x, auxs, enc_out, mrope,
+                                     pparams, use_reentrant=False)
             else:
-                x, auxs = period_fn(x, auxs, pparams)
+                x, auxs = period_fn(x, auxs, enc_out, mrope, pparams)
         return x, auxs
+
+    def _encode(self, params, frames, *, remat: bool = False):
+        """The encoder over frames (B, S_src, d): its ``enc_layers``
+        layers non-causal, RoPE on the source positions, then
+        ``enc_ln_f``; bf16 (B, S_src, d)."""
+        src = frames.to(torch.bfloat16)
+        spos = torch.arange(src.shape[1], device=src.device)[None, :]
+        enc, _ = self._run_stack(params["enc_stack"], src, spos,
+                                 kinds=[ENC_KIND], causal=False, remat=remat)
+        return L.rmsnorm(params["enc_ln_f"], enc)
+
+    def _decoder_forward(self, params, tokens, enc_out):
+        """The decoder's full causal forward over ``tokens`` (B, S)
+        against the encoder's output, with no frames written over the
+        token embeddings: float32 logits (B, S, V) at every position, the
+        sequence that teacher-forced ``decode_step``s reproduce."""
+        x = params["embed"][tokens.long()].to(torch.bfloat16)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        x, _ = self._run_stack(params["stack"], x, pos, kinds=self.period,
+                               causal=True, enc_out=enc_out)
+        return (L.rmsnorm(params["ln_f"], x) @ self._unembed(params)).float()
 
     # -- training forward ---------------------------------------------------------
     def loss_fn(self, params, batch, *, remat: bool = True):
-        """batch: tokens (B, S) int. Returns the scalar loss, float32: the
-        mean next-token NLL (the last position has no label) plus 0.01
-        times the MoE aux loss a period, as the reference's. The logits are
-        float32 with the padded vocab columns masked; ``loss_chunk`` takes
-        them a chunk of positions at a time."""
+        """batch: tokens (B, S) int, plus the modality's extras:
+        ``frontend_embeds`` (B, Sf, d) where the config has them (an
+        encoder-decoder's source frames, a VLM's patch embeddings), and
+        ``mrope_positions`` (3, B, S) int for M-RoPE. Returns the scalar
+        loss, float32: the mean next-token NLL (the last position has no
+        label) plus 0.01 times the MoE aux loss a period, as the
+        reference's. The logits are float32 with the padded vocab columns
+        masked; ``loss_chunk`` takes them a chunk of positions at a time.
+
+        The frames are written over the first Sf token embeddings, for an
+        encoder-decoder too, as the reference does (ROADMAP C16): Sf > S
+        raises ``ValueError``."""
         c = self.cfg
-        if c.enc_dec:
-            raise _not_ported("training an encoder-decoder",
-                              _MIXER_ITEM["attn_cross"])
-        if c.frontend_embeds or (c.pos == "mrope" and batch.get(
-                "mrope_positions") is not None):
-            raise _not_ported("frontend embeddings and M-RoPE positions "
-                              "in training", "A11 (VLM inputs)")
         tokens = batch["tokens"].long()
         B, S = tokens.shape
         x = params["embed"][tokens].to(torch.bfloat16)
         positions = torch.arange(S, device=tokens.device)[None, :]
+        mrope = batch.get("mrope_positions") if c.pos == "mrope" else None
+        if c.frontend_embeds:
+            fe = batch["frontend_embeds"]
+            if fe.shape[1] > S:
+                raise ValueError(
+                    f"{fe.shape[1]} frontend frames for {S} tokens: the "
+                    "frames are written over the token embeddings and "
+                    "cannot outnumber them (ROADMAP C16)")
+            x = torch.cat([fe.to(x.dtype), x[:, fe.shape[1]:]], dim=1)
+        enc_out = (self._encode(params, batch["frontend_embeds"],
+                                remat=remat) if c.enc_dec else None)
         x, aux = self._run_stack(params["stack"], x, positions,
                                  kinds=self.period, causal=True,
-                                 remat=remat)
+                                 enc_out=enc_out, mrope=mrope, remat=remat)
         x = L.rmsnorm(params["ln_f"], x)
         unembed = self._unembed(params)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
@@ -285,9 +348,8 @@ class LM:
             return tuple(t.reshape(n, B, c.d_model)
                          for t in XL.slstm_init_state(n * B, c.d_model,
                                                       device=device))
-        if kind.mixer != "attn":
-            raise _not_ported(f"the {kind.mixer} decode cache",
-                              _MIXER_ITEM[kind.mixer])
+        if kind.mixer not in ("attn", "attn_cross"):
+            raise ValueError(kind.mixer)
         shape = (n, B, S_max, c.n_kv_heads, c.head_dim)
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
@@ -318,11 +380,10 @@ class LM:
         return out
 
     def decode_step(self, params, cache, tokens, pos, enc_out=None):
-        """tokens: (B,1) int; pos: (B,) current lengths.
+        """tokens: (B,1) int; pos: (B,) current lengths; ``enc_out``
+        (B, S_src, d), the encoder's output, for an encoder-decoder's
+        cross-attention (none without it, as in the reference).
         Returns (logits (B,1,V) float32, cache updated in place)."""
-        if enc_out is not None:
-            raise _not_ported("decode against an encoder",
-                              _MIXER_ITEM["attn_cross"])
         x = params["embed"][tokens].to(torch.bfloat16)
         positions = pos[:, None]
         for i in range(self.n_periods):
@@ -330,12 +391,13 @@ class LM:
             pcache = tree_map(lambda a: a[i], cache)
             for k, kind in enumerate(self.period):
                 x = self._decode_layer(kind, pparams[k], pcache[k], x,
-                                       positions, pos)
+                                       positions, pos, enc_out)
         x = L.rmsnorm(params["ln_f"], x)
         logits = (x @ self._unembed(params)).float()
         return _mask_vocab_pad(logits, self.cfg.vocab), cache
 
-    def _decode_layer(self, kind: LayerKind, p, cache, x, positions, pos):
+    def _decode_layer(self, kind: LayerKind, p, cache, x, positions, pos,
+                      enc_out=None):
         c = self.cfg
         h = L.rmsnorm(p["ln1"], x)
         if kind.mixer == "mamba":
@@ -363,12 +425,14 @@ class LM:
             # as prefill computes it (the reference decodes it
             # sequentially: ROADMAP C11)
             return x + mix + L.mlp(p["mlp"], h, c.gated_mlp)
-        return self._ff(kind, p, x + mix)
+        return self._ff(kind, p, self._cross(kind, p, x + mix, enc_out))
 
     # -- prefill ------------------------------------------------------------------
     def prefill(self, params, tokens):
         """Full-sequence forward that returns last-position logits (the
-        inference-prefill shape), float32 (B, V)."""
+        inference-prefill shape), float32 (B, V). An encoder-decoder's
+        prefill runs the decoder alone, without cross-attention, as the
+        reference's does (it passes no encoder output)."""
         B, S = tokens.shape
         x = params["embed"][tokens].to(torch.bfloat16)
         positions = torch.arange(S, device=tokens.device)[None, :]
@@ -378,13 +442,13 @@ class LM:
         return (x[:, -1] @ self._unembed(params)).float()
 
 
-def _unstack(stack_params, n: int) -> list:
+def _unstack(stack_params) -> list:
     """The (n, ...) stacked leaves as n trees of their period's views,
     from one ``unbind`` a leaf: its backward stacks the n gradients once,
     where indexing ``a[i]`` n times would add n full-size gradients."""
     parts = tree_map(lambda a: a.unbind(0), stack_params)
     return [tree_map(lambda a, u: u[i], stack_params, parts)
-            for i in range(n)]
+            for i in range(leaves(stack_params)[0].shape[0])]
 
 
 def _mask_vocab_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:

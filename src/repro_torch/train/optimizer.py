@@ -23,7 +23,7 @@ from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
-from ..models.blueprint import tree_map
+from ..models.blueprint import leaves, tree_map
 
 #: elements of a leaf updated at once (256 MB of float32 a temporary)
 SLICE = 1 << 26
@@ -39,13 +39,6 @@ class AdamWConfig:
     grad_clip: float = 1.0
     state_dtype: torch.dtype = torch.float32
     warmup_steps: int = 100
-
-
-def leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a tree of dicts and lists, in ``tree_map``'s order."""
-    out: List[torch.Tensor] = []
-    tree_map(out.append, tree)
-    return out
 
 
 def _slices(*ts: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:

@@ -6,7 +6,10 @@ autograd (``LM.loss_fn``, whose RMSNorms and attentions run the port's
 kernels and their backward kernels on CUDA tensors), then AdamW, which
 updates params and moments in place. Gradient accumulation over
 ``microbatches`` is a Python loop where the reference has ``lax.scan``,
-with the same float32 sums and averaging.
+with the same float32 sums and averaging. Each batch leaf is split along
+its batch axis: axis 0, but axis 1 of ``mrope_positions`` (3, B, S),
+whose axis 0 holds the three M-RoPE components. The reference reshapes
+axis 0 of every leaf and so cannot split a VLM batch (ROADMAP C17).
 
 Run on one device. The reference's sharded builders
 (``param_sharding_tree``, ``opt_state_shardings``, ``jit_train_step``,
@@ -49,6 +52,21 @@ def value_and_grad(model, params, batch: Dict[str, torch.Tensor], *,
     return loss.detach(), tree_map(lambda _: next(gs), params)
 
 
+#: batch leaves whose batch axis is not axis 0
+BATCH_AXIS = {"mrope_positions": 1}
+
+
+def microbatch(batch: Dict[str, torch.Tensor], n: int, i: int
+               ) -> Dict[str, torch.Tensor]:
+    """The i-th of n equal microbatches of ``batch``, each leaf split
+    along its batch axis (``BATCH_AXIS``, else 0)."""
+    out = {}
+    for k, v in batch.items():
+        ax = BATCH_AXIS.get(k, 0)
+        out[k] = v.unflatten(ax, (n, v.shape[ax] // n)).select(ax, i)
+    return out
+
+
 def build_train_step(model, step_cfg: StepConfig):
     """-> step(params, opt_state, batch) -> (params, opt_state, metrics),
     metrics holding 0-d tensors ``loss``, ``grad_norm`` and ``lr``."""
@@ -60,9 +78,8 @@ def build_train_step(model, step_cfg: StepConfig):
                                                  device=p.device), params)
             loss = None
             for i in range(n):
-                micro = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
-                         for k, v in batch.items()}
-                l, g = value_and_grad(model, params, micro,
+                l, g = value_and_grad(model, params,
+                                      microbatch(batch, n, i),
                                       remat=step_cfg.remat)
                 tree_map(lambda a, b: a.add_(b), acc, g)
                 loss = l if loss is None else loss + l

@@ -1,9 +1,10 @@
 """Whole-model parity: every config the port runs, at smoke size, against
 the JAX package on the same params (``init_params`` of the reference,
-carried over by ``lm_params_from_numpy``). seamless-m4t-large-v2 is not
-run: its encoder-decoder stack is ROADMAP A11.
+carried over by ``lm_params_from_numpy``).
 
-Here: prefill, and 6 decode steps from an empty cache.
+Here: prefill, and 6 decode steps from an empty cache (seamless-m4t's
+without an encoder output, as the reference's prefill runs its decoder;
+``test_torch_encdec.py`` decodes it against one).
 ``test_torch_archs_train.py`` holds ``loss_fn`` and its gradients.
 
 Tolerances, the existing ones (no new bound):
@@ -61,7 +62,7 @@ from repro_torch.models import layers as PL
 from repro_torch.models.blueprint import tree_map
 
 #: every config the port runs
-RUN = sorted(n for n in ARCHS if n != "seamless-m4t-large-v2")
+RUN = sorted(ARCHS)
 ZERO_ROUTER = ("olmoe-1b-7b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b")
 RECURRENT = ("jamba-1.5-large-398b", "xlstm-1.3b")
 TOL = 0.1
@@ -126,9 +127,9 @@ def _ref_teacher_forced(arch):
     return run
 
 
-def test_every_config_but_the_encoder_decoder_runs():
-    assert "seamless-m4t-large-v2" in ARCHS
-    assert len(RUN) == len(ARCHS) - 1 == 9
+def test_every_config_runs():
+    assert "seamless-m4t-large-v2" in RUN and "qwen2-vl-72b" in RUN
+    assert len(RUN) == len(ARCHS) == 10
 
 
 @pytest.mark.parametrize("arch", WHOLE)

@@ -1,9 +1,11 @@
 """Whole-model parity of the training loss: ``LM.loss_fn`` and every
-leaf's gradient, for every config the port runs but qwen2-vl-72b (its
-``loss_fn`` needs VLM inputs, ROADMAP A11) and seamless-m4t (A11), against
+leaf's gradient, for every config the port runs, against
 ``jax.value_and_grad`` of the reference's ``loss_fn`` on the same params
 (``test_torch_archs.py``'s: the same cut and routers) and tokens of
-``tests/test_torch_train.py``'s shape, (2, 64).
+``tests/test_torch_train.py``'s shape, (2, 64). seamless-m4t's batch
+adds 32 source frames (half the tokens, so that the tokens reach its
+decoder: ROADMAP C16), qwen2-vl's 16 patch embeddings on a 4 x 4 grid
+and their M-RoPE positions (``test_torch_encdec.py`` has more).
 
 Tolerances, the existing ones (``tests/test_torch_train.py``): the loss
 at ``TOL`` 0.1, each leaf's gradient at relative L2 error ``GRAD_TOL``
@@ -32,13 +34,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.train.train_step import value_and_grad
+from repro_torch.models.blueprint import tree_map
+from repro_torch.models.registry import mrope_grid_positions
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+from repro_torch.train.train_step import (StepConfig, build_train_step,
+                                          value_and_grad)
 from test_torch_archs import RUN, _ref_teacher_forced, carried
 
 TOL = 0.1
 GRAD_TOL = 2e-2
 B, S = 2, 64
-TRAIN = [a for a in RUN if a != "qwen2-vl-72b"]
+TRAIN = RUN
+#: frontend frames a batch carries: seamless's source, qwen2-vl's patches
+FRAMES = {"seamless-m4t-large-v2": 32, "qwen2-vl-72b": 16}
 #: the configs whose gradients are held whole
 WHOLE = [a for a in TRAIN if a not in ("kimi-k2-1t-a32b",
                                        "jamba-1.5-large-398b",
@@ -78,21 +86,38 @@ def tokens(arch):
         0, carried(arch)[0].vocab, (B, S)).astype(np.int32)
 
 
+def batches(arch):
+    """(the reference's batch, the port's): the tokens, and the config's
+    frames (numpy seed, bf16) and M-RoPE positions."""
+    cfg = carried(arch)[0]
+    toks = tokens(arch)
+    ref, port = {"tokens": jnp.array(toks)}, {"tokens": torch.from_numpy(toks)}
+    if arch in FRAMES:
+        fe = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (B, FRAMES[arch], cfg.d_model)).astype(np.float32)).bfloat16()
+        ref["frontend_embeds"] = jnp.array(fe.float().numpy(), jnp.bfloat16)
+        port["frontend_embeds"] = fe
+    if cfg.pos == "mrope":
+        pos = mrope_grid_positions(B, S, 4, 4)
+        ref["mrope_positions"] = jnp.array(pos.numpy())
+        port["mrope_positions"] = pos
+    return ref, port
+
+
 @functools.lru_cache(maxsize=None)
 def both(arch):
     """((loss, grads) of the reference or its oracle, the port's), the
     grads as {path: float32 array}."""
     cfg, ref, rp, model, params, _ = carried(arch)
-    toks = tokens(arch)
+    rb, pb = batches(arch)
     if arch == "xlstm-1.3b":
         fn = decode_nll(arch)
+        rb = rb["tokens"]
     else:
-        def fn(p, t):
-            return ref.loss_fn(p, {"tokens": t})
-    want_l, want_g = jax.jit(jax.value_and_grad(fn))(rp, jnp.array(toks))
-    loss, grads = value_and_grad(model, params,
-                                 {"tokens": torch.from_numpy(toks)},
-                                 remat=True)
+        def fn(p, b):
+            return ref.loss_fn(p, b)
+    want_l, want_g = jax.jit(jax.value_and_grad(fn))(rp, rb)
+    loss, grads = value_and_grad(model, params, pb, remat=True)
     assert loss.dtype == torch.float32
     return ((float(want_l), {k: np.asarray(v, np.float32)
                              for k, v in _paths(want_g).items()}),
@@ -114,13 +139,20 @@ def grad_errors(arch):
     return errs
 
 
-def test_qwen2_vl_training_is_a11():
-    """Its loss_fn raises naming the ROADMAP item: the port's VLM inputs
-    wait for A11."""
-    cfg, ref, rp, model, params, toks = carried("qwen2-vl-72b")
-    with pytest.raises(NotImplementedError, match="A11"):
-        model.loss_fn(params, {"tokens": torch.from_numpy(toks),
-                               "mrope_positions": torch.zeros(3, 2, 32)})
+@pytest.mark.parametrize("arch", sorted(FRAMES))
+def test_frontend_configs_take_a_microbatched_step(arch):
+    """qwen2-vl and seamless-m4t train through ``build_train_step`` at two
+    microbatches, their frames and M-RoPE positions split along the batch
+    (ROADMAP C17): finite loss, a nonzero gradient norm, the params
+    moved."""
+    cfg, ref, rp, model, params, _ = carried(arch)
+    p = tree_map(torch.clone, params)
+    scfg = StepConfig(microbatches=2, remat=True,
+                      opt=AdamWConfig(lr=1e-3, warmup_steps=1))
+    _, _, met = build_train_step(model, scfg)(
+        p, init_opt_state(p, scfg.opt), batches(arch)[1])
+    assert np.isfinite(float(met["loss"])) and float(met["grad_norm"]) > 0
+    assert not torch.equal(p["unembed"], params["unembed"])
 
 
 @pytest.mark.parametrize("arch", TRAIN)

@@ -26,6 +26,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import get_model
 from repro_torch.models.blueprint import count_params, init_params
+from repro_torch.train.train_step import value_and_grad
 
 B, S = 2, 64
 TOL = 0.1
@@ -165,18 +166,32 @@ def test_init_params_draws_large_leaves_in_slices(monkeypatch):
     assert torch.equal(small, whole["stack"][0]["ln1"]["scale"])
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
-def test_unported_models_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(get_config(arch, smoke=True)).blueprint()
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_model_builds(arch):
+    """Every config builds, smoke and full, the encoder-decoder too: its
+    blueprint has the reference's parameter count (the full one is never
+    allocated)."""
+    for smoke in (True, False):
+        bp = get_model(get_config(arch, smoke)).blueprint()
+        ref_bp = ref_get_model(ref_get_config(arch, smoke)).blueprint()
+        assert count_params(bp) == sum(
+            int(np.prod(r.shape)) for r in _flat(ref_bp).values())
 
 
-def test_loss_fn_is_not_ported(granite):
-    """``loss_fn`` is ported (tests/test_torch_train.py), except for the
-    encoder-decoder stack, which raises naming its ROADMAP item."""
+def test_loss_fn_trains_the_encoder_decoder():
+    """seamless-m4t's ``loss_fn`` (``test_torch_encdec.py`` holds it to
+    the reference's): a finite loss from tokens and source frames, whose
+    gradient reaches the encoder and the cross-attention."""
     model = get_model(get_config("seamless-m4t-large-v2", smoke=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        model.loss_fn({}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    params = init_params(model.blueprint(), torch.Generator().manual_seed(0),
+                         "cpu")
+    batch = {"tokens": torch.randint(0, 512, (1, 16)),
+             "frontend_embeds": torch.randn(1, 8, 128).bfloat16()}
+    loss, grads = value_and_grad(model, params, batch, remat=True)
+    assert torch.isfinite(loss)
+    for g in (grads["enc_stack"][0]["attn"]["wq"],
+              grads["stack"][0]["xattn"]["wk"], grads["enc_ln_f"]["scale"]):
+        assert g.float().norm() > 0
 
 
 @pytest.mark.parametrize("grad", [True, False])

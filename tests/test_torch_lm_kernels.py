@@ -641,6 +641,15 @@ TC_HOST_SHAPES = [
     (1, 2, 2, 100, 100, 128, True),   # D = 128
     (1, 1, 1, 40, 70, 128, False),    # D = 128, every key
 ]
+#: the encoder-decoder's routes: non-causal at D 64 with Sq != Sk, both
+#: ways and ragged (the encoder and cross-attention), and a single query
+#: row against an encoder's keys (cross-attention at decode)
+TC_HOST_CROSS_SHAPES = [
+    (1, 4, 4, 70, 150, 64, False),    # D = 64, Sq < Sk, ragged
+    (1, 2, 1, 150, 70, 64, False),    # D = 64, Sq > Sk, GQA 2, ragged
+    (2, 4, 2, 1, 130, 64, False),     # Sq = 1 against 130 keys
+    (1, 2, 2, 1, 130, 128, False),    # Sq = 1 at D = 128
+]
 
 
 def _tc_forward_on_host(lib, q, k, v, causal):
@@ -663,7 +672,8 @@ def _tc_forward_on_host(lib, q, k, v, causal):
     return out, lse, vexp, vmax
 
 
-@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", TC_HOST_SHAPES)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal",
+                         TC_HOST_SHAPES + TC_HOST_CROSS_SHAPES)
 def test_tensor_core_forward_source_matches_plain_on_host(
         B, H, Hkv, Sq, Sk, D, causal, host_tc_libs):
     """The forward's tensor-core entry under the emulated helpers, against
@@ -715,7 +725,8 @@ def test_tensor_core_forward_takes_v_past_fp16_range_on_host(
     assert vmax.tolist() == [[0, 2]]
 
 
-@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", TC_HOST_SHAPES)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal",
+                         TC_HOST_SHAPES + TC_HOST_CROSS_SHAPES)
 @pytest.mark.parametrize("do_scale", [1.0, 1.0 / 8192])
 def test_tensor_core_backward_source_matches_plain_on_host(
         B, H, Hkv, Sq, Sk, D, causal, do_scale, host_tc_libs):
