@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Eleven paths of the port, each at full width:
+Thirteen paths of the port, each at full width:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
@@ -23,13 +23,13 @@ Eleven paths of the port, each at full width:
     10 launches), the grid executor's ms on the host, the loop
     iterations that synced with the host, and where the time goes for
     the large launches (a profiler trace); a ``{"runtime": [...]}`` JSON
-    line. Past 90 s of the phase the remaining large benches are cut to
+    line. Past 60 s of the phase the remaining large benches are cut to
     2^20 lanes (printed);
   * the dense LM serving path on granite-3-2b at full width and depth
     (random weights from ``--seed``): ``LM.prefill`` on 4 prompts of 2048
     tokens, whose 81 RMSNorms and 40 attentions go through the rmsnorm
-    and flash_attention kernels, and ``ServeEngine`` answering 16
-    requests;
+    and flash_attention kernels, and ``ServeEngine`` answering 12
+    requests on 8 slots;
   * the MoE LM serving path on olmoe-1b-7b at full width and depth
     (6.9 B params, random weights from ``--seed``, granite's freed
     first): the same prefill, whose 33 RMSNorms, 16 attentions at head
@@ -85,6 +85,36 @@ Eleven paths of the port, each at full width:
     x 512); and at depth 2, 2 steps, a checkpoint and 2 resumed steps
     repeat 4 straight steps' losses bit for bit. A ``{"train": ...}`` JSON
     line holds the steps' numbers;
+  * training olmoe-1b-7b at full width and depth (6.92 B params, AdamW
+    with bf16 moments, the reference's own option: float32 ones would
+    take the state past the card's 80 GB; remat): first the expert FF's
+    backward (five batched products around the ``swiglu_bwd`` kernel) and
+    the kernel alone against their plain versions at a layer's shape
+    (64, 1280, 2048), f 1024, with a random routing's counts, and timed
+    beside ``torch.autograd.grad`` through the three library calls; then
+    ``train_loop`` takes 4 steps of 4 x 2048 tokens, whose expert FFs go
+    through ``moe_dispatch`` forward (twice under remat), ``swiglu_bwd``
+    and the gather combine ``moe_combine`` (the forward, its recompute
+    and the dispatch's gradient); tokens/s, step ms, peak memory, idle
+    share and top kernels; then at depth 2 a step on the card against the
+    CPU (routers zeroed), two MoE layers in float32 with random routers
+    card against CPU (ragged counts and capacity drops, the gradients of
+    x and of every router, wi and wo), a resume bit for bit and two
+    identical steps bit for bit;
+  * jamba-1.5-large-398b's gradient at full width cut to two layers
+    (``HYBRID_TRAIN_CUT``: a mamba layer with the dense FF, an attention
+    layer with the MoE FF, 11.9 B params): first the scan's backward
+    (``selective_scan_bwd`` and its dC reduce) against its plain version
+    at a chunk (4, 256, 16384, 16) float32, timed beside its byte bound,
+    and the expert FF's backward checked on 2 of its 16 experts and timed
+    over all (its plain version 2 experts at a time over all); then 3 calls of ``value_and_grad`` (remat, ``loss_chunk``
+    512; no AdamW: its moments would add 47.6 GB beside the 47.6 GB of
+    params and grads) on 4 x 2048 tokens, each mamba chunk a checkpoint
+    region scanned three times and reverse-scanned once; then the smoke
+    period's loss on the card against the CPU, and its mamba mixer's
+    gradients in float32 (ROADMAP C15 keeps the period's whole gradients
+    out). A ``{"train_moe_hybrid": ...}`` JSON line holds both paths'
+    steps;
   * the encoder-decoder on seamless-m4t-large-v2 at full width and depth,
     nothing cut (24 encoder and 24 decoder layers, d_model 1024, 16 heads
     of 64, d_ff 8192 with gelu, vocab 256,206: 1.63 B params, random
@@ -141,12 +171,15 @@ each output finite and within the route's tolerance.
 Each kernel's launches are counted on each path (counts set to 0 just
 before, read just after): a record's ``launches_by_path`` gives each
 path's own count (``compiler``; ``<model>/prefill`` and
-``<model>/serve``; ``granite-3-2b/train``; seamless's ``/encode``,
+``<model>/serve``; ``granite-3-2b/train``, ``olmoe-1b-7b/train``,
+``jamba-1.5-large-398b/train``; seamless's ``/encode``,
 ``/prefill``, ``/decode`` and ``/train``; ``qwen2-vl-72b/train``) and ``launches`` their sum
 (rmsnorm's record also names xlstm's check, flash_attention's and
 moe_dispatch's their past-fp16 checks, ``past_fp16``);
-the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``) are
-counted apart from the forward ones. flash_attention, moe_dispatch and
+the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``,
+``swiglu_bwd``, ``selective_scan_bwd``) are counted apart from the
+forward ones, and the combine's gather (``moe_combine``, one a MoE layer
+at prefill and decode) on its own. flash_attention, moe_dispatch and
 flash_attention_bwd also count by route (``launches_by_route``:
 tensor_cores or cuda_cores, on each path); every launch of theirs on the
 four prefill paths, the train paths and seamless's paths must take the
@@ -254,7 +287,14 @@ check lines print both):
     11.2 at init) at atol 2e-2, each leaf's gradient and each leaf after
     AdamW at relative L2 error 2e-2 (bf16 products summed in another
     order; tests/test_torch_train.py holds the port to jax.grad at the
-    same 2e-2).
+    same 2e-2). olmoe's with its routers zeroed (bf16 near-ties would
+    route tokens apart on the two devices); jamba's smoke period the loss
+    alone, its mamba mixer's gradients in float32 at 2e-2.
+  * the new backward kernels as the others (bf16 1e-2, float32 1e-4 of
+    each output's largest value); the combine's gather against its plain
+    version exactly (the same float32 sums in the same order) and against
+    ``index_add_`` at rtol = atol = 1e-5 (float32 sums in another
+    order).
 
 Each kernel is timed twice: CUDA events around a batch of wrapper calls,
 and the device time of its kernel from a torch.profiler trace. A simt
@@ -314,11 +354,16 @@ from repro_torch.kernels.flash_attention import \
     flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention_bwd as fb  # noqa: E402
+from repro_torch.kernels.moe_dispatch import moe_combine as mc  # noqa: E402
 from repro_torch.kernels.moe_dispatch import moe_dispatch as md  # noqa: E402
+from repro_torch.kernels.moe_dispatch import \
+    moe_dispatch_bwd as mb  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd as rb  # noqa: E402
 from repro_torch.kernels.selective_scan import \
     selective_scan as ss  # noqa: E402
+from repro_torch.kernels.selective_scan import \
+    selective_scan_bwd as sb  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.blueprint import (count_params, init_params,  # noqa
@@ -497,12 +542,15 @@ def _lane_ops(fn, lanes: int) -> int:
 def _device_ms(fn, calls: int = 20):
     """Device time per call of the kernels that ``fn`` launches, from a
     torch.profiler trace of ``calls`` calls (CUDA activity only): each
-    kernel's mean time over its recorded launches, summed over the
-    kernels, so a kernel counts once per call. The trace can drop launch
-    records (on the H100 as few as 1 in 20), so the records are not
-    counted as launches; records per call come back beside each kernel's
-    mean ms by name. None where the trace shows no device time in three
-    tries (one trace of the H100 came back empty)."""
+    kernel's mean time over its recorded launches times its launches a
+    call, summed over the kernels. The trace can drop launch records (on
+    the H100 as many as 1 in 20), so a kernel's launches a call are its
+    records a call rounded to a whole number, at least 1 (a name that
+    runs twice a call, as two of the expert FF backward's five products
+    share a cuBLAS kernel, counts twice). Returns that sum, each
+    kernel's ms a call by name, and the records a call. None where the
+    trace shows no device time in three tries (one trace of the H100
+    came back empty)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -518,8 +566,9 @@ def _device_ms(fn, calls: int = 20):
             for e in evs:   # names without the common prefix, cut to 40
                 k = e.key.replace("void ", "").replace(
                     "(anonymous namespace)::", "")[:40]
-                each[k] = each.get(k, 0.0) + (e.self_device_time_total
-                                              / e.count / 1e3)
+                each[k] = each.get(k, 0.0) + (
+                    e.self_device_time_total / e.count / 1e3
+                    * max(1, round(e.count / calls)))
             return (sum(each.values()), dict(sorted(each.items())),
                     sum(e.count for e in evs) / calls)
     return None, {}, 0.0
@@ -550,7 +599,7 @@ RT_BIG = ("vecadd", "psum", "transpose", "reduce0", "sfilter", "shuffle_hw")
 RT_LANES, RT_CUT_LANES = 2**22, 2**20
 #: past this many seconds of the phase, the remaining large benches run at
 #: RT_CUT_LANES (printed)
-RT_BUDGET_S = 90.0
+RT_BUDGET_S = 60.0
 RT_FUEL = 1 << 40
 RT_REPS = 10
 
@@ -793,7 +842,10 @@ KIMI_CUT = {"n_layers": 1}
 #: its 384 experts (all 384 in float32 would be 67.6 GB)
 KIMI_CHECK_EXPERTS = 32
 PREFILL_B, PREFILL_S = 4, 2048       # 8192 rows for each RMSNorm
-SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 512, 16, 16
+#: the engine's requests: 12 on 8 slots, so that 4 slots are reused (the
+#: engine is host-bound: 12 rather than 16 keep the whole script near 10
+#: minutes)
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 8, 512, 12, 16
 RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 FA_TOL = {torch.bfloat16: (1e-2, 2e-3), torch.float32: (2e-5, 2e-5)}
 MOE_TOL = (1e-2, 2e-3)               # rtol, atol; bf16
@@ -804,7 +856,8 @@ ROUTED_APART_TOL = (0.1, 0.55)       # rtol, atol of tests/test_archs.py
 DECODE_T = 64                        # teacher-forced decode-vs-prefill
 KERNELS = {"simt_exec": sx, "rmsnorm": rn, "flash_attention": fa,
            "moe_dispatch": md, "selective_scan": ss, "rmsnorm_bwd": rb,
-           "flash_attention_bwd": fb}
+           "flash_attention_bwd": fb, "moe_combine": mc, "swiglu_bwd": mb,
+           "selective_scan_bwd": sb}
 LM_SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/rmsnorm.py:23"),
@@ -826,7 +879,21 @@ LM_SOURCES = {
         "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention_bwd.cu",
         "none: jax.grad of src/repro/models/layers.py:148 "
-        "(attention_chunked)")}
+        "(attention_chunked)"),
+    # the gather combine replaces the reference's scatter-add, not a
+    # Pallas kernel
+    "moe_combine": (
+        "src/repro_torch/kernels/moe_dispatch/csrc/moe_combine.cu",
+        "none: the scatter-add combine of src/repro/models/moe.py:91 "
+        "(and the gradient of its gather, :81)"),
+    "swiglu_bwd": (
+        "src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch_bwd.cu",
+        "none: jax.grad of src/repro/models/moe.py:83-86 (the expert "
+        "FF's einsums)"),
+    "selective_scan_bwd": (
+        "src/repro_torch/kernels/selective_scan/csrc/selective_scan_bwd.cu",
+        "none: jax.grad of src/repro/models/ssm.py:84-97 "
+        "(mamba_scan_chunked's chunk scan)")}
 
 
 def _count(cfg, mixer=None, ff=None) -> int:
@@ -869,7 +936,8 @@ PTXAS_NAMES = ((r"fa_tc_kernelILi(\d+)E", "fa_tc_kernel<{}>"),
                (r"fa_bwd_dkdv_tcILi(\d+)E", "fa_bwd_dkdv_tc<{}>"),
                (r"fa_bwd_dq_tcILi(\d+)E", "fa_bwd_dq_tc<{}>"),
                (r"rmsnorm_bwd_vecI13__nv_bfloat16Li1E",
-                "rmsnorm_bwd_vec<bf16, 1>"))
+                "rmsnorm_bwd_vec<bf16, 1>"),
+               (r"scan_bwd_kernelILi16E", "scan_bwd_kernel<16>"))
 
 
 def _ptxas_lines(kernel) -> list:
@@ -1254,6 +1322,48 @@ def _moe_rows(dev, cfg, wi, wo, reps, errs, launches, prefill_batch=10,
             "library": "torch.bmm, F.silu * mul, torch.bmm (bf16)"}
 
 
+def _combine_row(dev, cfg, reps, launches):
+    """The MoE combine's gather at the prefill's shape (4 x 2048 tokens,
+    top_k gate ranks, E * C slots of the expert FF's output scaled by
+    their weights, float32), from the dispatch of a random routing:
+    against its plain version (bit for bit: the same float32 sums in the
+    same order) and against the scatter-add it replaces, ``index_add_``
+    over the dispatch table (the library yardstick, float32 rounding
+    apart). The bound: the kept slots' rows read, the output written and
+    the slots read once."""
+    g = torch.Generator(dev).manual_seed(12)
+    T, k, E = PREFILL_B * PREFILL_S, cfg.moe_top_k, cfg.moe_experts
+    d, C = cfg.d_model, _moe_shapes(cfg)["prefill"]
+    probs = torch.rand(T, E, generator=g, device=dev).softmax(-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    table, wtable, slots = MOE.dispatch(idx[:, :k], vals[:, :k], T,
+                                              E, C)
+    yw = torch.randn(E * C, d, generator=g, device=dev) * wtable[:, None]
+    got = mc.gather_sum(yw, slots)
+    want = mc.gather_sum_plain(yw, slots)
+    err = _compare("moe_combine", {"y": got}, {"y": want}, 0.0, 0.0)
+    lib = torch.zeros(T + 1, d, device=dev).index_add_(0, table, yw)[:T]
+    e_lib = _compare("moe_combine vs index_add_", {"y": got}, {"y": lib},
+                     1e-5, 1e-5)
+    kept = int((slots < E * C).sum())
+    print(f"check moe_combine ({T} tokens, {k} ranks, {E * C} slots, d "
+          f"{d}) float32, {kept} of {T * k} assignments kept: vs plain max "
+          f"abs err {err:.3g} (exact); vs index_add_ {e_lib:.3g} (rtol = "
+          "atol = 1e-5: float32 sums in another order)")
+    row = _kernel_row(
+        "moe_combine", f"({T}, {k}) of ({E * C}, {d}) float32",
+        lambda: mc.gather_sum(yw, slots),
+        lambda: mc.gather_sum_plain(yw, slots),
+        lambda: torch.zeros(T + 1, d, device=dev).index_add_(0, table, yw),
+        4 * (kept * d + T * d + T * k), kept * d, F32_OPS_PER_S, reps,
+        launches)
+    print("library for moe_combine: torch.zeros(T + 1, d).index_add_(0, "
+          "table, yw), the scatter-add models/moe.py ran before")
+    return {**row, "max_abs_err": err, "max_abs_err_vs_index_add": e_lib,
+            "shape": [T, k, E * C, d], "kept": kept,
+            "library": "Tensor.index_add_ (float32)"}
+
+
 def moe_kernel_times(dev, cfg, layer0, reps, errs):
     """Timing rows of the expert FF (layer 0's weights: 805 MB) and of
     attention at head dim 128."""
@@ -1350,7 +1460,7 @@ def _fp16_ranges(fn) -> tuple:
     tensor-core routes carry in fp16, whose largest is 65504."""
     from repro_torch.models import layers as LAYERS
     seen_v, seen_h = [0.0], [0.0]
-    attn, ff = LAYERS.flash_attention, MOE.grouped_expert_ff
+    attn, ff = LAYERS.flash_attention, md.grouped_expert_ff
 
     def attn_rec(q, k, v, **kw):
         seen_v[0] = max(seen_v[0], float(v.abs().max()))
@@ -1360,11 +1470,11 @@ def _fp16_ranges(fn) -> tuple:
         seen_h[0] = max(seen_h[0], _max_hidden(x, wi, counts))
         return ff(x, wi, wo, counts, **kw)
 
-    LAYERS.flash_attention, MOE.grouped_expert_ff = attn_rec, ff_rec
+    LAYERS.flash_attention, md.grouped_expert_ff = attn_rec, ff_rec
     try:
         fn()
     finally:
-        LAYERS.flash_attention, MOE.grouped_expert_ff = attn, ff
+        LAYERS.flash_attention, md.grouped_expert_ff = attn, ff
     return seen_v[0], seen_h[0]
 
 
@@ -1392,8 +1502,8 @@ def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
                trace_S=PREFILL_S):
     """The path, counted (counts set to 0 just before each part, read
     just after): one prefill of 4 x 2048 tokens, then the engine
-    answering 16 requests; then prefill and decode speed, and where their
-    time goes. Returns the tokens, the engine, the rng, the counts by
+    answering SERVE_REQUESTS requests; then prefill and decode speed, and
+    where their time goes. Returns the tokens, the engine, the rng, the counts by
     path and the decode step's inputs."""
     L, arch = cfg.n_layers, cfg.name
     moe_layers = _count(cfg, ff="moe")
@@ -1415,7 +1525,9 @@ def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
             "moe_dispatch": moe_layers,
             "selective_scan": _count(cfg, "mamba") * math.ceil(
                 PREFILL_S / cfg.ssm_chunk),
-            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
+            "moe_combine": moe_layers, "swiglu_bwd": 0,
+            "selective_scan_bwd": 0}
     if per_prefill != want:
         raise AssertionError(f"{arch} prefill launched {per_prefill}; "
                              f"expected {want}")
@@ -1443,7 +1555,9 @@ def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
     if (bad or per_serve["rmsnorm"] < 1 or per_serve["simt_exec"]
             or per_serve["flash_attention"] or per_serve["selective_scan"]
             or per_serve["rmsnorm_bwd"] or per_serve["flash_attention_bwd"]
-            or (per_serve["moe_dispatch"] < 1) != (moe_layers == 0)):
+            or per_serve["swiglu_bwd"] or per_serve["selective_scan_bwd"]
+            or (per_serve["moe_dispatch"] < 1) != (moe_layers == 0)
+            or per_serve["moe_combine"] != per_serve["moe_dispatch"]):
         raise AssertionError(f"serving: failed requests {bad}, launches "
                              f"{per_serve}")
     prompt_toks = sum(len(r.prompt) for r in reqs)
@@ -1573,7 +1687,10 @@ def moe_phase(dev, seed: int, reps: int):
     record, fa128 = moe_kernel_times(dev, cfg, layer0, min(reps, 10), errs)
     del params, layer0
     torch.cuda.empty_cache()
-    return {"moe_dispatch": record, "flash_attention_d128": fa128}, by_path
+    combine = _combine_row(dev, cfg, min(reps, 10),
+                           f"{cfg.n_layers} a prefill or decode step")
+    return {"moe_dispatch": record, "flash_attention_d128": fa128,
+            "moe_combine": combine}, by_path
 
 
 def _scan_inputs(g, dev, shape, dtype):
@@ -1632,14 +1749,10 @@ def scan_kernel(dev, cfg, seed, reps):
     return {**row, "max_abs_err": err, "shape": list(shape)}
 
 
-def hybrid_moe(dev, cfg, seed, reps):
-    """The expert FF at jamba's width, before the model's params exist:
-    one layer's 16 experts drawn as ``init_params`` draws them (normal
-    over the square root of the fan-in, bf16), one expert at a time;
-    checked against the plain version at both capacities, then timed
-    (prefill in batches of one call: about a second each)."""
-    E, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
-    g = torch.Generator(dev).manual_seed(seed)
+def _expert_weights(g, dev, E, d, f):
+    """One MoE layer's wi and wo drawn as ``init_params`` draws them
+    (normal over the square root of the fan-in, bf16), one expert at a
+    time."""
     wi = torch.empty(E, d, 2 * f, dtype=torch.bfloat16, device=dev)
     wo = torch.empty(E, f, d, dtype=torch.bfloat16, device=dev)
     for e in range(E):
@@ -1647,6 +1760,17 @@ def hybrid_moe(dev, cfg, seed, reps):
             d ** -0.5).bfloat16()
         wo[e] = torch.randn(f, d, generator=g, device=dev).mul_(
             f ** -0.5).bfloat16()
+    return wi, wo
+
+
+def hybrid_moe(dev, cfg, seed, reps):
+    """The expert FF at jamba's width, before the model's params exist:
+    one layer's 16 experts (``_expert_weights``) checked against the
+    plain version at both capacities, then timed (prefill in batches of
+    one call: about a second each)."""
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+    g = torch.Generator(dev).manual_seed(seed)
+    wi, wo = _expert_weights(g, dev, E, d, f)
     errs = {}
     _moe_checks(g, dev, cfg, wi, wo, errs)
     print(f"moe_dispatch slicing of f {f}: " + ", ".join(
@@ -2141,16 +2265,29 @@ def _leaf_names(tree, path="") -> list:
     return [path]
 
 
+def _zero_routers(params) -> None:
+    """Every MoE layer's router set to zero in place: all tokens route to
+    the first top_k experts on either device (bf16 near-ties in random
+    routers route tokens apart, tests/test_torch_train.py)."""
+    for layer in params["stack"]:
+        if "moe" in layer:
+            layer["moe"]["router"].zero_()
+
+
 def _train_card_vs_cpu(dev, cfg, seed, batch=None, label="depth 2",
-                       adamw=True) -> None:
+                       adamw=True, opt=None, grads=True) -> None:
     """One step of a short model at full width (granite's: depth 2) on
     the card and on the CPU (plain versions) from the same params (drawn
-    on the card, copied to the host) and batch (granite's: 1 x 512
-    tokens): the loss, each leaf's gradient and, with ``adamw``, each
-    leaf after AdamW. ``cfg`` is the short config."""
+    on the card, copied to the host; MoE routers zeroed) and batch
+    (granite's: 1 x 512 tokens): the loss, each leaf's gradient and, with
+    ``adamw``, each leaf after AdamW (``opt``, default float32 moments).
+    ``cfg`` is the short config. ``grads`` False: the gradients are
+    printed, not held (ROADMAP C15: a whole random-weight hybrid period
+    in bf16 is too ill-conditioned to hold them)."""
     m2 = get_model(cfg)
     p_card = init_params(m2.blueprint(), torch.Generator(dev).manual_seed(
         seed))
+    _zero_routers(p_card)
     p_cpu = tree_map(lambda a: a.cpu(), p_card)
     if batch is None:
         batch = {"tokens": torch.from_numpy(synthetic_batch(DataConfig(
@@ -2171,37 +2308,50 @@ def _train_card_vs_cpu(dev, cfg, seed, batch=None, label="depth 2",
     zero_card = [n for n, a in zip(names, leaves(g_card))
                  if not a.float().any()]
     perr: dict = {}
+    # a leaf that starts at zero (a zeroed router) holds after one AdamW
+    # step only lr * m / (sqrt(v) + eps), about lr * sign(g): an element
+    # whose gradient is near zero takes either sign on the two devices,
+    # so such a leaf is held by its gradient above, not by its params
+    from_zero = [n for n, b in zip(names, leaves(p_cpu))
+                 if not b.float().any()]
     if adamw:
-        opt = AdamWConfig()
+        opt = opt or AdamWConfig()
         adamw_update(p_cpu, g_cpu, init_opt_state(p_cpu, opt), opt)
         adamw_update(p_card, g_card, init_opt_state(p_card, opt), opt)
         perr = {n: float((a.cpu().float() - b.float()).norm()
                          / b.float().norm().clamp_min(1e-30))
-                for n, a, b in zip(names, leaves(p_card), leaves(p_cpu))}
+                for n, a, b in zip(names, leaves(p_card), leaves(p_cpu))
+                if n not in from_zero}
     gap = abs(float(l_card) - float(l_cpu))
     print(f"check train step {label}, full width ({shape}) {cfg.name} card "
           f"vs cpu: loss {float(l_card):.6f} vs {float(l_cpu):.6f}, gap "
           f"{gap:.3g} (atol {TRAIN_LOSS_ATOL}); gradient relative L2 "
           f"errors " + ", ".join(f"{n} {e:.3g}" for n, e in gerr.items())
-          + f" (tol {TRAIN_GRAD_TOL}); zero gradients on both sides "
+          + (f" (tol {TRAIN_GRAD_TOL})" if grads else
+             " (not held: ROADMAP C15)")
+          + "; zero gradients on both sides "
           f"{zero}; " + (f"params after AdamW, largest "
-                         f"{max(perr.values()):.3g}; " if perr else
-                         "AdamW not run; ")
+                         f"{max(perr.values()):.3g} ("
+                         f"{max(perr, key=perr.get)}; leaves from zero, "
+                         f"held by their gradients: {from_zero}); "
+                         if perr else "AdamW not run; ")
           + f"the CPU's value_and_grad {cpu_s:.1f} s")
-    if gap > TRAIN_LOSS_ATOL or max(gerr.values()) > TRAIN_GRAD_TOL \
-            or max(perr.values(), default=0.0) > TRAIN_GRAD_TOL \
-            or zero != zero_card:
+    if gap > TRAIN_LOSS_ATOL or zero != zero_card or not all(
+            math.isfinite(e) for e in gerr.values()) or grads and (
+            max(gerr.values()) > TRAIN_GRAD_TOL
+            or max(perr.values(), default=0.0) > TRAIN_GRAD_TOL):
         raise AssertionError("train step: card against cpu past tolerance")
 
 
-def _train_resume(dev, cfg, seed, ckpt_root: Path) -> None:
+def _train_resume(dev, cfg, seed, ckpt_root: Path, opt=None) -> None:
     """At depth 2 (full width): 2 steps, a checkpoint, a fresh train_loop
     that resumes for 2 more; its losses must equal 4 uninterrupted steps
-    bit for bit (the backward kernels sum in a fixed order)."""
+    bit for bit (the backward kernels sum in a fixed order). ``opt``:
+    AdamW's config, default float32 moments."""
     m2 = get_model(dataclasses.replace(cfg, n_layers=2))
     data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
                       seed=seed)
-    scfg = StepConfig(remat=True, opt=AdamWConfig())
+    scfg = StepConfig(remat=True, opt=opt or AdamWConfig())
     quiet = dict(log_every=0)
     straight = train_loop(m2, data, LoopConfig(total_steps=4,
                                                ckpt_every=10**9, **quiet),
@@ -2313,6 +2463,497 @@ def train_phase(dev, seed: int, reps: int):
     _train_resume(dev, cfg, seed, ckpt_root)
     shutil.rmtree(ckpt_root, ignore_errors=True)
     return records, {f"{cfg.name}/train": counts}, summary
+
+
+# --------------------------------------------------------------------------
+# MoE and hybrid training: olmoe-1b-7b at full width and depth, jamba's
+# two-layer cut at full width
+# --------------------------------------------------------------------------
+
+#: jamba's gradient on one card: every width, one mamba layer (dense FF)
+#: and one attention layer (MoE FF), 11.9 B params
+HYBRID_TRAIN_CUT = {"n_layers": 2, "attn_every_k": 2}
+#: jamba's expert FF backward is held against its plain version on this
+#: many of its 16 experts, and its plain version timed this many at a
+#: time over all 16 (the plain version's float32 weights are 2.4 GB an
+#: expert)
+JAMBA_CHECK_EXPERTS = 2
+#: value_and_grad calls of the jamba cut (no optimizer step)
+HYBRID_GRAD_STEPS = 3
+#: the MoE's bf16 AdamW moments: float32 ones would take olmoe's state to
+#: 83 GB, past the card's 80 (the reference's own option)
+MOE_OPT = AdamWConfig(state_dtype=torch.bfloat16)
+
+
+def _train_launches(cfg) -> dict:
+    """Kernel launches of one value_and_grad of ``loss_fn`` with remat,
+    4 x 2048 tokens: each forward kernel twice (the period's recompute),
+    the scan three times (a checkpoint region a chunk inside the
+    period's), each backward kernel once, the combine's gather three
+    times (the forward, its recompute, the dispatch's gradient)."""
+    L, n_attn = cfg.n_layers, _count(cfg, "attn")
+    n_moe, n_mamba = _count(cfg, ff="moe"), _count(cfg, "mamba")
+    chunks = n_mamba * math.ceil(TRAIN_S / cfg.ssm_chunk)
+    norms = 2 * L - _count(cfg, ff="none")
+    return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
+            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "moe_dispatch": 2 * n_moe, "swiglu_bwd": n_moe,
+            "moe_combine": 3 * n_moe, "selective_scan": 3 * chunks,
+            "selective_scan_bwd": chunks}
+
+
+def _expert_bwd_inputs(g, dev, cfg, E):
+    """x (unit-RMS rows, as an RMSNorm hands them), dy and the counts of
+    a random routing of the prefill's 4 x 2048 tokens, at the prefill's
+    capacity, on E experts; x's rows past the counts zeroed, as the
+    dispatch's zero row leaves them."""
+    C = _moe_shapes(cfg)["prefill"]
+    counts = _sim_counts(g, dev, cfg, PREFILL_B * PREFILL_S, C)[:E]
+    counts = counts.contiguous()
+    live = (torch.arange(C, device=dev)[None, :] < counts[:, None])[..., None]
+    x = (torch.randn(E, C, cfg.d_model, generator=g, device=dev)
+         * live).bfloat16()
+    dy = torch.randn(E, C, cfg.d_model, generator=g, device=dev).bfloat16()
+    return x, dy, counts
+
+
+def _expert_bwd_check(g, dev, cfg, wi, wo, errs, experts=None) -> None:
+    """The expert FF's backward (five products around the SwiGLU kernel)
+    and the SwiGLU kernel alone against their plain versions at the
+    path's prefill capacity, bf16, with the counts of a random routing;
+    two calls bit for bit the same. ``experts``: on the first that many
+    experts only (full d and f)."""
+    E = cfg.moe_experts if experts is None else experts
+    wi, wo = wi[:E], wo[:E]
+    x, dy, counts = _expert_bwd_inputs(g, dev, cfg, E)
+    got = mb.grouped_expert_ff_bwd(x, wi, wo, dy, counts)
+    msg = _bwd_check("swiglu_bwd", got, mb.grouped_expert_ff_bwd_plain(
+        x, wi, wo, dy, counts), torch.bfloat16, errs, ("dx", "dwi", "dwo"))
+    again = mb.grouped_expert_ff_bwd(x, wi, wo, dy, counts)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again
+    gu = torch.bmm(x, wi)
+    dh = torch.bmm(dy, wo.transpose(1, 2))
+    msg2 = _bwd_check("swiglu_bwd", mb.swiglu_bwd(gu, dh, counts),
+                      mb.swiglu_bwd_plain(gu, dh, counts), torch.bfloat16,
+                      errs, ("dgu", "h"))
+    print(f"check expert FF backward ({E}, {x.shape[1]}, {cfg.d_model}) f "
+          f"{cfg.moe_d_ff} bf16, {int(counts.sum())} rows filled, vs plain "
+          f"largest relative error {msg}; the swiglu_bwd pass alone {msg2} "
+          f"(tol {BWD_TOL[torch.bfloat16]}); two calls bit for bit equal: "
+          f"{same}" + ("" if experts is None else
+                       f"; on {E} of {cfg.moe_experts} experts"))
+    if not same:
+        raise AssertionError("grouped_expert_ff_bwd: two calls differ")
+    torch.cuda.empty_cache()
+
+
+def _expert_bwd_rows(dev, cfg, wi, wo, reps, errs, launches, batch=3,
+                     plain_experts=None) -> dict:
+    """Timing rows of the expert FF's backward at the prefill capacity
+    with the counts of a random routing: the whole backward (bound: its
+    five products, 16 FLOP a filled row and (d, f) pair, at the tensor
+    cores' bf16 peak, or x, dy, wi, wo read and dx, dwi, dwo written
+    once; yardstick: ``torch.autograd.grad`` through the three-call
+    ``_library_moe`` on x with the rows past the counts zero, the same
+    function), and the SwiGLU kernel alone (bound: the filled rows' g,
+    u, dh read, every row's dgu and h written). ``plain_experts``: the
+    plain version runs that many experts a call, in turn over all of
+    them (its float32 weights and gradients would not fit at once)."""
+    g = torch.Generator(dev).manual_seed(13)
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+    x, dy, counts = _expert_bwd_inputs(g, dev, cfg, E)
+    C, rows = x.shape[1], int(counts.sum())
+    step = E if plain_experts is None else plain_experts
+    lib = _backward_only(_library_moe, (x, wi, wo), dy)
+    nbytes = 2 * (3 * E * C * d + 2 * E * d * 2 * f + 2 * E * f * d)
+
+    def plain():
+        for a in range(0, E, step):     # each slice's gradients dropped
+            mb.grouped_expert_ff_bwd_plain(
+                x[a:a + step], wi[a:a + step], wo[a:a + step],
+                dy[a:a + step], counts[a:a + step])
+
+    row = _kernel_row(
+        "expert FF bwd", f"({E}, {C}, {d}) f {f} bf16, {rows} rows",
+        lambda: mb.grouped_expert_ff_bwd(x, wi, wo, dy, counts), plain,
+        lib, nbytes, 16 * rows * d * f, BF16_OPS_PER_S, reps, launches,
+        batch=batch, calls=2 * batch)
+    if step != E:
+        print(f"expert FF bwd plain: {step} experts a call, in turn over "
+              f"all {E}")
+    del lib
+    torch.cuda.empty_cache()
+    gu = torch.bmm(x, wi)
+    dh = torch.bmm(dy, wo.transpose(1, 2))
+    sw = _kernel_row(
+        "swiglu_bwd", f"({E}, {C}, {f}) bf16, {rows} rows",
+        lambda: mb.swiglu_bwd(gu, dh, counts),
+        lambda: mb.swiglu_bwd_plain(gu, dh, counts), None,
+        2 * (3 * rows * f + 3 * E * C * f), 20 * rows * f, F32_OPS_PER_S,
+        reps, launches)
+    print("library for the expert FF backward: torch.autograd.grad through "
+          "bmm, silu times mul, bmm (bf16), its forward run beforehand")
+    return {**row, "max_abs_err": errs["swiglu_bwd"],
+            "shape": [E, C, d, f], "rows_filled": rows,
+            "library": "torch.autograd.grad of bmm, silu * mul, bmm (bf16)",
+            "swiglu_pass": {k: sw[k] for k in (
+                "ms", "device_ms", "bound_ms", "bound_by", "plain_ms")}}
+
+
+def _same_step_twice(dev, cfg, seed, opt) -> None:
+    """Two ``build_train_step`` steps from the same params, moments and
+    batch (4 x 2048 tokens): the loss and every leaf after AdamW equal bit
+    for bit."""
+    model = get_model(cfg)
+    p0 = init_params(model.blueprint(), torch.Generator(dev).manual_seed(
+        seed + 3))
+    batch = {"tokens": torch.from_numpy(synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+        seed=seed), 1)["tokens"]).to(dev)}
+    step = build_train_step(model, StepConfig(remat=True, opt=opt))
+    outs = []
+    for _ in range(2):
+        p = tree_map(lambda a: a.clone(), p0)
+        _, _, m = step(p, init_opt_state(p, opt), batch)
+        outs.append((float(m["loss"]), p))
+    same = outs[0][0] == outs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(leaves(outs[0][1]),
+                                          leaves(outs[1][1])))
+    print(f"check two identical steps {cfg.name} depth {cfg.n_layers}: "
+          f"losses {outs[0][0]!r}, {outs[1][0]!r}; every leaf after AdamW "
+          f"bit for bit equal: {same}")
+    if not same:
+        raise AssertionError("two identical train steps differ")
+
+
+def _moe_ff_card_vs_cpu(dev, cfg, seed) -> None:
+    """Two MoE layers of ``cfg`` at full width in series (h + moe_ff(h),
+    twice) in float32 with random routers, on the card (kernels) and on
+    the CPU (plain versions), CPU_B x CPU_S tokens: the output at
+    BWD_TOL and the gradients of x and of each layer's router, wi and wo
+    at TRAIN_GRAD_TOL. Random routers, the first top_k experts favoured
+    (their columns times 4, as an unbalanced router is), fill the experts
+    raggedly and make the capacity drop assignments, through
+    GroupedExpertFF, _Dispatch and _Combine, which the step with zeroed
+    routers (every token on the same top_k experts) leaves out; float32
+    keeps the routers' near-ties from routing the two devices apart, as
+    bf16's would."""
+    E, k, d, f = cfg.moe_experts, cfg.moe_top_k, cfg.d_model, cfg.moe_d_ff
+    gen = torch.Generator().manual_seed(seed + 5)
+    favour = torch.ones(E)
+    favour[:k] = 4.0
+    layers = [{"router": torch.randn(d, E, generator=gen) / math.sqrt(d)
+               * favour,
+               "wi": torch.randn(E, d, 2 * f, generator=gen) / math.sqrt(d),
+               "wo": torch.randn(E, f, d, generator=gen) / math.sqrt(f)}
+              for _ in range(2)]
+    x = torch.randn(CPU_B, CPU_S, d, generator=gen)
+    w = torch.randn(CPU_B, CPU_S, d, generator=gen)
+    kw = dict(n_experts=E, top_k=k, capacity_factor=cfg.moe_capacity)
+    out = {}
+    for where in ("cpu", dev):
+        ps = [{n: v.to(where, copy=True).requires_grad_()
+               for n, v in p.items()} for p in layers]
+        xs = x.to(where, copy=True).requires_grad_()
+        h, aux = xs, 0.0
+        for p in ps:
+            y, a = MOE.moe_ff(p, h, **kw)
+            h, aux = h + y, aux + a
+        ((h * w.to(where)).sum() + aux).backward()
+        out[str(where)] = (h.detach().cpu(), {"x": xs.grad.cpu(), **{
+            f"{i}.{n}": v.grad.cpu() for i, p in enumerate(ps)
+            for n, v in p.items()}})
+    (h_cpu, g_cpu), (h_card, g_card) = out["cpu"], out[str(dev)]
+    T = CPU_B * CPU_S
+    C = MOE.capacity(T, k, E, cfg.moe_capacity)
+    _, _, idx = MOE.route(layers[0], x.reshape(T, d), k)
+    load = torch.bincount(idx.reshape(-1), minlength=E).clamp_max(C)
+    partial = int(((load > 0) & (load < C)).sum())
+    drop = MOE.dropped_share(layers[0], x, **kw)
+    eh = _rel(h_card, h_cpu)
+    errs = {n: float((g_card[n] - g_cpu[n]).norm()
+                     / g_cpu[n].norm().clamp_min(1e-30)) for n in g_cpu}
+    print(f"check {cfg.name} moe_ff x 2 layers, full width, float32, random "
+          f"routers ({CPU_B} x {CPU_S} tokens, capacity {C}) card vs cpu: "
+          f"first layer {partial} of {E} experts partly filled, "
+          f"{int((load == 0).sum())} empty, {int((load == C).sum())} full, "
+          f"{drop:.3f} of the assignments dropped; output relative error "
+          f"{eh:.3g} (tol {BWD_TOL[torch.float32]}); gradient relative L2 "
+          "errors " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + f" (tol {TRAIN_GRAD_TOL})")
+    if partial == 0 or drop == 0:
+        raise AssertionError("moe_ff card vs cpu: the routing is not ragged")
+    if eh > BWD_TOL[torch.float32] or not all(
+            math.isfinite(e) for e in errs.values()) \
+            or max(errs.values()) > TRAIN_GRAD_TOL:
+        raise AssertionError("moe_ff: card against cpu past tolerance")
+
+
+def moe_train_phase(dev, seed: int, reps: int):
+    """olmoe-1b-7b trained at full width and depth on the card: the expert
+    FF's backward checked and timed at a layer's shape, then TRAIN_STEPS
+    steps through ``train_loop`` (counted, bf16 AdamW moments), the
+    step's breakdown; then at depth 2 the step card vs CPU, a resume bit
+    for bit and two identical steps bit for bit. Returns the backward's
+    record, the counts of the path and the steps' numbers."""
+    cfg = get_config(MOE_ARCH)
+    label = f"{cfg.name}/train"
+    g = torch.Generator(dev).manual_seed(seed)
+    wi, wo = _expert_weights(g, dev, cfg.moe_experts, cfg.d_model,
+                             cfg.moe_d_ff)
+    errs: dict = {}
+    _expert_bwd_check(g, dev, cfg, wi, wo, errs)
+    per_step = _train_launches(cfg)
+    record = _expert_bwd_rows(dev, cfg, wi, wo, min(reps, 10), errs,
+                              f"{per_step['swiglu_bwd']} a step")
+    del wi, wo
+    torch.cuda.empty_cache()
+
+    model = get_model(cfg)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                      seed=seed)
+    scfg = StepConfig(remat=True, opt=MOE_OPT)
+    params, secs = _sync_s(lambda: init_params(
+        model.blueprint(), torch.Generator(dev).manual_seed(data.seed)))
+    n = count_params(model.blueprint())
+    print(f"train {cfg.name}: {n} params, {cfg.n_layers} layers, "
+          f"{cfg.moe_experts} experts of d_ff {cfg.moe_d_ff}, top-"
+          f"{cfg.moe_top_k}, capacity factor {cfg.moe_capacity}; reduced: "
+          f"AdamW moments {str(MOE_OPT.state_dtype)[6:]} (float32 ones: "
+          f"{n * 2 * 2 / 1e9:.1f} GB of params and grads and "
+          f"{n * 8 / 1e9:.1f} GB of moments, past the card's 80 GB), "
+          f"remat; {TRAIN_B} x {TRAIN_S} tokens a step; init on the card "
+          f"{secs:.2f} s")
+    ckpt_root = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    res = train_loop(model, data, LoopConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=10**9, log_every=1), scfg,
+        str(ckpt_root / "full"), params=params, device=dev)
+    torch.cuda.synchronize()
+    counts = _counts()
+    ROUTE_COUNTS[label] = _route_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in KERNELS}
+    if counts != want:
+        raise AssertionError(f"{label} launched {counts}; expected {want}")
+    for name, by_route in ROUTE_COUNTS[label].items():
+        if by_route != {"tensor_cores": counts[name], "cuda_cores": 0}:
+            raise AssertionError(f"{label}: {name} launched {by_route} by "
+                                 "route; every launch must take the tensor "
+                                 "cores")
+    if not all(math.isfinite(x) for x in res.losses + res.grad_norms) \
+            or min(res.grad_norms) <= 0:
+        raise AssertionError(f"{label}: losses {res.losses}, grad norms "
+                             f"{res.grad_norms}")
+    tps = TRAIN_B * TRAIN_S * (TRAIN_STEPS - 1) / (sum(res.step_ms[1:]) / 1e3)
+    for i, (l, gn, ms) in enumerate(zip(res.losses, res.grad_norms,
+                                        res.step_ms)):
+        print(f"{label} step {i}: loss {l:.6f} grad_norm {gn:.6f} "
+              f"{ms:.1f} ms")
+    print(f"{label} main path: {TRAIN_STEPS} steps, {tps:.0f} tokens/s over "
+          f"steps 1-{TRAIN_STEPS - 1}, peak memory {peak:.2f} GB "
+          f"(max_memory_allocated); launches {counts}, by route "
+          f"{ROUTE_COUNTS[label]}")
+    batch = {"tokens": torch.from_numpy(synthetic_batch(
+        data, TRAIN_STEPS)["tokens"]).to(dev)}
+    step = build_train_step(model, scfg)
+    opt = init_opt_state(params, scfg.opt)
+    _breakdown(lambda: step(params, opt, batch),
+               statistics.median(res.step_ms[1:]), f"{label} step")
+    del params, opt, batch, step, model
+    torch.cuda.empty_cache()
+    summary = {"path": label, "tokens_per_step": TRAIN_B * TRAIN_S,
+               "tokens_per_s": tps, "step_ms": res.step_ms,
+               "losses": res.losses, "grad_norms": res.grad_norms,
+               "peak_gb": peak, "opt_state_dtype": "bfloat16"}
+    short = dataclasses.replace(cfg, n_layers=2)
+    _train_card_vs_cpu(dev, short, seed, opt=MOE_OPT)
+    _moe_ff_card_vs_cpu(dev, cfg, seed)
+    _train_resume(dev, cfg, seed, ckpt_root, opt=MOE_OPT)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    _same_step_twice(dev, short, seed, MOE_OPT)
+    torch.cuda.empty_cache()
+    return {"swiglu_bwd": record}, {label: counts}, summary
+
+
+def _scan_bwd_row(dev, cfg, seed, reps, errs) -> dict:
+    """The scan's backward at the chunk the path scans, (4, 256, d_inner,
+    d_state) float32, from a given state and with the last state's
+    gradient: against its plain version, two calls bit for bit, then
+    timed. The bound: dA and dBx read and d(dA) and d(dBx) written once
+    (16 bytes an element), Cm, dy, h0 and dh_last read and dCm and dh0
+    written; the design's own traffic (28 bytes an element: dA twice, h
+    written and read back) is printed beside it."""
+    g = torch.Generator(dev).manual_seed(seed)
+    shape = (TRAIN_B, cfg.ssm_chunk, cfg.ssm_d_inner, cfg.ssm_d_state)
+    B, S, d, n = shape
+    dA, dBx, Cm = _scan_inputs(g, dev, shape, torch.float32)
+    h0 = torch.randn(B, d, n, generator=g, device=dev)
+    dy = torch.randn(B, S, d, generator=g, device=dev)
+    dh = torch.randn(B, d, n, generator=g, device=dev)
+    args = (dA, dBx, Cm, h0, dy, dh)
+    got = sb.selective_scan_bwd(*args)
+    msg = _bwd_check("selective_scan_bwd", got,
+                     sb.selective_scan_bwd_plain(*args), torch.float32, errs,
+                     ("d(dA)", "d(dBx)", "dCm", "dh0"))
+    again = sb.selective_scan_bwd(*args)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"check selective_scan_bwd {shape} float32 from a state vs plain, "
+          f"largest relative error {msg} (tol {BWD_TOL[torch.float32]}); "
+          f"two calls bit for bit equal: {same}")
+    if not same:
+        raise AssertionError("selective_scan_bwd: two calls differ")
+    del got, again
+    el = dA.numel()
+    small = Cm.numel() * 2 + dy.numel() + 3 * h0.numel()
+    row = _kernel_row(
+        "selective_scan_bwd", f"{shape} float32 with h0, dh_last",
+        lambda: sb.selective_scan_bwd(*args),
+        lambda: sb.selective_scan_bwd_plain(*args), None,
+        4 * (4 * el + small), 8 * el, F32_OPS_PER_S, reps,
+        f"{_count(cfg, 'mamba') * math.ceil(TRAIN_S / S)} a step",
+        batch=3, calls=6)
+    design_ms = 4 * (7 * el + small) / HBM_BYTES_PER_S * 1e3
+    W = -(-d // sb.CTA_CHANNELS) * sb.CTA_CHANNELS // 32
+    red_bytes = 4 * (B * W * S * n + Cm.numel())
+    dc = {"device_ms": next((v for k, v in row["device_ms_by_kernel"].items()
+                             if "dc_reduce" in k), None),
+          "bound_ms": red_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+          "bytes": red_bytes}
+    print(f"selective_scan_bwd: the design's traffic (28 bytes an element) "
+          f"{design_ms:.4f} ms at 3.35 TB/s; its dC reduce ({W} warps' "
+          f"partials a (b, t, k)): device {dc['device_ms']} ms, bound "
+          f"{dc['bound_ms']:.4f} ms by bytes")
+    return {**row, "max_abs_err": errs["selective_scan_bwd"],
+            "shape": list(shape), "design_bytes_ms": design_ms,
+            "dc_reduce": dc}
+
+
+def _mamba_block_card_vs_cpu(dev, sm, seed) -> None:
+    """The smoke config's first mamba mixer in float32 on the card
+    (kernels) and on the CPU (plain versions): its output and every
+    leaf's and x's gradient through the chunked scan (S 40, chunks of 16
+    and a ragged 8), at TRAIN_GRAD_TOL, as tests/test_torch_ssm.py holds
+    it to the reference."""
+    from repro_torch.models import ssm as SSM
+    model = get_model(sm)
+    params = init_params(model.blueprint(), torch.Generator().manual_seed(
+        seed))
+    k = [kind.mixer for kind in model.period].index("mamba")
+    p = {n: v[0].float() for n, v in params["stack"][k]["mamba"].items()}
+    gen = torch.Generator().manual_seed(seed + 4)
+    x = torch.randn(2, 40, sm.d_model, generator=gen)
+    w = torch.randn(2, 40, sm.d_model, generator=gen)
+    out = {}
+    for where in ("cpu", dev):
+        ps = {n: v.detach().to(where, copy=True).requires_grad_()
+              for n, v in p.items()}
+        xs = x.detach().to(where, copy=True).requires_grad_()
+        y = SSM.mamba_scan_chunked(ps, xs, d_state=sm.ssm_d_state,
+                                   chunk=sm.ssm_chunk)
+        (y * w.to(where)).sum().backward()
+        out[str(where)] = (y.detach().cpu(), {
+            **{n: v.grad.cpu() for n, v in ps.items()}, "x": xs.grad.cpu()})
+    (y_cpu, g_cpu), (y_card, g_card) = out["cpu"], out[str(dev)]
+    ey = _rel(y_card, y_cpu)
+    errs = {n: float((g_card[n] - g_cpu[n]).norm()
+                     / g_cpu[n].norm().clamp_min(1e-30)) for n in g_cpu}
+    print(f"check {sm.name} mamba mixer (d {sm.d_model}, d_inner "
+          f"{sm.ssm_d_inner}, d_state {sm.ssm_d_state}) float32 card vs "
+          f"cpu: output relative error {ey:.3g}; gradient relative L2 "
+          f"errors " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + f" (tol {TRAIN_GRAD_TOL})")
+    if ey > BWD_TOL[torch.float32] or max(errs.values()) > TRAIN_GRAD_TOL:
+        raise AssertionError("mamba mixer: card against cpu past tolerance")
+
+
+def hybrid_train_phase(dev, seed: int, reps: int):
+    """jamba-1.5-large-398b's gradient at full width, cut to two layers:
+    the scan's backward checked and timed at a chunk's shape, the expert
+    FF's backward checked on a slice of the experts and timed over all,
+    then HYBRID_GRAD_STEPS calls of ``value_and_grad`` on 4 x 2048 tokens
+    (counted; no AdamW), and the smoke period's loss card vs CPU with its
+    mamba mixer's gradients block by block in float32. Returns the
+    records, the counts of the path and the calls' numbers."""
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, **HYBRID_TRAIN_CUT)
+    label = f"{cfg.name}/train"
+    reduced = {k: [getattr(full, k), v] for k, v in HYBRID_TRAIN_CUT.items()}
+    print(f"{HYBRID_ARCH} gradient on one card: reduced "
+          f"{json.dumps(reduced)}; every width as published")
+    errs: dict = {}
+    records = {"selective_scan_bwd": _scan_bwd_row(dev, cfg, seed,
+                                                   min(reps, 10), errs)}
+    torch.cuda.empty_cache()
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    wi, wo = _expert_weights(g, dev, cfg.moe_experts, cfg.d_model,
+                             cfg.moe_d_ff)
+    _expert_bwd_check(g, dev, cfg, wi, wo, errs,
+                      experts=JAMBA_CHECK_EXPERTS)
+    per_call = _train_launches(cfg)
+    records["swiglu_bwd"] = _expert_bwd_rows(
+        dev, cfg, wi, wo, min(reps, 3), errs,
+        f"{per_call['swiglu_bwd']} a gradient step", batch=1,
+        plain_experts=JAMBA_CHECK_EXPERTS)
+    del wi, wo
+    torch.cuda.empty_cache()
+
+    model, params = _init(dev, cfg, seed)
+    n = count_params(model.blueprint())
+    print(f"{label}: value_and_grad only, no AdamW: its moments would add "
+          f"{n * 4 / 1e9:.1f} GB beside the {n * 4 / 1e9:.1f} GB of bf16 "
+          f"params and grads; loss_chunk {cfg.loss_chunk}, remat")
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (TRAIN_B, TRAIN_S),
+        generator=torch.Generator(dev).manual_seed(seed + 2), device=dev)}
+    losses, norms, ms = [], [], []
+
+    def steps():
+        for _ in range(HYBRID_GRAD_STEPS):
+            (loss, grads), secs = _sync_s(lambda: value_and_grad(
+                model, params, batch, remat=True))
+            ms.append(secs * 1e3)
+            losses.append(float(loss))
+            norms.append(float(torch.stack([
+                torch.linalg.vector_norm(t, dtype=torch.float32)
+                for t in leaves(grads)]).norm()))
+            del grads
+
+    torch.cuda.reset_peak_memory_stats()
+    _, _, counts = _counted(steps, label, {
+        k: v * HYBRID_GRAD_STEPS for k, v in per_call.items()})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses + norms) or min(norms) <= 0:
+        raise AssertionError(f"{label}: losses {losses}, grad norms {norms}")
+    for i, (l, gn, t) in enumerate(zip(losses, norms, ms)):
+        print(f"{label} gradient step {i}: loss {l:.6f} grad_norm {gn:.6f} "
+              f"{t:.1f} ms")
+    tps = TRAIN_B * TRAIN_S * (HYBRID_GRAD_STEPS - 1) / (sum(ms[1:]) / 1e3)
+    print(f"{label}: {HYBRID_GRAD_STEPS} gradient steps, {tps:.0f} tokens/s "
+          f"over steps 1-{HYBRID_GRAD_STEPS - 1}, peak memory {peak:.2f} GB "
+          "(max_memory_allocated)")
+    _breakdown(lambda: value_and_grad(model, params, batch, remat=True),
+               statistics.median(ms[1:]), f"{label} gradient step")
+    del params, batch, model
+    torch.cuda.empty_cache()
+    summary = {"path": label, "tokens_per_step": TRAIN_B * TRAIN_S,
+               "tokens_per_s": tps, "step_ms": ms, "losses": losses,
+               "grad_norms": norms, "peak_gb": peak, "optimizer": None,
+               "reduced": reduced}
+
+    # the smoke config's period on the card against the CPU (widths cut:
+    # the CPU would need 48 GB at full width), routers zeroed
+    sm = get_config(HYBRID_ARCH, smoke=True)
+    sm = dataclasses.replace(sm, n_layers=len(sm.layer_pattern()))
+    cg = torch.Generator().manual_seed(seed)
+    _train_card_vs_cpu(dev, sm, seed, batch={"tokens": torch.randint(
+        0, sm.vocab, (2, 40), generator=cg)}, label="one smoke period",
+        adamw=False, grads=False)
+    _mamba_block_card_vs_cpu(dev, sm, seed)
+    return records, {label: counts}, summary
 
 
 # --------------------------------------------------------------------------
@@ -2719,9 +3360,9 @@ def main() -> int:
             a, b = ALIASED[name]
             alias_srcs[name] = sx.kernel_source(ck.fn, params,
                                                 {**cpu, a: cpu[b]})
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(9) as pool:
         lm_built = {m.KERNEL.kind: pool.submit(m.KERNEL.build)
-                    for m in (rn, fa, md, ss, rb, fb)}
+                    for m in (rn, fa, md, ss, rb, fb, mc, mb, sb)}
         built = sx.build_many(list(srcs.values())
                               + list(alias_srcs.values()))
         for kind, fut in lm_built.items():
@@ -2730,7 +3371,7 @@ def main() -> int:
     for name, (so, secs) in zip(srcs, built):
         print(f"build {name:13s} {so.name[:12]} nvcc {secs:.1f} s")
     print(f"build total {time.perf_counter() - t0:.1f} s")
-    for m in (*ROUTED.values(), rb):
+    for m in (*ROUTED.values(), rb, sb):
         for line in _ptxas_lines(m.KERNEL):
             print(f"ptxas {line}")
 
@@ -2915,6 +3556,20 @@ def main() -> int:
     print(json.dumps({"train": summary}))
     paths.update(train_paths)
     lm_records.update(train_records)
+    t0 = time.perf_counter()
+    moe_train, moe_train_paths, moe_summary = moe_train_phase(
+        dev, args.seed, args.reps)
+    print(f"train phase {MOE_ARCH} {time.perf_counter() - t0:.1f} s")
+    paths.update(moe_train_paths)
+    t0 = time.perf_counter()
+    hybrid_train, hybrid_train_paths, hybrid_summary = hybrid_train_phase(
+        dev, args.seed, args.reps)
+    print(f"train phase {HYBRID_ARCH} {time.perf_counter() - t0:.1f} s")
+    paths.update(hybrid_train_paths)
+    print(json.dumps({"train_moe_hybrid": [moe_summary, hybrid_summary]}))
+    lm_records["swiglu_bwd"] = {**moe_train["swiglu_bwd"],
+                                "jamba": hybrid_train["swiglu_bwd"]}
+    lm_records["selective_scan_bwd"] = hybrid_train["selective_scan_bwd"]
     t0 = time.perf_counter()
     cross_rows, encdec_paths, encdec_train = encdec_phase(dev, args.seed,
                                                           args.reps)

@@ -8,16 +8,6 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def refuse_grad(kernel: str, item: str, *tensors: torch.Tensor) -> None:
-    """Raise where autograd would record a launch of ``kernel``, which has
-    no backward yet (ROADMAP ``item``): a ctypes launch leaves its output
-    without a ``grad_fn``, and the gradient would stop there silently."""
-    if needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{kernel} has no backward kernel yet (ROADMAP {item}); call it "
-            "under torch.no_grad() or on CPU tensors")
-
-
 def plain_dtype(dtype: torch.dtype) -> torch.dtype:
     """The type the plain versions compute in: float32, or float64 for
     float64 inputs (``torch.autograd.gradcheck``'s)."""

@@ -46,11 +46,8 @@ return at once, and the slices' sums are read for filled rows only).
 
 On CPU tensors ``grouped_expert_ff`` runs ``grouped_expert_ff_plain``,
 the same function in torch. A CUDA tensor goes to the kernel or raises;
-there is no fallback.
-It has no backward yet (ROADMAP A13): where autograd would record a
-launch (grad mode on, an input that requires grad), the wrapper raises
-``NotImplementedError`` rather than return an output with no
-``grad_fn``.
+there is no fallback. The wrapper records nothing for autograd: the
+gradient goes through ``moe_dispatch_bwd.GroupedExpertFF``.
 """
 from __future__ import annotations
 
@@ -61,7 +58,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .. import refuse_grad
 from ..build import CSRC, SourceKernel
 
 #: wrapper calls that launched the CUDA kernels; the plain version does
@@ -130,6 +126,16 @@ def _check_counts(counts, E: int, device) -> None:
                          f"{counts.device}")
 
 
+def live_rows(counts: Optional[torch.Tensor], C: int, device
+              ) -> Optional[torch.Tensor]:
+    """The rows below each expert's count, an (E, C, 1) bool tensor; None
+    where ``counts`` is None (every row live)."""
+    if counts is None:
+        return None
+    return (torch.arange(C, device=device)[None, :]
+            < counts[:, None])[..., None]
+
+
 def grouped_expert_ff_plain(x: torch.Tensor, wi: torch.Tensor,
                             wo: torch.Tensor,
                             counts: Optional[torch.Tensor] = None
@@ -140,9 +146,9 @@ def grouped_expert_ff_plain(x: torch.Tensor, wi: torch.Tensor,
     E, C, d, f = _shapes(x, wi, wo)
     _check_counts(counts, E, x.device)
     xf = x.float()
-    if counts is not None:
-        xf = xf * (torch.arange(C, device=x.device)[None, :]
-                   < counts[:, None])[..., None]
+    live = live_rows(counts, C, x.device)
+    if live is not None:
+        xf = xf * live
     h = torch.bmm(xf, wi.float())
     h = F.silu(h[..., :f]) * h[..., f:]
     return torch.bmm(h, wo.float()).to(x.dtype)
@@ -162,7 +168,6 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     devices = {x.device, wi.device, wo.device}
     if devices == {torch.device("cpu")}:
         return grouped_expert_ff_plain(x, wi, wo, counts)
-    refuse_grad("grouped_expert_ff", "A13 (MoE training)", x, wi, wo)
     if len(devices) != 1 or x.device.type != "cuda":
         raise ValueError(f"grouped_expert_ff kernel: x, wi, wo on "
                          f"{devices}; all must be on one CUDA device")

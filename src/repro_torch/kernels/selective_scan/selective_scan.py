@@ -17,11 +17,10 @@ kernel's.
 
 On CPU tensors ``selective_scan`` runs ``selective_scan_plain``, the same
 recurrence as a torch loop over the steps. A CUDA tensor goes to the
-kernel or raises; there is no fallback.
-It has no backward yet (ROADMAP A14): where autograd would record a
-launch (grad mode on, an input that requires grad), the wrapper raises
-``NotImplementedError`` rather than return an output with no
-``grad_fn``.
+kernel or raises; there is no fallback. The wrapper records nothing
+for autograd: the gradient goes through
+``selective_scan_bwd.SelectiveScan``, which hands the kernel a fresh
+state.
 """
 from __future__ import annotations
 
@@ -31,7 +30,6 @@ from typing import Optional
 
 import torch
 
-from .. import refuse_grad
 from ..build import SourceKernel
 
 #: launches of the CUDA kernel; the plain version does not count
@@ -98,7 +96,6 @@ def selective_scan(dA: torch.Tensor, dBx: torch.Tensor, Cm: torch.Tensor,
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return selective_scan_plain(dA, dBx, Cm, h)
-    refuse_grad("selective_scan", "A14 (hybrid training)", *tensors)
     if len(devices) != 1 or dA.device.type != "cuda":
         raise ValueError(f"selective_scan kernel: dA, dBx, Cm, h on "
                          f"{devices}; all must be on one CUDA device")

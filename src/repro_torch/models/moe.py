@@ -1,5 +1,5 @@
 """Mixture-of-Experts FF layer: top-k router, capacity-based sort/gather
-dispatch, grouped expert FF, weighted scatter combine.
+dispatch, grouped expert FF, weighted gather combine.
 
 Port of ``repro.models.moe``, with the reference's semantics, which are
 those of its code, not of its docstring:
@@ -18,8 +18,25 @@ expert no token chose reads no weights. That changes no value: a free
 slot is the zero row, whose output is zero either way. The plain version
 keeps the hidden in float32 and the kernel's tensor-core route rounds it
 to fp16, where the reference's einsums round it to bf16, so all meet at
-bf16 tolerance. Capacity comes from shapes and nothing here reads a
-value back to the host.
+bf16 tolerance. The expert FF goes through ``GroupedExpertFF``, whose
+backward is the ``swiglu_bwd`` kernel between batched products
+(``kernels/moe_dispatch/moe_dispatch_bwd.py``); where autograd records
+nothing (serving) it is the forward kernel alone, as the dispatch and
+the combine are their forward gathers alone.
+
+Every sum of the layer runs in a fixed order, so a train step gives the
+same bits every time. The reference's combine is a scatter-add over the
+dispatch table, which torch would run as ``index_add_`` with float
+atomics on the card, and the gradient of its gather ``xp[table]`` is the
+same scatter-add. Here both are gathers over the table's inverse
+(``dispatch``: each (token, gate rank)'s slot, or none where the
+capacity dropped it) through the ``moe_combine`` kernel
+(``kernels/moe_dispatch/moe_combine.py``), which sums a token's k slots
+in gate-rank order; the combine's own gradient and the dispatch are
+row gathers through the table, each slot one token (``_Dispatch``,
+``_Combine``). The values are the reference's within float32 rounding.
+Capacity comes from shapes and nothing here reads a value back to the
+host.
 """
 from __future__ import annotations
 
@@ -27,7 +44,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from ..kernels.moe_dispatch.moe_dispatch import grouped_expert_ff
+from ..kernels.moe_dispatch.moe_combine import gather_sum
+from ..kernels.moe_dispatch.moe_dispatch_bwd import GroupedExpertFF
 from .blueprint import leaf
 
 Params = Dict[str, Any]
@@ -60,10 +78,13 @@ def route(p: Params, xt: torch.Tensor, top_k: int
 
 
 def dispatch(gate_idx: torch.Tensor, gate_vals: torch.Tensor, T: int,
-             n_experts: int, C: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (E*C,) table of token ids and weights. Assignments are sorted
-    stably by expert, so an expert's slots go to its tokens in order;
-    those past C are dropped, and free slots point at the zero row T."""
+             n_experts: int, C: int
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The (E*C,) table of token ids and weights, and its inverse: the
+    (T, k) int32 slot of each token's gate ranks, E*C where the capacity
+    dropped the assignment. Assignments are sorted stably by expert, so
+    an expert's slots go to its tokens in order; those past C are
+    dropped, and free slots point at the zero row T."""
     dev = gate_idx.device
     n = gate_idx.numel()
     flat_e = gate_idx.reshape(-1)
@@ -80,7 +101,46 @@ def dispatch(gate_idx: torch.Tensor, gate_vals: torch.Tensor, T: int,
     table[dst] = st
     wtable = torch.zeros(n_experts * C + 1, device=dev)
     wtable[dst] = sw
-    return table[:-1], wtable[:-1]
+    slots = torch.empty(n, dtype=torch.int32, device=dev)
+    slots[order] = dst.int()
+    return table[:-1], wtable[:-1], slots.view(gate_idx.shape)
+
+
+def _take(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """rows (T, d) at the table's slots, the zero row where it holds T."""
+    return torch.cat([rows, rows.new_zeros(1, rows.shape[1])])[table]
+
+
+class _Dispatch(torch.autograd.Function):
+    """xt (T, d) -> its rows at the table's slots (E*C, d), the zero row
+    where the table holds T; the gradient sums each token's slots in
+    gate-rank order (``gather_sum``), with no atomics."""
+
+    @staticmethod
+    def forward(ctx, xt, table, slots):
+        ctx.save_for_backward(slots)
+        return _take(xt, table)
+
+    @staticmethod
+    def backward(ctx, dxg):
+        slots, = ctx.saved_tensors
+        return gather_sum(dxg.contiguous(), slots), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """yw (E*C, d), the slots' outputs scaled by their gate weights ->
+    each token's sum of its slots in gate-rank order (T, d); the gradient
+    is the row of the slot's token (a free slot's is zero)."""
+
+    @staticmethod
+    def forward(ctx, yw, table, slots):
+        ctx.save_for_backward(table)
+        return gather_sum(yw, slots)
+
+    @staticmethod
+    def backward(ctx, dout):
+        table, = ctx.saved_tensors
+        return _take(dout, table), None, None
 
 
 def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -99,15 +159,14 @@ def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     aux = n_experts * torch.sum(probs.mean(0) * ce)
 
     C = capacity(T, top_k, n_experts, capacity_factor)
-    table, wtable = dispatch(gate_idx, gate_vals, T, n_experts, C)
+    table, wtable, slots = dispatch(gate_idx, gate_vals, T, n_experts, C)
     # filled slots of each expert: min(assigned, C), on the device
     counts = (table.view(n_experts, C) != T).sum(1, dtype=torch.int32)
-    xp = torch.cat([xt, xt.new_zeros(1, d)])
-    y = grouped_expert_ff(xp[table].reshape(n_experts, C, d), p["wi"],
-                          p["wo"], counts)
-    yflat = y.reshape(n_experts * C, d).float() * wtable[:, None]
-    out = torch.zeros(T + 1, d, device=x.device).index_add_(0, table, yflat)
-    return out[:T].reshape(B, S, d).to(x.dtype), aux
+    xg = _Dispatch.apply(xt, table, slots).reshape(n_experts, C, d)
+    y = GroupedExpertFF.apply(xg, p["wi"], p["wo"], counts)
+    yw = y.reshape(n_experts * C, d).float() * wtable[:, None]
+    out = _Combine.apply(yw, table, slots)
+    return out.reshape(B, S, d).to(x.dtype), aux
 
 
 def dropped_share(p: Params, x: torch.Tensor, *, n_experts: int,

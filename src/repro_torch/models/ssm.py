@@ -4,14 +4,25 @@ Port of ``repro.models.ssm``, with the reference's dtypes at each step:
 bf16 projections and causal conv, float32 ``dt``, ``A``, state and
 output math.
 
-Prefill: depthwise causal conv1d, then the selective scan chunk by
-chunk. Each chunk's dA and dBx (B, chunk, d_inner, d_state) are made
-when the chunk is scanned, and the (B, d_inner, d_state) state is handed
-from one chunk to the next: the whole (B, S, d_inner, d_state) tensor
-never exists. The scan goes through the selective_scan kernel on CUDA
-tensors and its plain version on CPU tensors. Unlike the reference
+Prefill and training: depthwise causal conv1d, then the selective scan
+chunk by chunk. Each chunk's dA and dBx (B, chunk, d_inner, d_state) are
+made when the chunk is scanned, and the (B, d_inner, d_state) state is
+handed from one chunk to the next: the whole (B, S, d_inner, d_state)
+tensor never exists. The scan goes through the selective_scan kernel on
+CUDA tensors and its plain version on CPU tensors. Unlike the reference
 (ROADMAP C10), a last chunk shorter than ``chunk`` is scanned as it is,
 so the result is right at any S.
+
+Where autograd records (grad mode on and an input that requires grad)
+the chunks hand the state on through ``SelectiveScan``
+(``kernels/selective_scan/selective_scan_bwd.py``), whose backward is a
+hand-written reverse scan, and each chunk's ``_ssm_params -> dA, dBx ->
+scan`` is a non-reentrant ``torch.utils.checkpoint`` region: autograd
+keeps the chunk's input and its first state, and the backward makes the
+chunk's dA and dBx again, one chunk at a time. At jamba's width each is
+(4, 256, 16384, 16) float32, 1.07 GB; kept for every chunk they would
+be 17 GB a mamba layer over 8 chunks. Without grad the state is one
+tensor that the kernel overwrites in place, chunk after chunk.
 
 Decode: the O(1) recurrent update of one token in plain torch, as in the
 reference; it runs no kernel. The state is advanced in place.
@@ -22,8 +33,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels import needs_grad
 from ..kernels.selective_scan.selective_scan import selective_scan
+from ..kernels.selective_scan.selective_scan_bwd import SelectiveScan
 from .blueprint import leaf
 
 Params = Dict[str, Any]
@@ -88,20 +102,37 @@ def _out(p: Params, y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
     return y.to(dtype) @ p["out_proj"]
 
 
+def _scan_inputs(p: Params, xc: torch.Tensor, d_state: int):
+    """A chunk's dA = exp(dt A), dBx = dt x B (B, c, C, N) and Cm (B, c,
+    N), float32."""
+    dt, A, Bm, Cm = _ssm_params(p, xc, d_state)
+    dA = (dt[..., None] * A).exp_()
+    dBx = (dt * xc.float())[..., None] * Bm[:, :, None, :]
+    return dA, dBx, Cm.contiguous()
+
+
 def mamba_scan_chunked(p: Params, x: torch.Tensor, *, d_state: int = 16,
                        chunk: int = 256) -> torch.Tensor:
-    """Prefill's selective scan. x: (B, S, d) -> (B, S, d)."""
+    """Prefill's and training's selective scan. x: (B, S, d) -> (B, S,
+    d)."""
     B, S, _ = x.shape
     xs, z, _ = _in(p, x)
     C = xs.shape[-1]
     h = torch.zeros(B, C, d_state, dtype=torch.float32, device=x.device)
+    if needs_grad(xs, *p.values()):
+        def chunk_fn(xc, h):
+            return SelectiveScan.apply(*_scan_inputs(p, xc, d_state), h)
+
+        ys = []
+        for c0 in range(0, S, chunk):
+            yc, h = checkpoint(chunk_fn, xs[:, c0:c0 + chunk], h,
+                               use_reentrant=False)
+            ys.append(yc)
+        return _out(p, torch.cat(ys, dim=1), xs, z, x.dtype)
     y = torch.empty(B, S, C, dtype=torch.float32, device=x.device)
     for c0 in range(0, S, chunk):
-        xc = xs[:, c0:c0 + chunk]
-        dt, A, Bm, Cm = _ssm_params(p, xc, d_state)
-        dA = (dt[..., None] * A).exp_()                # (B, c, C, N)
-        dBx = (dt * xc.float())[..., None] * Bm[:, :, None, :]
-        y[:, c0:c0 + chunk] = selective_scan(dA, dBx, Cm.contiguous(), h)
+        dA, dBx, Cm = _scan_inputs(p, xs[:, c0:c0 + chunk], d_state)
+        y[:, c0:c0 + chunk] = selective_scan(dA, dBx, Cm, h)
         del dA, dBx
     return _out(p, y, xs, z, x.dtype)
 

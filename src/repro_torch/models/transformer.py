@@ -40,9 +40,11 @@ activations are recomputed in the backward: the reference's
 ``jax.checkpoint`` with ``nothing_saveable``; the encoder's output and
 the M-RoPE positions enter each region as arguments. The stacked params
 are unbound once a call (one view a period), so the backward stacks each
-leaf's period gradients once. On the card, training an MoE or mamba
-layer raises ``NotImplementedError``, since their kernels have no
-backward yet (ROADMAP A13, A14).
+leaf's period gradients once. On the card every layer kind trains
+through hand-written backward kernels: rmsnorm's and attention's, the
+expert FF's SwiGLU pass (``models/moe.py``, with the fixed-order
+combine) and the selective scan's reverse scan (``models/ssm.py``, a
+checkpoint region a chunk inside the period's).
 
 As the reference's, an encoder-decoder's ``loss_fn`` writes the frames
 over the decoder's token embeddings as well as encoding them, so at

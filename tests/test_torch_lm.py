@@ -196,28 +196,30 @@ def test_loss_fn_trains_the_encoder_decoder():
 
 @pytest.mark.parametrize("grad", [True, False])
 def test_kernels_without_backward_refuse_grad(grad):
-    """grouped_expert_ff and selective_scan have no backward kernel yet:
-    a call that autograd would record on a tensor that is not on the CPU
-    raises NotImplementedError naming the ROADMAP item, before anything
-    is launched (meta tensors stand in for CUDA ones here); without grad
-    the call goes on to the device checks, which refuse the meta
-    device."""
+    """The expert FF and the selective scan on a tensor that is neither on
+    the CPU nor on a card (meta tensors stand in for CUDA ones here): a
+    call that autograd records goes through the layers' Functions
+    (``GroupedExpertFF``, ``SelectiveScan``) to the forward kernels'
+    device checks, which refuse the meta device before anything is
+    launched; without grad the wrappers refuse it the same way. Nothing
+    falls back to a plain version."""
     from repro_torch.kernels.moe_dispatch import moe_dispatch as MD
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_bwd as MB
     from repro_torch.kernels.selective_scan import selective_scan as SS
+    from repro_torch.kernels.selective_scan import selective_scan_bwd as SB
     meta = dict(device="meta", requires_grad=grad)
     x, wi = torch.ones(2, 4, 64, **meta), torch.ones(2, 64, 64, **meta)
     wo = torch.ones(2, 32, 64, **meta)
     dA = torch.ones(1, 8, 16, 8, **meta)
     Cm = torch.ones(1, 8, 8, device="meta")
-    want = (NotImplementedError, "ROADMAP A1[34]") if grad else \
-        (ValueError, "CUDA device")
-    with pytest.raises(want[0], match=want[1]):
-        MD.grouped_expert_ff(x, wi, wo)
-    with pytest.raises(want[0], match=want[1]):
-        SS.selective_scan(dA, dA.detach(), Cm)
-    if grad:
-        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-            MD.grouped_expert_ff(x, wi, wo)
+    h0 = torch.zeros(1, 16, 8, device="meta")
+    ff = (lambda: MB.GroupedExpertFF.apply(x, wi, wo, None)) if grad else \
+        (lambda: MD.grouped_expert_ff(x, wi, wo))
+    scan = (lambda: SB.SelectiveScan.apply(dA, dA.detach(), Cm, h0)) \
+        if grad else (lambda: SS.selective_scan(dA, dA.detach(), Cm))
+    for call in (ff, scan):
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
 
 
 # --------------------------------------------------------------------------

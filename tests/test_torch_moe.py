@@ -130,7 +130,7 @@ def test_dispatch_fills_each_expert_from_slot_zero(T, E, k, cf):
         [rng.choice(E, k, replace=False) for _ in range(T)]))
     gate_vals = torch.from_numpy(rng.uniform(0.1, 1.0, (T, k))).float()
     C = PM.capacity(T, k, E, cf)
-    table, wtable = PM.dispatch(gate_idx, gate_vals, T, E, C)
+    table, wtable, _ = PM.dispatch(gate_idx, gate_vals, T, E, C)
     slots = table.view(E, C)
     assigned = np.bincount(gate_idx.numpy().ravel(), minlength=E)
     counts = (slots != T).sum(1, dtype=torch.int32)
@@ -157,9 +157,9 @@ def test_moe_ff_with_counts_equals_moe_ff_without(T, C, monkeypatch):
     assert PM.capacity(T, k, E, 1.25) == C
     assert PM.dropped_share(pt, xt, n_experts=E, top_k=k) > 0
     got, _ = PM.moe_ff(pt, xt, n_experts=E, top_k=k)
-    monkeypatch.setattr(PM, "grouped_expert_ff",
-                        lambda x, wi, wo, counts, **kw:
-                        MD.grouped_expert_ff(x, wi, wo))
+    ff = MD.grouped_expert_ff
+    monkeypatch.setattr(MD, "grouped_expert_ff",
+                        lambda x, wi, wo, counts, **kw: ff(x, wi, wo))
     want, _ = PM.moe_ff(pt, xt, n_experts=E, top_k=k)
     assert torch.equal(got, want)
 
@@ -337,7 +337,7 @@ def test_moe_layers_go_through_the_expert_ff_wrapper(monkeypatch):
         shapes.append(tuple(x.shape))
         return wrapped(x, wi, wo, counts, **kw)
 
-    monkeypatch.setattr(PM, "grouped_expert_ff", spy)
+    monkeypatch.setattr(MD, "grouped_expert_ff", spy)
     model.prefill(params, torch.zeros(B, S, dtype=torch.long))
     E, d = cfg.moe_experts, cfg.d_model
     assert shapes == [(E, 40, d)] * cfg.n_layers

@@ -10,6 +10,9 @@ of ``tests/test_kernels.py``: 1e-5 in float32 and 3e-2 in bfloat16; the
 shapes added for the tensor-core route and for counts, drawn as the path
 draws them, are held at chip_smoke.py's rtol 1e-2, atol 2e-3 in bf16.
 The
+backward (the SwiGLU kernel between batched products) and the combine's
+gather at chip_smoke.py's BWD_TOL: bf16 1e-2, float32 1e-4 of each
+output's largest value. The
 smoke LM on the card against the same LM on the CPU: atol = rtol = 0.1
 on the logits, as ``tests/test_torch_moe.py`` holds it to the JAX
 package, with the router zeroed so that bf16 near-ties cannot route a
@@ -21,12 +24,17 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention as FA
+from repro_torch.kernels.moe_dispatch import moe_combine as MC
 from repro_torch.kernels.moe_dispatch import moe_dispatch as MD
+from repro_torch.kernels.moe_dispatch import moe_dispatch_bwd as MB
 from repro_torch.kernels.rmsnorm import rmsnorm as RN
 from repro_torch.models import get_model
 from repro_torch.models.blueprint import init_params, tree_map
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+#: the backward against its plain version: the largest |got - want| over
+#: the largest |want| of each output (chip_smoke.py's BWD_TOL)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 #: chip_smoke.py's bf16 tolerance for moe_dispatch: rtol, atol
 CARD_BF16_TOL = (1e-2, 2e-3)
 
@@ -205,3 +213,90 @@ def test_smoke_olmoe_on_the_card_goes_through_the_kernels(cuda):
             MD.LAUNCHES - counts[2]) == (2 * cfg.n_layers + 1,
                                          cfg.n_layers, cfg.n_layers)
     torch.testing.assert_close(got.cpu(), want, rtol=0.1, atol=0.1)
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _counts(dev, E, C, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    return torch.randint(0, C + 1, (E,), generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8, 64, 32), (8, 40, 128, 1024),
+                                   (2, 17, 100, 300), (3, 5, 64, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_swiglu_bwd_kernel_matches_plain(cuda, shape, dtype, with_counts):
+    """Both routes (16-byte vectors; f = 7 one element a thread), rows
+    past counts zero."""
+    E, C, d, f = shape
+    g = torch.Generator(cuda).manual_seed(1)
+    gu = torch.randn(E, C, 2 * f, generator=g, device=cuda).to(dtype)
+    dh = torch.randn(E, C, f, generator=g, device=cuda).to(dtype)
+    counts = _counts(cuda, E, C, 2) if with_counts else None
+    before = MB.LAUNCHES
+    got = MB.swiglu_bwd(gu, dh, counts)
+    torch.cuda.synchronize()
+    assert MB.LAUNCHES == before + 1
+    for a, b in zip(got, MB.swiglu_bwd_plain(gu, dh, counts)):
+        assert _rel(a, b) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 64, 256, 128), (8, 130, 128, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_expert_ff_bwd_matches_plain(cuda, shape, dtype):
+    """dx, dwi and dwo with the counts of a random routing, against the
+    plain closed form; two calls give the same bits."""
+    E, C, d, f = shape
+    x, wi, wo = _inputs(cuda, shape, dtype)
+    dy = (torch.randn(E, C, d, device=cuda) * 0.1).to(dtype)
+    counts = _counts(cuda, E, C, 3)
+    got = MB.grouped_expert_ff_bwd(x, wi, wo, dy, counts)
+    want = MB.grouped_expert_ff_bwd_plain(x, wi, wo, dy, counts)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and _rel(a, b) <= BWD_TOL[dtype]
+    again = MB.grouped_expert_ff_bwd(x, wi, wo, dy, counts)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_function_launches_both_kernels(cuda):
+    """Under autograd the Function runs the forward kernel once and, in
+    the backward, the SwiGLU kernel once."""
+    x, wi, wo = (t.requires_grad_() for t in
+                 _inputs(cuda, (4, 64, 128, 64), torch.bfloat16))
+    counts = _counts(cuda, 4, 64, 4)
+    n = MD.LAUNCHES, MB.LAUNCHES
+    MB.GroupedExpertFF.apply(x, wi, wo, counts).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (MD.LAUNCHES, MB.LAUNCHES) == (n[0] + 1, n[1] + 1)
+    for t in (x, wi, wo):
+        assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048, 100, 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_sum_kernel_matches_plain(cuda, d, dtype):
+    """The combine's gather: 8 gate ranks a token, some dropped (slot M);
+    float32 bit for bit (the same order), bf16 one rounding."""
+    g = torch.Generator(cuda).manual_seed(5)
+    M, T, k = 300, 97, 8
+    src = torch.randn(M, d, generator=g, device=cuda).to(dtype)
+    slots = torch.randint(0, M + 20, (T, k), generator=g, device=cuda,
+                          dtype=torch.int32).clamp_max(M)
+    before = MC.LAUNCHES
+    got = MC.gather_sum(src, slots)
+    torch.cuda.synchronize()
+    assert MC.LAUNCHES == before + 1
+    want = MC.gather_sum_plain(src, slots)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        assert _rel(got, want) <= BWD_TOL[dtype]

@@ -13,7 +13,9 @@ rtol 1e-2 (one bf16 ulp) and atol 1e-5. The smoke LM (one period, 8
 layers) on the card against the same LM on the CPU: atol 0.2, rtol 0.1
 on the logits, as ``tests/test_torch_ssm.py`` holds it to the JAX
 package, with the routers zeroed so that bf16 near-ties cannot route a
-token apart on the two devices.
+token apart on the two devices. The backward against its plain version
+at chip_smoke.py's float32 BWD_TOL: 1e-4 of each output's largest value
+(dCm summed over the channels in another order).
 """
 import dataclasses
 import math
@@ -27,6 +29,7 @@ from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.moe_dispatch import moe_dispatch as MD
 from repro_torch.kernels.rmsnorm import rmsnorm as RN
 from repro_torch.kernels.selective_scan import selective_scan as SS
+from repro_torch.kernels.selective_scan import selective_scan_bwd as SB
 from repro_torch.models import get_model
 from repro_torch.models.blueprint import init_params, tree_map
 
@@ -136,3 +139,58 @@ def test_smoke_jamba_on_the_card_goes_through_the_kernels(cuda):
         sum(k.ff == "moe" for k in kinds),
         n_mamba * math.ceil(S / cfg.ssm_chunk)]
     torch.testing.assert_close(got.cpu(), want, rtol=0.1, atol=0.2)
+
+
+BWD_TOL = 1e-4
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 40, 16, 8), (2, 64, 300, 16), (1, 37, 200, 4), (4, 256, 1024, 16)])
+@pytest.mark.parametrize("with_states", [False, True])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, shape, with_states):
+    """Every output against the reverse torch loop; two calls give the
+    same bits."""
+    B, S, d, n = shape
+    dA, dBx, Cm = _inputs(cuda, shape, torch.float32)
+    g = torch.Generator(cuda).manual_seed(9)
+    dy = torch.randn(B, S, d, generator=g, device=cuda)
+    h0, dh = ((torch.randn(B, d, n, generator=g, device=cuda),
+               torch.randn(B, d, n, generator=g, device=cuda))
+              if with_states else (None, None))
+    before = SB.LAUNCHES
+    got = SB.selective_scan_bwd(dA, dBx, Cm, h0, dy, dh)
+    torch.cuda.synchronize()
+    assert SB.LAUNCHES == before + 1
+    want = SB.selective_scan_bwd_plain(dA, dBx, Cm, h0, dy, dh)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= BWD_TOL
+    again = SB.selective_scan_bwd(dA, dBx, Cm, h0, dy, dh)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_function_launches_both_kernels(cuda):
+    """Under autograd the Function scans a copy of h0 forward (the caller's
+    state is left as it was) and runs the backward kernel once; it refuses
+    bf16, which its backward does not take."""
+    dA, dBx, Cm = (t.requires_grad_() for t in
+                   _inputs(cuda, (2, 32, 64, 16), torch.float32))
+    h0 = torch.randn(2, 64, 16, device=cuda, requires_grad=True)
+    keep = h0.detach().clone()
+    n = SS.LAUNCHES, SB.LAUNCHES
+    y, h = SB.SelectiveScan.apply(dA, dBx, Cm, h0)
+    (y.sum() + h.sum()).backward()
+    torch.cuda.synchronize()
+    assert (SS.LAUNCHES, SB.LAUNCHES) == (n[0] + 1, n[1] + 1)
+    assert torch.equal(h0.detach(), keep)
+    for t in (dA, dBx, Cm, h0):
+        assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+    with pytest.raises(TypeError, match="float32"):
+        SB.SelectiveScan.apply(*(t.detach().bfloat16() for t in
+                                 (dA, dBx, Cm)), h0)
