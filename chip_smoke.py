@@ -88,26 +88,34 @@ Thirteen paths of the port, each at full width:
   * training olmoe-1b-7b at full width and depth (6.92 B params, AdamW
     with bf16 moments, the reference's own option: float32 ones would
     take the state past the card's 80 GB; remat): first the expert FF's
-    backward (five batched products around the ``swiglu_bwd`` kernel) and
-    the kernel alone against their plain versions at a layer's shape
-    (64, 1280, 2048), f 1024, with a random routing's counts, and timed
-    beside ``torch.autograd.grad`` through the three library calls; then
+    backward on the tensor cores (``moe_dispatch_bwd``: three wgmma
+    kernels from the forward's saved pre-activation, itself held against
+    the plain up product) against its plain version at a layer's shape
+    (64, 1280, 2048), f 1024, with a random routing's counts, two calls
+    and the Function's gradient bit for bit, and timed beside
+    ``torch.autograd.grad`` through the three library calls, and the
+    CUDA-core route's ``swiglu_bwd`` kernel alone (float32 and bf16)
+    against its plain version and timed; then
     ``train_loop`` takes 4 steps of 4 x 2048 tokens, whose expert FFs go
-    through ``moe_dispatch`` forward (twice under remat), ``swiglu_bwd``
-    and the gather combine ``moe_combine`` (the forward, its recompute
-    and the dispatch's gradient); tokens/s, step ms, peak memory, idle
+    through ``moe_dispatch`` forward (twice under remat, keeping the
+    pre-activation), ``moe_dispatch_bwd`` and the gather combine
+    ``moe_combine`` (the forward, its recompute and the dispatch's
+    gradient); tokens/s, step ms, peak memory, idle
     share and top kernels; then at depth 2 a step on the card against the
     CPU (routers zeroed), two MoE layers in float32 with random routers
     card against CPU (ragged counts and capacity drops, the gradients of
-    x and of every router, wi and wo), a resume bit for bit and two
+    x and of every router, wi and wo; the backward on the CUDA cores,
+    ``swiglu_bwd`` counted once a layer), a resume bit for bit and two
     identical steps bit for bit;
   * jamba-1.5-large-398b's gradient at full width cut to two layers
     (``HYBRID_TRAIN_CUT``: a mamba layer with the dense FF, an attention
     layer with the MoE FF, 11.9 B params): first the scan's backward
-    (``selective_scan_bwd`` and its dC reduce) against its plain version
-    at a chunk (4, 256, 16384, 16) float32, timed beside its byte bound,
-    and the expert FF's backward checked on 2 of its 16 experts and timed
-    over all (its plain version 2 experts at a time over all); then 3 calls of ``value_and_grad`` (remat, ``loss_chunk``
+    (``selective_scan_bwd``, from the forward's saved states, and its dC
+    reduce) against its plain version at a chunk (4, 256, 16384, 16)
+    float32, two calls and the Function's gradient bit for bit, timed
+    beside its byte bound, and the expert FF's backward checked on 2 of
+    its 16 experts and timed over all (its plain version 2 experts at a
+    time over all); then 3 calls of ``value_and_grad`` (remat, ``loss_chunk``
     512; no AdamW: its moments would add 47.6 GB beside the 47.6 GB of
     params and grads) on 4 x 2048 tokens, each mamba chunk a checkpoint
     region scanned three times and reverse-scanned once; then the smoke
@@ -177,10 +185,11 @@ path's own count (``compiler``; ``<model>/prefill`` and
 (rmsnorm's record also names xlstm's check, flash_attention's and
 moe_dispatch's their past-fp16 checks, ``past_fp16``);
 the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``,
-``swiglu_bwd``, ``selective_scan_bwd``) are counted apart from the
-forward ones, and the combine's gather (``moe_combine``, one a MoE layer
-at prefill and decode) on its own. flash_attention, moe_dispatch and
-flash_attention_bwd also count by route (``launches_by_route``:
+``moe_dispatch_bwd``, ``selective_scan_bwd``) are counted apart from
+the forward ones, and the combine's gather (``moe_combine``, one a MoE
+layer at prefill and decode) on its own. flash_attention, moe_dispatch,
+flash_attention_bwd and moe_dispatch_bwd also count by route
+(``launches_by_route``:
 tensor_cores or cuda_cores, on each path); every launch of theirs on the
 four prefill paths, the train paths and seamless's paths must take the
 tensor cores. flash_attention's and flash_attention_bwd's records hold
@@ -856,7 +865,8 @@ ROUTED_APART_TOL = (0.1, 0.55)       # rtol, atol of tests/test_archs.py
 DECODE_T = 64                        # teacher-forced decode-vs-prefill
 KERNELS = {"simt_exec": sx, "rmsnorm": rn, "flash_attention": fa,
            "moe_dispatch": md, "selective_scan": ss, "rmsnorm_bwd": rb,
-           "flash_attention_bwd": fb, "moe_combine": mc, "swiglu_bwd": mb,
+           "flash_attention_bwd": fb, "moe_combine": mc,
+           "moe_dispatch_bwd": mb,
            "selective_scan_bwd": sb}
 LM_SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
@@ -886,7 +896,7 @@ LM_SOURCES = {
         "src/repro_torch/kernels/moe_dispatch/csrc/moe_combine.cu",
         "none: the scatter-add combine of src/repro/models/moe.py:91 "
         "(and the gradient of its gather, :81)"),
-    "swiglu_bwd": (
+    "moe_dispatch_bwd": (
         "src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch_bwd.cu",
         "none: jax.grad of src/repro/models/moe.py:83-86 (the expert "
         "FF's einsums)"),
@@ -906,7 +916,7 @@ def _count(cfg, mixer=None, ff=None) -> int:
 #: launches of the two-route kernels by route, on each counted path
 ROUTE_COUNTS: dict = {}
 ROUTED = {"flash_attention": fa, "moe_dispatch": md,
-          "flash_attention_bwd": fb}
+          "flash_attention_bwd": fb, "moe_dispatch_bwd": mb}
 
 
 def _zero_counts() -> None:
@@ -937,6 +947,8 @@ PTXAS_NAMES = ((r"fa_tc_kernelILi(\d+)E", "fa_tc_kernel<{}>"),
                (r"fa_bwd_dq_tcILi(\d+)E", "fa_bwd_dq_tc<{}>"),
                (r"rmsnorm_bwd_vecI13__nv_bfloat16Li1E",
                 "rmsnorm_bwd_vec<bf16, 1>"),
+               (r"moe_dh_tcE", "moe_dh_tc"), (r"moe_dx_tcE", "moe_dx_tc"),
+               (r"moe_dw_tcE", "moe_dw_tc"),
                (r"scan_bwd_kernelILi16E", "scan_bwd_kernel<16>"))
 
 
@@ -1313,6 +1325,16 @@ def _moe_rows(dev, cfg, wi, wo, reps, errs, launches, prefill_batch=10,
                 lambda: md.grouped_expert_ff(x, wi, wo), reps, batch)
             print(f"time moe_dispatch ({E}, {C}, {d}) every expert read "
                   f"(no counts): {rows[name]['ms_every_slot']:.4f} ms")
+        else:   # as training runs it: the pre-activation kept too
+            gu = torch.empty(E, C, 2 * f, dtype=torch.bfloat16, device=dev)
+            rows[name]["ms_with_gu"] = _median_ms(
+                lambda: md.grouped_expert_ff(x, wi, wo, None, gu), reps,
+                batch)
+            print(f"time moe_dispatch ({E}, {C}, {d}) keeping gu (the "
+                  f"backward's pre-activation, {gu.numel() * 2} B): "
+                  f"{rows[name]['ms_with_gu']:.4f} ms against "
+                  f"{rows[name]['ms']:.4f} ms without")
+            del gu
         del x
     print("library for moe_dispatch: three calls in bf16 (bmm, silu times "
           "mul, bmm), every slot" + ("" if step == E else
@@ -1526,7 +1548,7 @@ def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
             "selective_scan": _count(cfg, "mamba") * math.ceil(
                 PREFILL_S / cfg.ssm_chunk),
             "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
-            "moe_combine": moe_layers, "swiglu_bwd": 0,
+            "moe_combine": moe_layers, "moe_dispatch_bwd": 0,
             "selective_scan_bwd": 0}
     if per_prefill != want:
         raise AssertionError(f"{arch} prefill launched {per_prefill}; "
@@ -1555,7 +1577,8 @@ def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
     if (bad or per_serve["rmsnorm"] < 1 or per_serve["simt_exec"]
             or per_serve["flash_attention"] or per_serve["selective_scan"]
             or per_serve["rmsnorm_bwd"] or per_serve["flash_attention_bwd"]
-            or per_serve["swiglu_bwd"] or per_serve["selective_scan_bwd"]
+            or per_serve["moe_dispatch_bwd"]
+            or per_serve["selective_scan_bwd"]
             or (per_serve["moe_dispatch"] < 1) != (moe_layers == 0)
             or per_serve["moe_combine"] != per_serve["moe_dispatch"]):
         raise AssertionError(f"serving: failed requests {bad}, launches "
@@ -1746,7 +1769,15 @@ def scan_kernel(dev, cfg, seed, reps):
         lambda: ss.selective_scan_plain(dA, dBx, Cm, h), None, nbytes,
         4 * B * S * d * n, F32_OPS_PER_S, reps,
         f"{_count(cfg, 'mamba')} x {math.ceil(PREFILL_S / S)} a prefill")
-    return {**row, "max_abs_err": err, "shape": list(shape)}
+    # as training runs it: the state every STATE_EVERY steps kept too
+    states = torch.empty(ss.states_shape(*shape), device=dev)
+    with_states = _median_ms(
+        lambda: ss.selective_scan(dA, dBx, Cm, h, states), reps)
+    print(f"time selective_scan {shape} keeping the states "
+          f"({states.numel() * 4} B): {with_states:.4f} ms against "
+          f"{row['ms']:.4f} ms without")
+    return {**row, "max_abs_err": err, "shape": list(shape),
+            "ms_with_states": with_states}
 
 
 def _expert_weights(g, dev, E, d, f):
@@ -2497,7 +2528,7 @@ def _train_launches(cfg) -> dict:
     norms = 2 * L - _count(cfg, ff="none")
     return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
             "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
-            "moe_dispatch": 2 * n_moe, "swiglu_bwd": n_moe,
+            "moe_dispatch": 2 * n_moe, "moe_dispatch_bwd": n_moe,
             "moe_combine": 3 * n_moe, "selective_scan": 3 * chunks,
             "selective_scan_bwd": chunks}
 
@@ -2518,52 +2549,97 @@ def _expert_bwd_inputs(g, dev, cfg, E):
 
 
 def _expert_bwd_check(g, dev, cfg, wi, wo, errs, experts=None) -> None:
-    """The expert FF's backward (five products around the SwiGLU kernel)
-    and the SwiGLU kernel alone against their plain versions at the
-    path's prefill capacity, bf16, with the counts of a random routing;
-    two calls bit for bit the same. ``experts``: on the first that many
-    experts only (full d and f)."""
+    """The expert FF's backward on the tensor cores against its plain
+    version at the path's prefill capacity, bf16, with the counts of a
+    random routing, from the forward's saved pre-activation gu (itself
+    held against the float32 up product, one bf16 rounding of its largest
+    value, its rows past the count left unwritten); two calls bit for bit
+    the same, and the
+    Function's gradient (its forward keeping gu) the direct call's bit
+    for bit. Then the CUDA-core route's ``swiglu_bwd`` kernel alone, in
+    float32 and bf16, against its plain version, each call counted on
+    that route. ``experts``: on the first that many experts only (full d
+    and f)."""
     E = cfg.moe_experts if experts is None else experts
     wi, wo = wi[:E], wo[:E]
     x, dy, counts = _expert_bwd_inputs(g, dev, cfg, E)
-    got = mb.grouped_expert_ff_bwd(x, wi, wo, dy, counts)
-    msg = _bwd_check("swiglu_bwd", got, mb.grouped_expert_ff_bwd_plain(
+    C, f = x.shape[1], cfg.moe_d_ff
+    gu = torch.full((E, C, 2 * f), float("nan"), dtype=torch.bfloat16,
+                    device=dev)
+    md.grouped_expert_ff(x, wi, wo, counts, gu)
+    live = md.live_rows(counts, C, dev)[..., 0]
+    up = torch.bmm(x.float(), wi.float())   # float32, x's dead rows zero
+    gu_err = _rel(gu[live], up[live])
+    untouched = bool(torch.isnan(gu[~live].float()).all())
+    del up
+    if gu_err > 2.0**-8 or not untouched:
+        raise AssertionError(f"grouped_expert_ff gu: largest error over "
+                             f"largest value {gu_err} (tol 2^-8); rows past "
+                             f"the count untouched: {untouched}")
+    got = mb.grouped_expert_ff_bwd(x, wi, wo, dy, counts, gu)
+    msg = _bwd_check("moe_dispatch_bwd", got, mb.grouped_expert_ff_bwd_plain(
         x, wi, wo, dy, counts), torch.bfloat16, errs, ("dx", "dwi", "dwo"))
-    again = mb.grouped_expert_ff_bwd(x, wi, wo, dy, counts)
+    again = mb.grouped_expert_ff_bwd(x, wi, wo, dy, counts, gu)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
-    del got, again
-    gu = torch.bmm(x, wi)
+    del again, gu
+    leaves_ = [t.detach().clone().requires_grad_() for t in (x, wi, wo)]
+    mb.GroupedExpertFF.apply(*leaves_, counts, True).backward(dy)
+    fn_same = all(torch.equal(t.grad, a) for t, a in zip(leaves_, got))
+    print(f"check expert FF backward ({E}, {C}, {cfg.d_model}) f {f} bf16 "
+          f"on the tensor cores, {int(counts.sum())} rows filled, from the "
+          f"forward's gu (its largest error over the float32 up product's "
+          f"largest value {gu_err:.3g}, tol 2^-8: one bf16 rounding; rows "
+          f"past the count untouched): vs "
+          f"plain largest relative error {msg} (tol "
+          f"{BWD_TOL[torch.bfloat16]}); two calls bit for bit equal: "
+          f"{same}; the Function's gradient the direct call's bit for bit: "
+          f"{fn_same}" + ("" if experts is None else
+                          f"; on {E} of {cfg.moe_experts} experts"))
+    if not (same and fn_same):
+        raise AssertionError("grouped_expert_ff_bwd: two calls or the "
+                             "Function's gradient differ")
+    del got, leaves_
+    up = torch.bmm(x, wi)
     dh = torch.bmm(dy, wo.transpose(1, 2))
-    msg2 = _bwd_check("swiglu_bwd", mb.swiglu_bwd(gu, dh, counts),
-                      mb.swiglu_bwd_plain(gu, dh, counts), torch.bfloat16,
-                      errs, ("dgu", "h"))
-    print(f"check expert FF backward ({E}, {x.shape[1]}, {cfg.d_model}) f "
-          f"{cfg.moe_d_ff} bf16, {int(counts.sum())} rows filled, vs plain "
-          f"largest relative error {msg}; the swiglu_bwd pass alone {msg2} "
-          f"(tol {BWD_TOL[torch.bfloat16]}); two calls bit for bit equal: "
-          f"{same}" + ("" if experts is None else
-                       f"; on {E} of {cfg.moe_experts} experts"))
-    if not same:
-        raise AssertionError("grouped_expert_ff_bwd: two calls differ")
+    msgs = []
+    for t in (torch.float32, torch.bfloat16):
+        a, b = up.to(t), dh.to(t)
+        n0 = mb.LAUNCHES_BY_ROUTE["cuda_cores"]
+        got = mb.swiglu_bwd(a, b, counts)
+        if mb.LAUNCHES_BY_ROUTE["cuda_cores"] != n0 + 1:
+            raise AssertionError("swiglu_bwd: no launch counted on the "
+                                 "cuda_cores route")
+        msgs.append(f"{str(t)[6:]} " + _bwd_check(
+            "swiglu_bwd", got, mb.swiglu_bwd_plain(a, b, counts), t, errs,
+            ("dgu", "h")) + f" (tol {BWD_TOL[t]})")
+        del a, b, got
+    print(f"check swiglu_bwd ({E}, {C}, {f}), the cuda_cores route's "
+          f"kernel, vs plain largest relative error: " + "; ".join(msgs))
+    del up, dh
     torch.cuda.empty_cache()
 
 
 def _expert_bwd_rows(dev, cfg, wi, wo, reps, errs, launches, batch=3,
                      plain_experts=None) -> dict:
-    """Timing rows of the expert FF's backward at the prefill capacity
-    with the counts of a random routing: the whole backward (bound: its
-    five products, 16 FLOP a filled row and (d, f) pair, at the tensor
-    cores' bf16 peak, or x, dy, wi, wo read and dx, dwi, dwo written
-    once; yardstick: ``torch.autograd.grad`` through the three-call
-    ``_library_moe`` on x with the rows past the counts zero, the same
-    function), and the SwiGLU kernel alone (bound: the filled rows' g,
-    u, dh read, every row's dgu and h written). ``plain_experts``: the
-    plain version runs that many experts a call, in turn over all of
-    them (its float32 weights and gradients would not fit at once)."""
+    """Timing row of the expert FF's backward on the tensor cores at the
+    prefill capacity with the counts of a random routing, from the
+    forward's saved pre-activation. The bound: 12 FLOP a filled row and
+    (d, f) pair (dh 2, dx 4, dwi 4, dwo 2; the cuBLAS route, which runs
+    the up product again, does 16) at the tensor cores' bf16 peak, or x,
+    dy, wi, wo read and dx, dwi, dwo written once. Yardstick:
+    ``torch.autograd.grad`` through the three-call ``_library_moe`` on x
+    with the rows past the counts zero, the same function (12 FLOP on
+    every row). Then the CUDA-core route's ``swiglu_bwd`` kernel alone
+    on bf16 (bound: the filled rows' g, u, dh read, every row's dgu and h
+    written). ``plain_experts``: the plain version runs that many
+    experts a call, in turn over all of them (its float32 weights and
+    gradients would not fit at once)."""
     g = torch.Generator(dev).manual_seed(13)
     E, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
     x, dy, counts = _expert_bwd_inputs(g, dev, cfg, E)
     C, rows = x.shape[1], int(counts.sum())
+    gu = torch.empty(E, C, 2 * f, dtype=torch.bfloat16, device=dev)
+    md.grouped_expert_ff(x, wi, wo, counts, gu)
     step = E if plain_experts is None else plain_experts
     lib = _backward_only(_library_moe, (x, wi, wo), dy)
     nbytes = 2 * (3 * E * C * d + 2 * E * d * 2 * f + 2 * E * f * d)
@@ -2576,13 +2652,13 @@ def _expert_bwd_rows(dev, cfg, wi, wo, reps, errs, launches, batch=3,
 
     row = _kernel_row(
         "expert FF bwd", f"({E}, {C}, {d}) f {f} bf16, {rows} rows",
-        lambda: mb.grouped_expert_ff_bwd(x, wi, wo, dy, counts), plain,
-        lib, nbytes, 16 * rows * d * f, BF16_OPS_PER_S, reps, launches,
+        lambda: mb.grouped_expert_ff_bwd(x, wi, wo, dy, counts, gu), plain,
+        lib, nbytes, 12 * rows * d * f, BF16_OPS_PER_S, reps, launches,
         batch=batch, calls=2 * batch)
     if step != E:
         print(f"expert FF bwd plain: {step} experts a call, in turn over "
               f"all {E}")
-    del lib
+    del lib, gu
     torch.cuda.empty_cache()
     gu = torch.bmm(x, wi)
     dh = torch.bmm(dy, wo.transpose(1, 2))
@@ -2591,14 +2667,22 @@ def _expert_bwd_rows(dev, cfg, wi, wo, reps, errs, launches, batch=3,
         lambda: mb.swiglu_bwd(gu, dh, counts),
         lambda: mb.swiglu_bwd_plain(gu, dh, counts), None,
         2 * (3 * rows * f + 3 * E * C * f), 20 * rows * f, F32_OPS_PER_S,
-        reps, launches)
+        reps, "the cuda_cores route's (float32 on the card-vs-CPU layers)")
+    del gu, dh
+    torch.cuda.empty_cache()
     print("library for the expert FF backward: torch.autograd.grad through "
-          "bmm, silu times mul, bmm (bf16), its forward run beforehand")
-    return {**row, "max_abs_err": errs["swiglu_bwd"],
+          "bmm, silu times mul, bmm (bf16), its forward run beforehand; the "
+          "bound counts 12 FLOP a filled row and (d, f) pair (the route's "
+          "four products), not the 16 of the cuBLAS route, which runs the "
+          "up product again")
+    return {**row, "max_abs_err": errs["moe_dispatch_bwd"],
             "shape": [E, C, d, f], "rows_filled": rows,
+            "route": "tensor_cores",
+            "kernels": ["moe_dh_tc", "moe_dx_tc", "moe_dw_tc"],
             "library": "torch.autograd.grad of bmm, silu * mul, bmm (bf16)",
-            "swiglu_pass": {k: sw[k] for k in (
-                "ms", "device_ms", "bound_ms", "bound_by", "plain_ms")}}
+            "swiglu_pass": {"max_abs_err": errs["swiglu_bwd"], **{
+                k: sw[k] for k in ("ms", "device_ms", "bound_ms", "bound_by",
+                                   "plain_ms")}}}
 
 
 def _same_step_twice(dev, cfg, seed, opt) -> None:
@@ -2652,6 +2736,7 @@ def _moe_ff_card_vs_cpu(dev, cfg, seed) -> None:
     w = torch.randn(CPU_B, CPU_S, d, generator=gen)
     kw = dict(n_experts=E, top_k=k, capacity_factor=cfg.moe_capacity)
     out = {}
+    routes = dict(mb.LAUNCHES_BY_ROUTE)
     for where in ("cpu", dev):
         ps = [{n: v.to(where, copy=True).requires_grad_()
                for n, v in p.items()} for p in layers]
@@ -2664,6 +2749,11 @@ def _moe_ff_card_vs_cpu(dev, cfg, seed) -> None:
         out[str(where)] = (h.detach().cpu(), {"x": xs.grad.cpu(), **{
             f"{i}.{n}": v.grad.cpu() for i, p in enumerate(ps)
             for n, v in p.items()}})
+    torch.cuda.synchronize()
+    routes = {k: v - routes[k] for k, v in mb.LAUNCHES_BY_ROUTE.items()}
+    if routes != {"tensor_cores": 0, "cuda_cores": 2}:
+        raise AssertionError(f"moe_ff float32 backward launched {routes} "
+                             "by route; expected swiglu_bwd once a layer")
     (h_cpu, g_cpu), (h_card, g_card) = out["cpu"], out[str(dev)]
     T = CPU_B * CPU_S
     C = MOE.capacity(T, k, E, cfg.moe_capacity)
@@ -2681,7 +2771,8 @@ def _moe_ff_card_vs_cpu(dev, cfg, seed) -> None:
           f"{drop:.3f} of the assignments dropped; output relative error "
           f"{eh:.3g} (tol {BWD_TOL[torch.float32]}); gradient relative L2 "
           "errors " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-          + f" (tol {TRAIN_GRAD_TOL})")
+          + f" (tol {TRAIN_GRAD_TOL}); the card's backward by route "
+          f"{routes} (float32: swiglu_bwd between cuBLAS products)")
     if partial == 0 or drop == 0:
         raise AssertionError("moe_ff card vs cpu: the routing is not ragged")
     if eh > BWD_TOL[torch.float32] or not all(
@@ -2706,7 +2797,7 @@ def moe_train_phase(dev, seed: int, reps: int):
     _expert_bwd_check(g, dev, cfg, wi, wo, errs)
     per_step = _train_launches(cfg)
     record = _expert_bwd_rows(dev, cfg, wi, wo, min(reps, 10), errs,
-                              f"{per_step['swiglu_bwd']} a step")
+                              f"{per_step['moe_dispatch_bwd']} a step")
     del wi, wo
     torch.cuda.empty_cache()
 
@@ -2776,17 +2867,19 @@ def moe_train_phase(dev, seed: int, reps: int):
     shutil.rmtree(ckpt_root, ignore_errors=True)
     _same_step_twice(dev, short, seed, MOE_OPT)
     torch.cuda.empty_cache()
-    return {"swiglu_bwd": record}, {label: counts}, summary
+    return {"moe_dispatch_bwd": record}, {label: counts}, summary
 
 
 def _scan_bwd_row(dev, cfg, seed, reps, errs) -> dict:
     """The scan's backward at the chunk the path scans, (4, 256, d_inner,
     d_state) float32, from a given state and with the last state's
-    gradient: against its plain version, two calls bit for bit, then
-    timed. The bound: dA and dBx read and d(dA) and d(dBx) written once
-    (16 bytes an element), Cm, dy, h0 and dh_last read and dCm and dh0
-    written; the design's own traffic (28 bytes an element: dA twice, h
-    written and read back) is printed beside it."""
+    gradient, from the forward's saved states: against its plain version
+    (which recomputes every state), two calls bit for bit, the Function's
+    gradient the direct call's bit for bit, then timed. The bound: dA and
+    dBx read and d(dA) and d(dBx) written once (16 bytes an element), Cm,
+    dy, h0 and dh_last read and dCm and dh0 written; the design's own
+    traffic (the saved states besides, 4 / STATE_EVERY bytes an element)
+    is printed beside it."""
     g = torch.Generator(dev).manual_seed(seed)
     shape = (TRAIN_B, cfg.ssm_chunk, cfg.ssm_d_inner, cfg.ssm_d_state)
     B, S, d, n = shape
@@ -2794,42 +2887,53 @@ def _scan_bwd_row(dev, cfg, seed, reps, errs) -> dict:
     h0 = torch.randn(B, d, n, generator=g, device=dev)
     dy = torch.randn(B, S, d, generator=g, device=dev)
     dh = torch.randn(B, d, n, generator=g, device=dev)
-    args = (dA, dBx, Cm, h0, dy, dh)
+    states = torch.empty(ss.states_shape(*shape), device=dev)
+    ss.selective_scan(dA, dBx, Cm, h0.clone(), states)
+    args = (dA, dBx, Cm, h0, dy, dh, states)
     got = sb.selective_scan_bwd(*args)
     msg = _bwd_check("selective_scan_bwd", got,
-                     sb.selective_scan_bwd_plain(*args), torch.float32, errs,
-                     ("d(dA)", "d(dBx)", "dCm", "dh0"))
+                     sb.selective_scan_bwd_plain(*args[:6]), torch.float32,
+                     errs, ("d(dA)", "d(dBx)", "dCm", "dh0"))
     again = sb.selective_scan_bwd(*args)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
-    print(f"check selective_scan_bwd {shape} float32 from a state vs plain, "
-          f"largest relative error {msg} (tol {BWD_TOL[torch.float32]}); "
-          f"two calls bit for bit equal: {same}")
-    if not same:
-        raise AssertionError("selective_scan_bwd: two calls differ")
-    del got, again
+    del again
+    leaves_ = [t.detach().clone().requires_grad_() for t in (dA, dBx, Cm, h0)]
+    torch.autograd.backward(sb.SelectiveScan.apply(*leaves_), (dy, dh))
+    fn_same = all(torch.equal(t.grad, a) for t, a in zip(leaves_, got))
+    print(f"check selective_scan_bwd {shape} float32 from a state and the "
+          f"forward's states vs plain, largest relative error {msg} (tol "
+          f"{BWD_TOL[torch.float32]}); two calls bit for bit equal: {same}; "
+          f"the Function's gradient the direct call's bit for bit: "
+          f"{fn_same}")
+    if not (same and fn_same):
+        raise AssertionError("selective_scan_bwd: two calls or the "
+                             "Function's gradient differ")
+    del got, leaves_
     el = dA.numel()
     small = Cm.numel() * 2 + dy.numel() + 3 * h0.numel()
     row = _kernel_row(
         "selective_scan_bwd", f"{shape} float32 with h0, dh_last",
         lambda: sb.selective_scan_bwd(*args),
-        lambda: sb.selective_scan_bwd_plain(*args), None,
+        lambda: sb.selective_scan_bwd_plain(*args[:6]), None,
         4 * (4 * el + small), 8 * el, F32_OPS_PER_S, reps,
         f"{_count(cfg, 'mamba') * math.ceil(TRAIN_S / S)} a step",
         batch=3, calls=6)
-    design_ms = 4 * (7 * el + small) / HBM_BYTES_PER_S * 1e3
-    W = -(-d // sb.CTA_CHANNELS) * sb.CTA_CHANNELS // 32
+    design_ms = (4 * (4 * el + small) + 4 * states.numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    W = -(-d // sb.cta_channels(n))
     red_bytes = 4 * (B * W * S * n + Cm.numel())
     dc = {"device_ms": next((v for k, v in row["device_ms_by_kernel"].items()
                              if "dc_reduce" in k), None),
           "bound_ms": red_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
           "bytes": red_bytes}
-    print(f"selective_scan_bwd: the design's traffic (28 bytes an element) "
-          f"{design_ms:.4f} ms at 3.35 TB/s; its dC reduce ({W} warps' "
+    print(f"selective_scan_bwd: the design's traffic (16 + "
+          f"{4 / ss.STATE_EVERY:g} bytes an element, the states read once) "
+          f"{design_ms:.4f} ms at 3.35 TB/s; its dC reduce ({W} CTAs' "
           f"partials a (b, t, k)): device {dc['device_ms']} ms, bound "
           f"{dc['bound_ms']:.4f} ms by bytes")
     return {**row, "max_abs_err": errs["selective_scan_bwd"],
             "shape": list(shape), "design_bytes_ms": design_ms,
-            "dc_reduce": dc}
+            "state_every": ss.STATE_EVERY, "dc_reduce": dc}
 
 
 def _mamba_block_card_vs_cpu(dev, sm, seed) -> None:
@@ -2894,9 +2998,9 @@ def hybrid_train_phase(dev, seed: int, reps: int):
     _expert_bwd_check(g, dev, cfg, wi, wo, errs,
                       experts=JAMBA_CHECK_EXPERTS)
     per_call = _train_launches(cfg)
-    records["swiglu_bwd"] = _expert_bwd_rows(
+    records["moe_dispatch_bwd"] = _expert_bwd_rows(
         dev, cfg, wi, wo, min(reps, 3), errs,
-        f"{per_call['swiglu_bwd']} a gradient step", batch=1,
+        f"{per_call['moe_dispatch_bwd']} a gradient step", batch=1,
         plain_experts=JAMBA_CHECK_EXPERTS)
     del wi, wo
     torch.cuda.empty_cache()
@@ -3567,8 +3671,9 @@ def main() -> int:
     print(f"train phase {HYBRID_ARCH} {time.perf_counter() - t0:.1f} s")
     paths.update(hybrid_train_paths)
     print(json.dumps({"train_moe_hybrid": [moe_summary, hybrid_summary]}))
-    lm_records["swiglu_bwd"] = {**moe_train["swiglu_bwd"],
-                                "jamba": hybrid_train["swiglu_bwd"]}
+    lm_records["moe_dispatch_bwd"] = {
+        **moe_train["moe_dispatch_bwd"],
+        "jamba": hybrid_train["moe_dispatch_bwd"]}
     lm_records["selective_scan_bwd"] = hybrid_train["selective_scan_bwd"]
     t0 = time.perf_counter()
     cross_rows, encdec_paths, encdec_train = encdec_phase(dev, args.seed,

@@ -181,17 +181,19 @@ struct F16;
   "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "     \
   "%62, %63"
 
-// Mma<N, TB, T>: D (+)= A B over one k16 step, operands of type T.
-//   ss: A and B in shared memory; A K-major; B K-major (TB = 0) or
-//       MN-major (TB = 1); accumulate unless scale_d is 0.
-//   rs: A from registers, four words of pairs (the fragment above).
-template <int N, int TB, typename T = BF16> struct Mma;
+// Mma<N, TB, T, TA>: D (+)= A B over one k16 step, operands of type T.
+//   ss: A and B in shared memory; A K-major (TA = 0) or MN-major (TA = 1,
+//       wgmma's transpose bit for A); B K-major (TB = 0) or MN-major
+//       (TB = 1); accumulate unless scale_d is 0.
+//   rs: A from registers, four words of pairs (the fragment above; TA
+//       unused).
+template <int N, int TB, typename T = BF16, int TA = 0> struct Mma;
 
 // one specialization: N, the type tag and its PTX name, the accumulator
 // operands, and the operand numbers of the scale predicate and the rest
 // in the SS and RS forms
 #define SM90_MMA(NN, T, TS, REGS, DOUT, SS_P, SS_REST, RS_P, RS_REST)     \
-  template <int TB> struct Mma<NN, TB, T> {                               \
+  template <int TB, int TA> struct Mma<NN, TB, T, TA> {                   \
     __device__ __forceinline__ static void ss(float (&d)[NN / 2],         \
                                               uint64_t a, uint64_t b,     \
                                               int scale_d) {              \
@@ -199,7 +201,7 @@ template <int N, int TB, typename T = BF16> struct Mma;
                    "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32." TS  \
                    "." TS " {" REGS "}, " SS_REST ";\n}\n"                \
                    : DOUT                                                 \
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TB));              \
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));     \
     }                                                                     \
     __device__ __forceinline__ static void rs(float (&d)[NN / 2],         \
                                               const uint32_t (&a)[4],     \
@@ -215,11 +217,11 @@ template <int N, int TB, typename T = BF16> struct Mma;
 
 #define SM90_MMA_64(T, TS)                                                \
   SM90_MMA(64, T, TS, SM90_R32, SM90_D32, "%34",                          \
-           "%32, %33, p, 1, 1, 0, %35", "%37",                            \
+           "%32, %33, p, 1, 1, %35, %36", "%37",                          \
            "{%32, %33, %34, %35}, %36, p, 1, 1, %38")
 #define SM90_MMA_128(T, TS)                                               \
   SM90_MMA(128, T, TS, SM90_R64, SM90_D64, "%66",                         \
-           "%64, %65, p, 1, 1, 0, %67", "%69",                            \
+           "%64, %65, p, 1, 1, %67, %68", "%69",                          \
            "{%64, %65, %66, %67}, %68, p, 1, 1, %70")
 
 SM90_MMA_64(BF16, "bf16")

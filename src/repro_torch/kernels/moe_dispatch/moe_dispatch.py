@@ -14,7 +14,10 @@ shapes:
     and 64-column tile, in two more scratch tensors; wo's a column, in
     shared memory), which are 0 wherever the values are in range: the
     down product's common kernel leaves a block that meets one to a
-    second kernel, flagged in a fourth scratch tensor;
+    second kernel, flagged in a fourth scratch tensor. Where the caller
+    passes ``gu`` (training, ``moe_dispatch_bwd.GroupedExpertFF``), the
+    up kernel also stores the gate and up products of the filled rows
+    there in bf16, for the backward;
   * ``cuda_cores``: everything else (float32; decode's C = 1; bf16 rows
     the 16-byte copies cannot take). One CTA per (expert, slice of the
     hidden columns, block of capacity rows), float32 on the CUDA cores,
@@ -81,8 +84,9 @@ KERNEL = SourceKernel(
     Path(__file__).resolve().parent / "csrc" / "moe_dispatch.cu",
     {**{f"moe_ff_{t}": [_P] * 6 + [_I] * 6 + [_P]
         for t in _SUFFIX.values()},
-     "moe_ff_bf16_tc": [_P] * 9 + [_I] * 4 + [_P]},
-    headers=[CSRC / "sm90.cuh"])
+     "moe_ff_bf16_tc": [_P] * 10 + [_I] * 4 + [_P]},
+    headers=[CSRC / "sm90.cuh",
+             Path(__file__).resolve().parent / "csrc" / "moe_tc.cuh"])
 
 
 def _shapes(x, wi, wo):
@@ -154,19 +158,46 @@ def grouped_expert_ff_plain(x: torch.Tensor, wi: torch.Tensor,
     return torch.bmm(h, wo.float()).to(x.dtype)
 
 
+def up_product_plain(x: torch.Tensor, wi: torch.Tensor,
+                     counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """gu = x @ wi per expert in float32 (the gate in columns [0, f), the
+    up part in [f, 2f)), rows of x at or past ``counts`` taken as zero
+    rows, cast to x's dtype. Any device."""
+    E, C, d = x.shape
+    _check_counts(counts, E, x.device)
+    xf = x.float()
+    live = live_rows(counts, C, x.device)
+    if live is not None:
+        xf = xf * live
+    return torch.bmm(xf, wi.float()).to(x.dtype)
+
+
 def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
-                      counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      counts: Optional[torch.Tensor] = None,
+                      gu: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (E, C, d), wi: (E, d, 2f), wo: (E, f, d) -> (E, C, d), float32
     or bfloat16; ``counts`` as in the module's docstring. CPU tensors
-    take the plain version, CUDA tensors the kernel."""
+    take the plain version, CUDA tensors the kernel. ``gu``, an (E, C,
+    2f) tensor of x's dtype, receives the up product x @ wi of the filled
+    rows (the backward's saved pre-activation; rows past the count are
+    left as they were on the card, zero on the CPU): only the CPU and the
+    tensor-core route take it."""
     global LAUNCHES
     E, C, d, f = _shapes(x, wi, wo)
+    if gu is not None and (gu.shape != (E, C, 2 * f) or gu.dtype != x.dtype
+                           or gu.device != x.device
+                           or not gu.is_contiguous()):
+        raise ValueError(f"grouped_expert_ff: gu must be a contiguous "
+                         f"{x.dtype} {(E, C, 2 * f)} tensor on {x.device}, "
+                         f"got {gu.dtype} {tuple(gu.shape)} on {gu.device}")
     if x.dtype not in _SUFFIX or {wi.dtype, wo.dtype} != {x.dtype}:
         raise TypeError(f"grouped_expert_ff takes float32 or bfloat16 x, "
                         f"wi, wo of one dtype, got {x.dtype}, {wi.dtype}, "
                         f"{wo.dtype}")
     devices = {x.device, wi.device, wo.device}
     if devices == {torch.device("cpu")}:
+        if gu is not None:
+            gu.copy_(up_product_plain(x, wi, counts))
         return grouped_expert_ff_plain(x, wi, wo, counts)
     if len(devices) != 1 or x.device.type != "cuda":
         raise ValueError(f"grouped_expert_ff kernel: x, wi, wo on "
@@ -180,6 +211,9 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
         raise ValueError(f"grouped_expert_ff kernel: d = {d} and f = {f} "
                          f"must be >= 1, x, wi, wo 16-byte aligned")
     way = route(x.dtype, C, d, f)
+    if gu is not None and way != "tensor_cores":
+        raise ValueError(f"grouped_expert_ff kernel: the {way} route keeps "
+                         f"no gu; only the tensor-core route writes it")
     n_slices, fs = slicing(1 if counts is not None and C == 1 else E, C,
                            f)
     n_blocks = (E * -(-C // TC_BLOCK) * -(-max(d, f) // TC_BLOCK)
@@ -197,7 +231,10 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                             device=x.device)])
     args = (x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
             None if counts is None else counts.data_ptr(),
-            *(t.data_ptr() for t in scratch), out.data_ptr(), E, C, d, f)
+            *(t.data_ptr() for t in scratch))
+    if way == "tensor_cores":
+        args += (None if gu is None else gu.data_ptr(),)
+    args += (out.data_ptr(), E, C, d, f)
     if way == "cuda_cores":
         args += (fs, n_slices)
     KERNEL.call(entry(x.dtype, C, d, f), x.get_device(), *args)

@@ -1,4 +1,4 @@
-"""The gradient of the grouped SwiGLU expert FF, with a CUDA kernel on
+"""The gradient of the grouped SwiGLU expert FF, with CUDA kernels on
 Hopper, and the autograd Function that pairs it with the forward kernel.
 
 The reference has no kernel here: it trains through the einsums of
@@ -7,29 +7,40 @@ The reference has no kernel here: it trains through the einsums of
 CUDA tensors to the hand-written forward (``moe_dispatch.py``), a ctypes
 call that autograd cannot see through, so training on the card needs
 ``GroupedExpertFF``: its forward is the forward kernel, with the
-per-expert ``counts``; its backward, ``grouped_expert_ff_bwd``:
+per-expert ``counts``; its backward, ``grouped_expert_ff_bwd``, takes
+one of two routes that ``route`` picks from the dtype and the shapes
+(the forward's rule; ``csrc/moe_dispatch_bwd.cu`` holds the kernels and
+their note):
 
-  1. gu = x~ @ wi again, x~ being x with the rows at or past ``counts``
-     zeroed (the forward keeps no hidden);
-  2. dh = dy @ wo^T;
-  3. ``csrc/moe_dispatch_bwd.cu``, ``swiglu_bwd``: one pass over the
-     (E, C) rows in 16-byte vectors that reads g, u and dh and writes
-     dgu = [dh u silu'(g), dh silu(g)] and h = silu(g) u, silu in
-     float32, both stored in x's dtype (h in bf16, as the reference's
-     ``moe.py:85``), zero rows at or past ``counts``;
-  4. dwo = h^T @ dy, dwi = x~^T @ dgu, dx = dgu @ wi^T.
+  * ``tensor_cores`` (bf16, C > 1, d and f multiples of 8): the forward
+    keeps the pre-activation gu = x~ @ wi (x~ being x with the rows at or
+    past ``counts`` zeroed), which its up kernel writes where the Function
+    asks, and three wgmma kernels over the filled rows only: dh = dy @
+    wo^T with the SwiGLU backward in its epilogue (dgu and h in bf16,
+    dh never stored), dx = dgu @ wi^T, and the weight gradients dwi =
+    x~^T @ dgu and dwo = h^T @ dy. No mask pass over x: the copies
+    zero-fill the rows past the count.
+  * ``cuda_cores`` (float32, and bf16 that the tensor cores do not take):
+    gu = x~ @ wi again, dh = dy @ wo^T, the ``swiglu_bwd`` kernel (one
+    pass that reads g, u and dh and writes dgu = [dh u silu'(g), dh
+    silu(g)] and h = silu(g) u, silu in float32, both in x's dtype, zero
+    rows at or past ``counts``), then dwo = h^T @ dy, dwi = x~^T @ dgu,
+    dx = dgu @ wi^T as batched ``torch.bmm``: plain large products that
+    the reference leaves to XLA outside any Pallas kernel.
 
-The five products are batched ``torch.bmm``: plain large products that
-the reference leaves to XLA outside any Pallas kernel. cuBLAS sums them
-in a fixed order with no float atomics, so two backward calls give the
-same bits.
+Every sum runs in a fixed order with no float atomics (cuBLAS's, and
+one accumulator an output tile in the wgmma kernels), so two backward
+calls give the same bits.
 
-The SwiGLU kernel is built with nvcc at first use into
+The kernels are built with nvcc at first use into
 ``build/moe_dispatch_bwd/<sha256>.so`` and launched through ctypes on
-the current stream; ``LAUNCHES`` counts its launches. On CPU tensors the
-Function runs the plain forward and ``grouped_expert_ff_bwd_plain``, the
-same formulas in float32 torch; a CUDA tensor goes to the kernel or
-raises.
+the current stream. ``LAUNCHES`` counts the launches of the
+hand-written kernels on the card where they are made: the tensor-core
+route's entry (its three kernels) and ``swiglu_bwd`` (the CUDA-core
+route's one kernel, or a call of its own); ``LAUNCHES_BY_ROUTE`` the
+same by route. On CPU tensors the Function runs the plain forward and
+``grouped_expert_ff_bwd_plain``, the same formulas in float32 torch; a
+CUDA tensor goes to its route's kernels or raises.
 """
 from __future__ import annotations
 
@@ -40,21 +51,30 @@ from typing import Optional, Tuple
 import torch
 
 from .. import plain_dtype
-from ..build import SourceKernel
+from ..build import CSRC, SourceKernel
 from ..rmsnorm.rmsnorm import VEC16
 from . import moe_dispatch as MD
 
-#: launches of the SwiGLU backward kernel; the plain version does not
-#: count
+#: launches on the card (the tensor-core entry, ``swiglu_bwd``); the
+#: plain version does not count
 LAUNCHES = 0
+#: the same launches by route (``route``): ``swiglu_bwd`` is the
+#: CUDA-core route's
+LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL = SourceKernel(
-    "moe_dispatch_bwd",
-    Path(__file__).resolve().parent / "csrc" / "moe_dispatch_bwd.cu",
-    {f"swiglu_bwd_{t}": [_P] * 5 + [_I] * 3 + [_P]
-     for t in _SUFFIX.values()}, headers=[VEC16])
+    "moe_dispatch_bwd", _CSRC / "moe_dispatch_bwd.cu",
+    {**{f"swiglu_bwd_{t}": [_P] * 5 + [_I] * 3 + [_P]
+        for t in _SUFFIX.values()},
+     "moe_ff_bwd_bf16_tc": [_P] * 11 + [_I] * 4 + [_P]},
+    headers=[VEC16, CSRC / "sm90.cuh", _CSRC / "moe_tc.cuh"])
+
+#: the forward's rule: bf16 at C > 1 with d and f multiples of 8 takes the
+#: tensor cores
+route = MD.route
 
 
 def swiglu_bwd_plain(gu: torch.Tensor, dh: torch.Tensor,
@@ -82,7 +102,7 @@ def swiglu_bwd(gu: torch.Tensor, dh: torch.Tensor,
                counts: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dgu, h) as ``swiglu_bwd_plain``. CPU tensors take the plain
-    version, CUDA tensors the kernel."""
+    version, CUDA tensors the kernel (the CUDA-core route's pass)."""
     global LAUNCHES
     if gu.dim() != 3 or dh.dim() != 3 or gu.shape[:2] != dh.shape[:2] \
             or gu.shape[2] != 2 * dh.shape[2]:
@@ -108,6 +128,7 @@ def swiglu_bwd(gu: torch.Tensor, dh: torch.Tensor,
                 None if counts is None else counts.data_ptr(),
                 dgu.data_ptr(), h.data_ptr(), E, C, f)
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE["cuda_cores"] += 1
     return dgu, h
 
 
@@ -137,12 +158,15 @@ def grouped_expert_ff_bwd_plain(x: torch.Tensor, wi: torch.Tensor,
 
 def grouped_expert_ff_bwd(x: torch.Tensor, wi: torch.Tensor,
                           wo: torch.Tensor, dy: torch.Tensor,
-                          counts: Optional[torch.Tensor] = None
+                          counts: Optional[torch.Tensor] = None,
+                          gu: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, ...]:
     """(dx, dwi, dwo) as ``grouped_expert_ff_bwd_plain``. CPU tensors take
-    the plain version; CUDA tensors the five batched products in the
-    inputs' dtype (float32 accumulators) around the ``swiglu_bwd``
-    kernel."""
+    the plain version (``gu`` unused); CUDA tensors their route's kernels
+    (``route``): on the tensor cores ``gu`` (E, C, 2f) is the forward's
+    pre-activation of the filled rows (``moe_dispatch.grouped_expert_ff``
+    with ``gu``), which the route needs; on the CUDA cores it is
+    recomputed and ``gu`` must be None."""
     E, C, d, f = MD._shapes(x, wi, wo)
     if dy.shape != x.shape:
         raise ValueError(f"grouped_expert_ff_bwd: dy {tuple(dy.shape)} does "
@@ -154,9 +178,18 @@ def grouped_expert_ff_bwd(x: torch.Tensor, wi: torch.Tensor,
         raise TypeError(f"grouped_expert_ff_bwd takes x, wi, wo, dy of one "
                         f"dtype, got {x.dtype}, {wi.dtype}, {wo.dtype}, "
                         f"{dy.dtype}")
-    live = MD.live_rows(counts, C, x.device)
+    if route(x.dtype, C, d, f) == "tensor_cores":
+        return _bwd_tensor_cores(x, wi, wo, dy.contiguous(), counts, gu)
+    if gu is not None:
+        raise ValueError("grouped_expert_ff_bwd: the cuda_cores route "
+                         "recomputes gu; it takes none")
+    return _bwd_cuda_cores(x, wi, wo, dy.contiguous(), counts)
+
+
+def _bwd_cuda_cores(x, wi, wo, dy, counts):
+    """Five batched products around the ``swiglu_bwd`` kernel."""
+    live = MD.live_rows(counts, x.shape[1], x.device)
     xt = x if live is None else torch.where(live, x, x.new_zeros(()))
-    dy = dy.contiguous()
     gu = torch.bmm(xt, wi)
     dh = torch.bmm(dy, wo.transpose(1, 2))
     dgu, h = swiglu_bwd(gu, dh, counts)
@@ -168,21 +201,64 @@ def grouped_expert_ff_bwd(x: torch.Tensor, wi: torch.Tensor,
     return dx, dwi, dwo
 
 
+def _bwd_tensor_cores(x, wi, wo, dy, counts, gu):
+    """The three wgmma kernels, from the forward's gu."""
+    global LAUNCHES
+    E, C, d, f = MD._shapes(x, wi, wo)
+    if gu is None or gu.shape != (E, C, 2 * f) or gu.dtype != x.dtype \
+            or gu.device != x.device:
+        raise ValueError(f"grouped_expert_ff_bwd: the tensor-core route "
+                         f"takes the forward's gu, {x.dtype} {(E, C, 2 * f)} "
+                         f"on {x.device}; got "
+                         f"{None if gu is None else (gu.dtype, gu.shape)}")
+    tensors = (dy, x, wi, wo, gu)
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError("grouped_expert_ff_bwd kernel: dy, x, wi, wo and gu "
+                         "must be contiguous and 16-byte aligned")
+    n_mb = -(-C // MD.TC_BLOCK)
+    cols = 2 * MD.TC_BLOCK
+    grids = (E * n_mb * -(-f // cols), E * n_mb * -(-d // cols),
+             E * (-(-d // MD.TC_BLOCK) * -(-2 * f // cols)
+                  + -(-f // MD.TC_BLOCK) * -(-d // cols)))
+    if max(grids) >= 2**31:
+        raise ValueError(f"grouped_expert_ff_bwd kernel: grids {grids}")
+    dgu = torch.empty_like(gu)
+    h = torch.empty(E, C, f, dtype=x.dtype, device=x.device)
+    dx, dwi, dwo = (torch.empty_like(t) for t in (x, wi, wo))
+    KERNEL.call("moe_ff_bwd_bf16_tc", x.get_device(),
+                *(t.data_ptr() for t in tensors),
+                None if counts is None else counts.data_ptr(),
+                dgu.data_ptr(), h.data_ptr(), dx.data_ptr(), dwi.data_ptr(),
+                dwo.data_ptr(), E, C, d, f)
+    LAUNCHES += 1
+    LAUNCHES_BY_ROUTE["tensor_cores"] += 1
+    return dx, dwi, dwo
+
+
 class GroupedExpertFF(torch.autograd.Function):
-    """``grouped_expert_ff(x, wi, wo, counts)`` with its gradient: the
-    forward kernel, which keeps nothing; the backward recomputes the
-    up product and runs ``grouped_expert_ff_bwd``. CPU tensors take both
-    plain versions."""
+    """``grouped_expert_ff(x, wi, wo, counts)`` with its gradient. The
+    forward is the forward kernel; where ``keep`` (the caller's grad
+    mode: ``models/moe.py`` passes ``torch.is_grad_enabled()``) and an
+    input requires grad and the route is the tensor cores', it also keeps
+    the pre-activation gu for the backward, ``grouped_expert_ff_bwd``.
+    Serving keeps nothing. CPU tensors take both plain versions."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
-                counts: Optional[torch.Tensor]):
-        ctx.save_for_backward(x, wi, wo, counts)
-        return MD.grouped_expert_ff(x, wi, wo, counts)
+                counts: Optional[torch.Tensor], keep: bool):
+        E, C, d, f = MD._shapes(x, wi, wo)
+        gu = None
+        if keep and any(ctx.needs_input_grad[:3]) and x.is_cuda \
+                and route(x.dtype, C, d, f) == "tensor_cores":
+            gu = torch.empty(E, C, 2 * f, dtype=x.dtype, device=x.device)
+        ctx.save_for_backward(x, wi, wo, counts, gu)
+        if gu is None:
+            return MD.grouped_expert_ff(x, wi, wo, counts)
+        return MD.grouped_expert_ff(x, wi, wo, counts, gu)
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
-        x, wi, wo, counts = ctx.saved_tensors
-        dx, dwi, dwo = grouped_expert_ff_bwd(x, wi, wo, dy, counts)
-        return dx, dwi, dwo, None
-
+        x, wi, wo, counts, gu = ctx.saved_tensors
+        dx, dwi, dwo = grouped_expert_ff_bwd(x, wi, wo, dy, counts, gu)
+        return dx, dwi, dwo, None, None

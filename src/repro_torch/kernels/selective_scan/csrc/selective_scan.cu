@@ -3,7 +3,14 @@
 //   h_t = dA[b, t, c, :] * h_{t-1} + dBx[b, t, c, :],
 //   y[b, t, c] = h_t . Cm[b, t, :],
 // float32 inside, y stored in dA's type. h starts at zero, or at h[b, c, :]
-// when the caller gives a state, which then receives the last h_t.
+// when the caller gives a state, which then receives the last h_t. Where
+// the caller gives ``states`` (training: the backward's checkpoints), the
+// state entering every K-th step, h_{sK - 1} (h0 for s = 0), goes to
+// states[b, s, c, :] as well, (B, ceil(S / K), d, n) float32: the backward
+// (selective_scan_bwd.cu) recomputes each segment of K steps from it.
+// K = kSeg = 4, a constant of both files (scan_segment.cuh). That adds
+// 4 / K bytes an element to the 2 (bf16) or 8 (float32) that the scan
+// reads; prefill passes null and writes nothing more.
 //
 // Replaces repro/kernels/selective_scan/selective_scan.py:selective_scan
 // (the Pallas TPU kernel, grid (B, S / chunk), the (d, n) state carried in
@@ -31,6 +38,8 @@
 #ifdef __CUDACC__
 #include <cuda_bf16.h>
 #endif
+
+#include "scan_segment.cuh"
 
 #ifndef VX_LAUNCH
 #define VX_LAUNCH(K, G, B, S, ...) \
@@ -100,11 +109,14 @@ __device__ __forceinline__ void store_f32(float v, __nv_bfloat16* p) {
 }
 #endif
 
-template <typename T, int N>
+// KEEP: states is given (a separate instantiation, so that prefill's
+// scan, which keeps none, runs the loop it ran before states existed)
+template <typename T, int N, bool KEEP>
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
             const T* __restrict__ Cm, float* __restrict__ h,
-            T* __restrict__ y, int S, int d, int n_cb) {
+            float* __restrict__ states, T* __restrict__ y, int S, int d,
+            int n_cb) {
   const int b = (int)(blockIdx.x / n_cb);
   const int c = (int)(blockIdx.x % n_cb) * kThreads + (int)threadIdx.x;
   if (c >= d) return;                          // no barrier follows
@@ -121,6 +133,10 @@ scan_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
   const T* bx = dBx + ((long long)b * S * d + c) * N;
   const T* cm = Cm + (long long)b * S * N;
   T* yp = y + (long long)b * S * d + c;
+  // this thread's row of the states, the segments d * N floats apart
+  float* sp = KEEP
+      ? states + ((long long)b * ((S + kSeg - 1) / kSeg) * d + c) * N
+      : nullptr;
   for (int t0 = 0; t0 < S; t0 += U) {
     float av[U][N], bv[U][N], cv[U][N];
 #pragma unroll
@@ -134,6 +150,8 @@ scan_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (t0 + u < S) {
+        if (KEEP && (t0 + u) % kSeg == 0)
+          store_row<N>(hs, sp + (long long)((t0 + u) / kSeg) * d * N);
         float acc = 0.f;
 #pragma unroll
         for (int i = 0; i < N; ++i) {
@@ -149,21 +167,27 @@ scan_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
 
 template <typename T, int N>
 int launch_n(const void* dA, const void* dBx, const void* Cm, void* h,
-             void* y, int B, int S, int d, void* stream) {
+             void* states, void* y, int B, int S, int d, void* stream) {
   const int n_cb = (d + kThreads - 1) / kThreads;
-  auto kernel = scan_kernel<T, N>;
+  auto kernel = states == nullptr ? scan_kernel<T, N, false>
+                                  : scan_kernel<T, N, true>;
   VX_LAUNCH(kernel, B * n_cb, kThreads, stream, (const T*)dA,
-            (const T*)dBx, (const T*)Cm, (float*)h, (T*)y, S, d, n_cb);
+            (const T*)dBx, (const T*)Cm, (float*)h, (float*)states, (T*)y,
+            S, d, n_cb);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* dA, const void* dBx, const void* Cm, void* h,
-           void* y, int B, int S, int d, int n, void* stream) {
+           void* states, void* y, int B, int S, int d, int n,
+           void* stream) {
   switch (n) {
-    case 4: return launch_n<T, 4>(dA, dBx, Cm, h, y, B, S, d, stream);
-    case 8: return launch_n<T, 8>(dA, dBx, Cm, h, y, B, S, d, stream);
-    case 16: return launch_n<T, 16>(dA, dBx, Cm, h, y, B, S, d, stream);
+    case 4:
+      return launch_n<T, 4>(dA, dBx, Cm, h, states, y, B, S, d, stream);
+    case 8:
+      return launch_n<T, 8>(dA, dBx, Cm, h, states, y, B, S, d, stream);
+    case 16:
+      return launch_n<T, 16>(dA, dBx, Cm, h, states, y, B, S, d, stream);
     default: return kBadN;
   }
 }
@@ -173,18 +197,23 @@ int launch(const void* dA, const void* dBx, const void* Cm, void* h,
 // dA, dBx: (B, S, d, n); Cm: (B, S, n); y: (B, S, d), all contiguous, of
 // one type, 16-byte aligned. h: (B, d, n) float32, contiguous and
 // 16-byte aligned, read as the first state and overwritten with the last;
-// or null for a zero first state that is not kept. B, S, d >= 1;
-// n in {4, 8, 16}; B * ceil(d / 128) < 2^31.
+// or null for a zero first state that is not kept. states: null, or
+// (B, ceil(S / kSeg), d, n) float32, contiguous and 16-byte aligned, that
+// receives the state entering every kSeg-th step. B, S, d >= 1; n in
+// {4, 8, 16}; B * ceil(d / 128) < 2^31.
 extern "C" int selective_scan_f32(const void* dA, const void* dBx,
-                                  const void* Cm, void* h, void* y, int B,
-                                  int S, int d, int n, void* stream) {
-  return launch<float>(dA, dBx, Cm, h, y, B, S, d, n, stream);
+                                  const void* Cm, void* h, void* states,
+                                  void* y, int B, int S, int d, int n,
+                                  void* stream) {
+  return launch<float>(dA, dBx, Cm, h, states, y, B, S, d, n, stream);
 }
 
 #ifdef __CUDACC__
 extern "C" int selective_scan_bf16(const void* dA, const void* dBx,
-                                   const void* Cm, void* h, void* y, int B,
-                                   int S, int d, int n, void* stream) {
-  return launch<__nv_bfloat16>(dA, dBx, Cm, h, y, B, S, d, n, stream);
+                                   const void* Cm, void* h, void* states,
+                                   void* y, int B, int S, int d, int n,
+                                   void* stream) {
+  return launch<__nv_bfloat16>(dA, dBx, Cm, h, states, y, B, S, d, n,
+                               stream);
 }
 #endif

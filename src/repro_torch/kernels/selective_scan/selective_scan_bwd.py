@@ -8,14 +8,16 @@ mamba block sends CUDA tensors to the hand-written forward
 (``selective_scan.py``), a ctypes call that autograd cannot see through,
 so training on the card needs ``SelectiveScan``, a Function
 ``(dA, dBx, Cm, h0) -> (y, h_last)``: its forward is the forward kernel
-on a fresh state (the caller's ``h0`` is never written), its backward
-``csrc/selective_scan_bwd.cu`` (that file's note has the design): one
-thread a (batch, channel) walks the chunk forward, keeping each h_t in
-the d(dA) output, then backward, carrying the state's gradient in
-registers; dCm is summed over the channels by a fixed warp butterfly and
-a second kernel that adds the warps' partials in order. No float
-atomics: two calls give the same bits. No torch call runs a reverse
-scan.
+on a fresh state (the caller's ``h0`` is never written), which also
+keeps the state entering every ``STATE_EVERY``-th step (``states``); its
+backward ``csrc/selective_scan_bwd.cu`` (that file's note has the
+design): a CTA walks its channels' segments from the last, copying each
+segment's dA, dBx and saved state into shared memory while it works on
+the one after, recomputes the segment's states there and walks it
+backward, writing d(dA) and d(dBx) once; dCm is summed over the
+channels by a fixed warp butterfly, the CTA's warps in order, and a
+second kernel that adds the CTAs' partials in order. No float atomics:
+two calls give the same bits. No torch call runs a reverse scan.
 
 float32 only: the model's dA, dBx and Cm are float32
 (``models/ssm.py:_ssm_params``). The kernels are built with nvcc at
@@ -34,21 +36,27 @@ from typing import Optional, Tuple
 import torch
 
 from .. import plain_dtype
-from ..build import SourceKernel
+from ..build import CSRC, SourceKernel
 from . import selective_scan as SS
 
 #: launches of the CUDA backward (one a call, two kernels); the plain
 #: version does not count
 LAUNCHES = 0
-#: channels a CTA takes, each warp of them writing one row of dCm
-#: partials
-CTA_CHANNELS = 128
+#: threads of a CTA of the backward, each one channel's four states
+CTA_THREADS = 512
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = SourceKernel(
     "selective_scan_bwd",
     Path(__file__).resolve().parent / "csrc" / "selective_scan_bwd.cu",
-    {"selective_scan_bwd_f32": [_P] * 11 + [_I] * 4 + [_P]})
+    {"selective_scan_bwd_f32": [_P] * 11 + [_I] * 4 + [_P]},
+    headers=[CSRC / "sm90.cuh", SS.SEGMENT_H])
+
+
+def cta_channels(n: int) -> int:
+    """Channels a CTA of the backward takes at state size n; its CTAs
+    each write one row of dCm partials."""
+    return CTA_THREADS * 4 // n
 
 
 def _check(dA, dBx, Cm, h0, dy, dh_last):
@@ -99,13 +107,18 @@ def selective_scan_bwd_plain(dA: torch.Tensor, dBx: torch.Tensor,
 
 def selective_scan_bwd(dA: torch.Tensor, dBx: torch.Tensor, Cm: torch.Tensor,
                        h0: Optional[torch.Tensor], dy: torch.Tensor,
-                       dh_last: Optional[torch.Tensor] = None
+                       dh_last: Optional[torch.Tensor] = None,
+                       states: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """(d(dA), d(dBx), dCm, dh0) as ``selective_scan_bwd_plain``. CPU
-    tensors take the plain version, float32 CUDA tensors the kernels."""
+    tensors take the plain version (``states`` unused); float32 CUDA
+    tensors the kernels, which take the forward's ``states`` (the
+    ``selective_scan`` output of the same dA, dBx and first state h0,
+    whose copy is its first row) and do not read h0."""
     global LAUNCHES
     B, S, d, n = _check(dA, dBx, Cm, h0, dy, dh_last)
-    tensors = [t for t in (dA, dBx, Cm, h0, dy, dh_last) if t is not None]
+    tensors = [t for t in (dA, dBx, Cm, h0, dy, dh_last, states)
+               if t is not None]
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return selective_scan_bwd_plain(dA, dBx, Cm, h0, dy, dh_last)
@@ -115,23 +128,32 @@ def selective_scan_bwd(dA: torch.Tensor, dBx: torch.Tensor, Cm: torch.Tensor,
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"selective_scan_bwd kernel takes float32 inputs, "
                         f"got {[t.dtype for t in tensors]}")
-    n_cb = -(-d // CTA_CHANNELS)
-    if n not in SS.STATE_SIZES or B * n_cb >= 2**31:
+    if n not in SS.STATE_SIZES:
         raise ValueError(f"selective_scan_bwd kernel: state size n = {n} "
-                         f"(it takes {SS.STATE_SIZES}), {B * n_cb} blocks")
+                         f"(it takes {SS.STATE_SIZES})")
+    n_cb = -(-d // cta_channels(n))
+    if B * n_cb >= 2**31:
+        raise ValueError(f"selective_scan_bwd kernel: {B * n_cb} blocks")
+    if states is None:
+        raise ValueError("selective_scan_bwd kernel: it recomputes from the "
+                         "forward's states; pass selective_scan's states")
+    SS._check_states(states, B, S, d, n, dA.device)
     dA, dBx, Cm, dy = (t.contiguous() for t in (dA, dBx, Cm, dy))
-    h0, dh_last = (None if t is None else t.contiguous()
-                   for t in (h0, dh_last))
+    if dh_last is not None:
+        dh_last = dh_last.contiguous()
+    if not all(t.data_ptr() % 16 == 0 for t in (dA, dBx, Cm, dy, states)):
+        raise ValueError("selective_scan_bwd kernel: inputs must be 16-byte "
+                         "aligned")
     ddA, ddBx, dC = (torch.empty_like(t) for t in (dA, dBx, Cm))
     dh0 = torch.empty(B, d, n, dtype=torch.float32, device=dA.device)
     if S == 0:
         return ddA, ddBx, dC, (dh0.zero_() if dh_last is None
                                else dh0.copy_(dh_last))
-    partial = torch.empty(B, n_cb * CTA_CHANNELS // 32, S, n,
-                          dtype=torch.float32, device=dA.device)
+    partial = torch.empty(B, n_cb, S, n, dtype=torch.float32,
+                          device=dA.device)
     KERNEL.call("selective_scan_bwd_f32", dA.get_device(), dA.data_ptr(),
-                dBx.data_ptr(), Cm.data_ptr(),
-                None if h0 is None else h0.data_ptr(), dy.data_ptr(),
+                dBx.data_ptr(), Cm.data_ptr(), states.data_ptr(),
+                dy.data_ptr(),
                 None if dh_last is None else dh_last.data_ptr(),
                 ddA.data_ptr(), ddBx.data_ptr(), partial.data_ptr(),
                 dC.data_ptr(), dh0.data_ptr(), B, S, d, n)
@@ -142,8 +164,9 @@ def selective_scan_bwd(dA: torch.Tensor, dBx: torch.Tensor, Cm: torch.Tensor,
 class SelectiveScan(torch.autograd.Function):
     """``(dA, dBx, Cm, h0) -> (y, h_last)`` with its gradient: the forward
     kernel on a copy of h0 (the caller's state is not overwritten, so
-    autograd may hold it), the backward kernels for d(dA), d(dBx), dCm
-    and dh0. CPU tensors take both plain versions."""
+    autograd may hold it), keeping on the card the states from which the
+    backward kernels recompute; the backward kernels for d(dA), d(dBx),
+    dCm and dh0. CPU tensors take both plain versions."""
 
     @staticmethod
     def forward(ctx, dA: torch.Tensor, dBx: torch.Tensor, Cm: torch.Tensor,
@@ -153,11 +176,13 @@ class SelectiveScan(torch.autograd.Function):
                             f"dBx, Cm (its backward kernel's), got "
                             f"{dA.dtype}")
         h = h0.clone()
-        y = SS.selective_scan(dA, dBx, Cm, h)
-        ctx.save_for_backward(dA, dBx, Cm, h0)
+        states = (torch.empty(SS.states_shape(*dA.shape), dtype=torch.float32,
+                              device=dA.device) if dA.is_cuda else None)
+        y = SS.selective_scan(dA, dBx, Cm, h, states)
+        ctx.save_for_backward(dA, dBx, Cm, h0, states)
         return y, h
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor, dh_last: torch.Tensor):
-        dA, dBx, Cm, h0 = ctx.saved_tensors
-        return selective_scan_bwd(dA, dBx, Cm, h0, dy, dh_last)
+        dA, dBx, Cm, h0, states = ctx.saved_tensors
+        return selective_scan_bwd(dA, dBx, Cm, h0, dy, dh_last, states)

@@ -19,10 +19,11 @@ slot is the zero row, whose output is zero either way. The plain version
 keeps the hidden in float32 and the kernel's tensor-core route rounds it
 to fp16, where the reference's einsums round it to bf16, so all meet at
 bf16 tolerance. The expert FF goes through ``GroupedExpertFF``, whose
-backward is the ``swiglu_bwd`` kernel between batched products
-(``kernels/moe_dispatch/moe_dispatch_bwd.py``); where autograd records
-nothing (serving) it is the forward kernel alone, as the dispatch and
-the combine are their forward gathers alone.
+backward runs on the tensor cores from the pre-activation that its
+forward keeps in grad mode (``kernels/moe_dispatch/moe_dispatch_bwd.py``);
+where autograd records nothing (serving) it is the forward kernel alone
+and keeps nothing, as the dispatch and the combine are their forward
+gathers alone.
 
 Every sum of the layer runs in a fixed order, so a train step gives the
 same bits every time. The reference's combine is a scatter-add over the
@@ -163,7 +164,8 @@ def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     # filled slots of each expert: min(assigned, C), on the device
     counts = (table.view(n_experts, C) != T).sum(1, dtype=torch.int32)
     xg = _Dispatch.apply(xt, table, slots).reshape(n_experts, C, d)
-    y = GroupedExpertFF.apply(xg, p["wi"], p["wo"], counts)
+    y = GroupedExpertFF.apply(xg, p["wi"], p["wo"], counts,
+                              torch.is_grad_enabled())
     yw = y.reshape(n_experts * C, d).float() * wtable[:, None]
     out = _Combine.apply(yw, table, slots)
     return out.reshape(B, S, d).to(x.dtype), aux

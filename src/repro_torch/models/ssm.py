@@ -15,8 +15,9 @@ so the result is right at any S.
 
 Where autograd records (grad mode on and an input that requires grad)
 the chunks hand the state on through ``SelectiveScan``
-(``kernels/selective_scan/selective_scan_bwd.py``), whose backward is a
-hand-written reverse scan, and each chunk's ``_ssm_params -> dA, dBx ->
+(``kernels/selective_scan/selective_scan_bwd.py``), whose forward keeps
+the state every few steps and whose backward is a hand-written reverse
+scan from them, and each chunk's ``_ssm_params -> dA, dBx ->
 scan`` is a non-reentrant ``torch.utils.checkpoint`` region: autograd
 keeps the chunk's input and its first state, and the backward makes the
 chunk's dA and dBx again, one chunk at a time. At jamba's width each is

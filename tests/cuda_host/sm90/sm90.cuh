@@ -13,8 +13,9 @@
 //   * wgmma reads its operands through the descriptor as the hardware
 //     does: 128-byte swizzle (chunk bits 4-6 of an address XOR its row
 //     bits 7-9), K-major rows SBO apart in groups of eight, MN-major rows
-//     of K SBO apart in groups of eight and 64-wide blocks of N LBO
-//     apart; each thread computes its accumulator fragment (the layout in
+//     of K SBO apart in groups of eight and 64-wide blocks of M or N LBO
+//     apart (A MN-major with the transpose bit, TA = 1); each thread
+//     computes its accumulator fragment (the layout in
 //     the real header's note) in float32. The register form's A fragments
 //     meet in a 64 x 16 tile between two block barriers: the block must
 //     be one warpgroup of 128 threads, every thread calling it together,
@@ -62,6 +63,7 @@ inline uint32_t sbo(uint64_t d) {
   return (uint32_t)((d >> 32) & 0x3FFF) << 4;
 }
 // element (m, k) of a K-major A; (k, n) of B, K-major (tb 0) or MN-major
+// (an MN-major A's (m, k) is b_elem's (k, m) with tb 1)
 template <typename T>
 inline float a_elem(uint64_t d, int m, int k) {
   return elem<T>(start(d) + (m / 8) * sbo(d) + (m % 8) * 128 + k * 2);
@@ -102,7 +104,7 @@ inline void wgmma_wait() {}
 template <int N>
 inline void fence_regs(float (&)[N]) {}
 
-template <int N, int TB, typename T = BF16>
+template <int N, int TB, typename T = BF16, int TA = 0>
 struct Mma {
   // this thread's accumulator fragment of D (+)= A B over one k16 step
   template <typename A>
@@ -118,8 +120,10 @@ struct Mma {
     }
   }
   static void ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-    product(d, [a](int m, int k) { return host::a_elem<T>(a, m, k); }, b,
-            scale_d);
+    // an MN-major A (TA = 1) is laid out as an MN-major B
+    product(d, [a](int m, int k) {
+      return TA ? host::b_elem<T>(a, 1, k, m) : host::a_elem<T>(a, m, k);
+    }, b, scale_d);
   }
   static void rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                  int scale_d) {

@@ -213,8 +213,8 @@ def test_kernels_without_backward_refuse_grad(grad):
     dA = torch.ones(1, 8, 16, 8, **meta)
     Cm = torch.ones(1, 8, 8, device="meta")
     h0 = torch.zeros(1, 16, 8, device="meta")
-    ff = (lambda: MB.GroupedExpertFF.apply(x, wi, wo, None)) if grad else \
-        (lambda: MD.grouped_expert_ff(x, wi, wo))
+    ff = (lambda: MB.GroupedExpertFF.apply(x, wi, wo, None, True)) \
+        if grad else (lambda: MD.grouped_expert_ff(x, wi, wo))
     scan = (lambda: SB.SelectiveScan.apply(dA, dA.detach(), Cm, h0)) \
         if grad else (lambda: SS.selective_scan(dA, dA.detach(), Cm))
     for call in (ff, scan):

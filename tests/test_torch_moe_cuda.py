@@ -18,6 +18,8 @@ on the logits, as ``tests/test_torch_moe.py`` holds it to the JAX
 package, with the router zeroed so that bf16 near-ties cannot route a
 token apart on the two devices.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -247,37 +249,107 @@ def test_swiglu_bwd_kernel_matches_plain(cuda, shape, dtype, with_counts):
         assert _rel(a, b) <= BWD_TOL[dtype]
 
 
+def _path_bwd_inputs(dev, shape, seed):
+    """x with unit-RMS rows, weights over the square root of the fan-in,
+    dy standard normal, bf16, and the counts of a random routing."""
+    E, C, d, f = shape
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(E, C, d, generator=g, device=dev).bfloat16()
+    wi = (torch.randn(E, d, 2 * f, generator=g, device=dev)
+          / math.sqrt(d)).bfloat16()
+    wo = (torch.randn(E, f, d, generator=g, device=dev)
+          / math.sqrt(f)).bfloat16()
+    dy = torch.randn(E, C, d, generator=g, device=dev).bfloat16()
+    return x, wi, wo, dy, _counts(dev, E, C, seed)
+
+
+def _bwd_check(x, wi, wo, dy, counts):
+    """The backward on its route (the tensor cores from the forward's
+    saved pre-activation) against the plain closed form, counted by
+    route; two calls give the same bits."""
+    E, C, d = x.shape
+    f = wo.shape[1]
+    way = MB.route(x.dtype, C, d, f)
+    gu = None
+    if way == "tensor_cores":
+        gu = torch.empty(E, C, 2 * f, dtype=x.dtype, device=x.device)
+        MD.grouped_expert_ff(x, wi, wo, counts, gu)
+    before = dict(MB.LAUNCHES_BY_ROUTE)
+    got = MB.grouped_expert_ff_bwd(x, wi, wo, dy, counts, gu)
+    torch.cuda.synchronize()
+    assert MB.LAUNCHES_BY_ROUTE[way] == before[way] + 1
+    want = MB.grouped_expert_ff_bwd_plain(x, wi, wo, dy, counts)
+    for a, b in zip(got, want):
+        assert a.dtype == x.dtype and _rel(a, b) <= BWD_TOL[x.dtype]
+    del want
+    again = MB.grouped_expert_ff_bwd(x, wi, wo, dy, counts, gu)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 64, 256, 128), (8, 130, 128, 96)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_expert_ff_bwd_matches_plain(cuda, shape, dtype):
     """dx, dwi and dwo with the counts of a random routing, against the
-    plain closed form; two calls give the same bits."""
+    plain closed form; two calls give the same bits. bf16 takes the
+    tensor cores, float32 the CUDA cores."""
     E, C, d, f = shape
     x, wi, wo = _inputs(cuda, shape, dtype)
     dy = (torch.randn(E, C, d, device=cuda) * 0.1).to(dtype)
-    counts = _counts(cuda, E, C, 3)
-    got = MB.grouped_expert_ff_bwd(x, wi, wo, dy, counts)
-    want = MB.grouped_expert_ff_bwd_plain(x, wi, wo, dy, counts)
-    for a, b in zip(got, want):
-        assert a.dtype == dtype and _rel(a, b) <= BWD_TOL[dtype]
-    again = MB.grouped_expert_ff_bwd(x, wi, wo, dy, counts)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_check(x, wi, wo, dy, _counts(cuda, E, C, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (64, 1280, 2048, 1024),       # olmoe-1b-7b's layer
+    (2, 1280, 8192, 24576)])      # jamba's, on 2 of its 16 experts
+def test_tensor_core_bwd_at_the_paths_shapes(cuda, shape):
+    """The tensor-core route at the train paths' shapes, bf16, the
+    counts of a random routing."""
+    _bwd_check(*_path_bwd_inputs(cuda, shape, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 130, 64, 136), (64, 1280, 2048, 1024)])
+def test_forward_keeps_the_preactivation(cuda, shape):
+    """The tensor-core forward's gu: the float32 up product of the filled
+    rows rounded to bf16 (the largest error at most half a bf16 ulp of
+    the largest value, 2^-8 of it), the rows past the count untouched, y
+    the same bits as without gu."""
+    x, wi, wo, _, counts = _path_bwd_inputs(cuda, shape, 6)
+    E, C, d, f = shape
+    gu = torch.full((E, C, 2 * f), float("nan"), dtype=torch.bfloat16,
+                    device=cuda)
+    y = MD.grouped_expert_ff(x, wi, wo, counts, gu)
+    assert torch.equal(y, MD.grouped_expert_ff(x, wi, wo, counts))
+    live = MD.live_rows(counts, C, cuda)[..., 0]
+    want = torch.bmm(x.float(), wi.float())
+    assert torch.isnan(gu[~live].float()).all()
+    assert _rel(gu[live], want[live]) <= 2.0**-8
 
 
 @pytest.mark.cuda
 def test_function_launches_both_kernels(cuda):
-    """Under autograd the Function runs the forward kernel once and, in
-    the backward, the SwiGLU kernel once."""
-    x, wi, wo = (t.requires_grad_() for t in
-                 _inputs(cuda, (4, 64, 128, 64), torch.bfloat16))
+    """Under autograd the Function runs the forward kernel once, keeping
+    the pre-activation, and the backward once on the tensor cores; its
+    gradients are the plain version's (which recomputes the up product)
+    within BWD_TOL. Without grad it keeps nothing."""
+    x0, wi0, wo0 = _inputs(cuda, (4, 64, 128, 64), torch.bfloat16)
+    x, wi, wo = (t.clone().requires_grad_() for t in (x0, wi0, wo0))
     counts = _counts(cuda, 4, 64, 4)
-    n = MD.LAUNCHES, MB.LAUNCHES
-    MB.GroupedExpertFF.apply(x, wi, wo, counts).float().sum().backward()
+    dy = torch.randn(4, 64, 128, device=cuda).bfloat16()
+    n = MD.LAUNCHES, MB.LAUNCHES, MB.LAUNCHES_BY_ROUTE["tensor_cores"]
+    MB.GroupedExpertFF.apply(x, wi, wo, counts, True).backward(dy)
     torch.cuda.synchronize()
-    assert (MD.LAUNCHES, MB.LAUNCHES) == (n[0] + 1, n[1] + 1)
-    for t in (x, wi, wo):
+    assert (MD.LAUNCHES, MB.LAUNCHES, MB.LAUNCHES_BY_ROUTE["tensor_cores"]) \
+        == (n[0] + 1, n[1] + 1, n[2] + 1)
+    want = MB.grouped_expert_ff_bwd_plain(x0, wi0, wo0, dy, counts)
+    for t, w in zip((x, wi, wo), want):
         assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+        assert _rel(t.grad, w) <= BWD_TOL[torch.bfloat16]
+    with torch.no_grad():
+        y = MB.GroupedExpertFF.apply(x, wi, wo, counts, False)
+    assert y.grad_fn is None
 
 
 @pytest.mark.cuda

@@ -373,10 +373,10 @@ def host_tc_lib(tmp_path_factory):
     return lib
 
 
-def _host_tc_run(lib, x, wi, wo, counts=None):
+def _host_tc_run(lib, x, wi, wo, counts=None, gu=None):
     """(y, hexp, hmax, redo) of the tensor-core entry on the host; y and
     the scratch filled with garbage first, hmax with 7s (the launcher
-    zeroes it)."""
+    zeroes it). ``gu``, where given, receives the up product."""
     E, C, d = x.shape
     f = wo.shape[1]
     h, hexp, hmax, redo = MD.tc_scratch(E, C, d, f, "cpu")
@@ -388,8 +388,9 @@ def _host_tc_run(lib, x, wi, wo, counts=None):
     err = lib.moe_ff_bf16_tc(
         x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
         None if counts is None else counts.data_ptr(), h.data_ptr(),
-        hexp.data_ptr(), hmax.data_ptr(), redo.data_ptr(), y.data_ptr(),
-        E, C, d, f, None)
+        hexp.data_ptr(), hmax.data_ptr(), redo.data_ptr(),
+        None if gu is None else gu.data_ptr(), y.data_ptr(), E, C, d, f,
+        None)
     assert err == 0
     return y, hexp, hmax, redo
 

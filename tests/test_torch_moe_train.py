@@ -19,6 +19,13 @@ Tolerances, each with its reason:
     runtime in ``tests/cuda_host``, float32) against the plain versions:
     1e-6 relative (the same float32 operations; ``expf`` against torch's
     ``sigmoid``).
+  * the tensor-core route's bf16 kernels run on the host (g++ with
+    ``tests/cuda_host/sm90``'s wgmma emulation) against the plain
+    versions: ``BWD_TOL``'s bf16 1e-2 (float32 sums of bf16 products,
+    the saved pre-activation, dgu and h rounded to bf16 once each, as the
+    card's route rounds them); the forward's saved pre-activation against
+    the float32 up product: its largest error at most 2^-8 of its largest
+    value (half a bf16 ulp: one rounding of float32 sums).
 """
 import ctypes
 import shutil
@@ -42,6 +49,7 @@ from repro_torch.kernels.rmsnorm.rmsnorm import VEC16
 from repro_torch.models import moe as PM
 
 HOST_CUDA = Path(__file__).parent / "cuda_host"
+HOST_SM90 = HOST_CUDA / "sm90"
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 GRAD_TOL = 2e-2
 HOST_TOL = 1e-6
@@ -131,7 +139,7 @@ def test_function_on_cpu_takes_the_plain_versions():
     x, wi, wo, dy = _ff_inputs(4)
     counts = torch.tensor(COUNTS, dtype=torch.int32)
     leaves = [t.clone().requires_grad_() for t in (x, wi, wo)]
-    y = MB.GroupedExpertFF.apply(*leaves, counts)
+    y = MB.GroupedExpertFF.apply(*leaves, counts, True)
     assert torch.equal(y, MD.grouped_expert_ff_plain(x, wi, wo, counts))
     y.backward(dy)
     for g, leaf in zip(MB.grouped_expert_ff_bwd_plain(x, wi, wo, dy, counts),
@@ -260,12 +268,16 @@ def test_moe_ff_routes_its_gradient_through_the_functions(monkeypatch):
 # tests/cuda_host (one std::thread per CUDA thread), float32 only
 # --------------------------------------------------------------------------
 
-def _host_build(tmp_path_factory, src: Path, name: str):
+def _host_build(tmp_path_factory, src: Path, name: str, tc: bool = False):
+    """``src`` built with g++ against the stand-in runtime; ``tc``: with
+    ``-D__CUDACC__`` and the emulated ``sm90.cuh`` (the bf16 and
+    tensor-core code)."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is needed to run the CUDA sources on the host")
     so = tmp_path_factory.mktemp(name) / f"{name}.so"
+    flags = ["-D__CUDACC__", f"-I{HOST_SM90}"] if tc else []
     p = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", *flags,
          f"-I{HOST_CUDA}", f"-I{VEC16.parent}", "-x", "c++", "-o", str(so),
          str(src)], capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr
@@ -276,6 +288,20 @@ def _host_build(tmp_path_factory, src: Path, name: str):
 def swiglu_lib(tmp_path_factory):
     lib = _host_build(tmp_path_factory, MB.KERNEL.cu, "moe_dispatch_bwd")
     lib.swiglu_bwd_f32.argtypes = MB.KERNEL.argtypes["swiglu_bwd_f32"]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def bwd_tc_lib(tmp_path_factory):
+    lib = _host_build(tmp_path_factory, MB.KERNEL.cu, "moe_bwd_tc", tc=True)
+    lib.moe_ff_bwd_bf16_tc.argtypes = MB.KERNEL.argtypes["moe_ff_bwd_bf16_tc"]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def fwd_tc_lib(tmp_path_factory):
+    lib = _host_build(tmp_path_factory, MD.KERNEL.cu, "moe_fwd_tc", tc=True)
+    lib.moe_ff_bf16_tc.argtypes = MD.KERNEL.argtypes["moe_ff_bf16_tc"]
     return lib
 
 
@@ -302,6 +328,147 @@ def test_swiglu_source_matches_plain_on_host(f, with_counts, swiglu_lib):
         h.data_ptr(), E, C, f, None) == 0
     want = MB.swiglu_bwd_plain(gu, dh, counts)
     assert _rel(dgu, want[0]) <= HOST_TOL and _rel(h, want[1]) <= HOST_TOL
+
+
+# --------------------------------------------------------------------------
+# the tensor-core route run on the host: the forward's saved
+# pre-activation and the three backward kernels (moe_dh_tc, moe_dx_tc,
+# moe_dw_tc), built with g++ against tests/cuda_host/sm90, whose wgmma
+# reads its operands through the descriptors and the 128-byte swizzle
+# --------------------------------------------------------------------------
+
+#: (shape (E, C, d, f), counts): C past one 128-row block and not a
+#: multiple of it, f and 2f not multiples of the 256-column tile; counts
+#: none, all empty, a mix (empty, one past the first block, partial), all
+#: full; a second shape with d past one tile of 256 and 128 rows
+TC_CASES = [((3, 130, 64, 136), None), ((3, 130, 64, 136), [0, 0, 0]),
+            ((3, 130, 64, 136), [0, 129, 57]),
+            ((3, 130, 64, 136), [130, 130, 130]),
+            ((2, 40, 264, 72), [17, 40])]
+
+
+def _tc_inputs(shape, counts, seed):
+    x, wi, wo, dy = _ff_inputs(seed, torch.bfloat16, *shape)
+    c = None if counts is None else torch.tensor(counts, dtype=torch.int32)
+    return x, wi, wo, dy, c
+
+
+def _host_fwd_gu(lib, x, wi, wo, counts):
+    """The forward tensor-core entry on the host with a gu output filled
+    with NaN first: (y, gu)."""
+    E, C, d = x.shape
+    f = wo.shape[1]
+    scratch = MD.tc_scratch(E, C, d, f, "cpu")
+    gu = torch.full((E, C, 2 * f), float("nan"), dtype=torch.bfloat16)
+    y = torch.empty_like(x)
+    assert lib.moe_ff_bf16_tc(
+        x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+        None if counts is None else counts.data_ptr(),
+        *(t.data_ptr() for t in scratch), gu.data_ptr(), y.data_ptr(),
+        E, C, d, f, None) == 0
+    return y, gu
+
+
+def _host_bwd_tc(lib, x, wi, wo, dy, counts, gu):
+    """(dx, dwi, dwo) of the backward tensor-core entry on the host, the
+    outputs and the scratch filled with NaN first."""
+    E, C, d = x.shape
+    f = wo.shape[1]
+    nan = float("nan")
+    dgu = torch.full((E, C, 2 * f), nan, dtype=torch.bfloat16)
+    h = torch.full((E, C, f), nan, dtype=torch.bfloat16)
+    outs = [torch.full_like(t, nan) for t in (x, wi, wo)]
+    assert lib.moe_ff_bwd_bf16_tc(
+        dy.data_ptr(), x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+        gu.data_ptr(), None if counts is None else counts.data_ptr(),
+        dgu.data_ptr(), h.data_ptr(), *(t.data_ptr() for t in outs),
+        E, C, d, f, None) == 0
+    return outs
+
+
+@pytest.mark.parametrize("shape,counts", TC_CASES)
+def test_forward_keeps_the_preactivation_on_host(shape, counts, fwd_tc_lib):
+    """moe_up_tc's gu output: the gate and up products of the filled rows
+    in bf16, the float32 x @ wi rounded once (2^-8 of the largest value);
+    the rows past the count not written (still NaN); y as without gu (the
+    same bits)."""
+    x, wi, wo, _, c = _tc_inputs(shape, counts, 40)
+    y, gu = _host_fwd_gu(fwd_tc_lib, x, wi, wo, c)
+    E, C = shape[:2]
+    filled = torch.ones(E, C, dtype=torch.bool) if c is None else \
+        torch.from_numpy(_live(counts, E, C)[..., 0])
+    want = torch.bmm(x.float(), wi.float())
+    got = gu.float()
+    assert torch.isnan(got[~filled]).all()
+    if filled.any():
+        assert _rel(got[filled], want[filled]) <= 2.0**-8
+    scratch = MD.tc_scratch(E, C, shape[2], shape[3], "cpu")
+    y0 = torch.empty_like(x)
+    assert fwd_tc_lib.moe_ff_bf16_tc(
+        x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+        None if c is None else c.data_ptr(),
+        *(t.data_ptr() for t in scratch), None, y0.data_ptr(),
+        E, C, shape[2], shape[3], None) == 0
+    assert torch.equal(y, y0)
+
+
+@pytest.mark.parametrize("shape,counts", TC_CASES)
+def test_tensor_core_bwd_source_matches_plain_on_host(shape, counts,
+                                                      bwd_tc_lib):
+    """dx, dwi and dwo of the three wgmma kernels from the saved
+    pre-activation (the plain up product in bf16), against the plain
+    closed form, x's rows past the count not zero here: dx is exactly
+    zero there, and an expert with count 0 gets exactly zero weight
+    gradients; every output element written."""
+    x, wi, wo, dy, c = _tc_inputs(shape, counts, 41)
+    gu = MD.up_product_plain(x, wi, c)
+    got = _host_bwd_tc(bwd_tc_lib, x, wi, wo, dy, c, gu)
+    want = MB.grouped_expert_ff_bwd_plain(x, wi, wo, dy, c)
+    for name, g, w in zip(("dx", "dwi", "dwo"), got, want):
+        assert not torch.isnan(g.float()).any(), name
+        assert _rel(g.float(), w.float()) <= BWD_TOL[torch.bfloat16], name
+    if c is not None:
+        E, C = shape[:2]
+        live = torch.from_numpy(_live(counts, E, C)[..., 0])
+        assert (got[0][~live] == 0).all()
+        for e in range(E):
+            if counts[e] == 0:
+                assert not got[1][e].any() and not got[2][e].any()
+
+
+def test_tensor_core_bwd_refuses_shapes_it_does_not_take(bwd_tc_lib):
+    """C = 1 and f not a multiple of 8: the entry returns an error and
+    launches nothing (route() sends those to the CUDA cores)."""
+    for shape in ((2, 1, 64, 32), (2, 8, 64, 12)):
+        x, wi, wo, dy, _ = _tc_inputs(shape, None, 42)
+        E, C, d, f = shape
+        gu = torch.zeros(E, C, 2 * f, dtype=torch.bfloat16)
+        scratch = [torch.zeros(E, C, 2 * f, dtype=torch.bfloat16),
+                   torch.zeros(E, C, f, dtype=torch.bfloat16),
+                   torch.zeros_like(x), torch.zeros_like(wi),
+                   torch.zeros_like(wo)]
+        assert bwd_tc_lib.moe_ff_bwd_bf16_tc(
+            dy.data_ptr(), x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+            gu.data_ptr(), None, *(t.data_ptr() for t in scratch), E, C, d,
+            f, None) != 0
+        assert not scratch[2].any()
+
+
+def test_function_with_kept_preactivation_matches_the_recompute():
+    """The Function's route logic on the CPU: the plain forward with a gu
+    output fills it with the plain up product (rows past the count
+    zero), and ``route`` sends bf16 at C > 1 with d and f multiples of 8
+    to the tensor cores, everything else to the CUDA cores."""
+    x, wi, wo, _, c = _tc_inputs((3, 130, 64, 136), [0, 129, 57], 43)
+    gu = torch.full((3, 130, 272), float("nan"), dtype=torch.bfloat16)
+    y = MD.grouped_expert_ff(x, wi, wo, c, gu)
+    assert torch.equal(y, MD.grouped_expert_ff_plain(x, wi, wo, c))
+    assert torch.equal(gu, MD.up_product_plain(x, wi, c))
+    assert not gu[0].any() and not gu[2, 57:].any()
+    assert MB.route(torch.bfloat16, 1280, 2048, 1024) == "tensor_cores"
+    assert MB.route(torch.bfloat16, 1, 2048, 1024) == "cuda_cores"
+    assert MB.route(torch.bfloat16, 8, 64, 12) == "cuda_cores"
+    assert MB.route(torch.float32, 1280, 2048, 1024) == "cuda_cores"
 
 
 @pytest.mark.parametrize("d", [64, 600, 13])   # vectors; past a CTA; scalar

@@ -149,13 +149,24 @@ def _rel(got, want) -> float:
                  / want.float().abs().max().clamp_min(1e-30))
 
 
+def _saved_states(dA, dBx, Cm, h0):
+    """The forward kernel's states from h0 (None: zeros)."""
+    B, S, d, n = dA.shape
+    states = torch.empty(SS.states_shape(B, S, d, n), device=dA.device)
+    SS.selective_scan(dA, dBx, Cm, None if h0 is None else h0.clone(),
+                      states)
+    return states
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
-    (2, 40, 16, 8), (2, 64, 300, 16), (1, 37, 200, 4), (4, 256, 1024, 16)])
+    (2, 40, 16, 8), (2, 64, 300, 16), (1, 37, 200, 4), (4, 256, 1024, 16),
+    (1, 13, 600, 8),
+    (4, 256, 16384, 16)])         # jamba's chunk
 @pytest.mark.parametrize("with_states", [False, True])
 def test_selective_scan_bwd_kernel_matches_plain(cuda, shape, with_states):
-    """Every output against the reverse torch loop; two calls give the
-    same bits."""
+    """Every output against the reverse torch loop, from the forward's
+    saved states; two calls give the same bits."""
     B, S, d, n = shape
     dA, dBx, Cm = _inputs(cuda, shape, torch.float32)
     g = torch.Generator(cuda).manual_seed(9)
@@ -163,15 +174,60 @@ def test_selective_scan_bwd_kernel_matches_plain(cuda, shape, with_states):
     h0, dh = ((torch.randn(B, d, n, generator=g, device=cuda),
                torch.randn(B, d, n, generator=g, device=cuda))
               if with_states else (None, None))
+    states = _saved_states(dA, dBx, Cm, h0)
     before = SB.LAUNCHES
-    got = SB.selective_scan_bwd(dA, dBx, Cm, h0, dy, dh)
+    got = SB.selective_scan_bwd(dA, dBx, Cm, h0, dy, dh, states)
     torch.cuda.synchronize()
     assert SB.LAUNCHES == before + 1
     want = SB.selective_scan_bwd_plain(dA, dBx, Cm, h0, dy, dh)
     for a, b in zip(got, want):
         assert _rel(a, b) <= BWD_TOL
-    again = SB.selective_scan_bwd(dA, dBx, Cm, h0, dy, dh)
+    again = SB.selective_scan_bwd(dA, dBx, Cm, h0, dy, dh, states)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 200, 16), (4, 256, 16384, 16)])
+def test_forward_states_match_plain(cuda, shape):
+    """The forward's saved states against the plain loop's (the same
+    float32 steps), and y the same bits with and without them."""
+    B, S, d, n = shape
+    dA, dBx, Cm = _inputs(cuda, shape, torch.float32)
+    h0 = torch.randn(B, d, n, device=cuda)
+    states = torch.empty(SS.states_shape(B, S, d, n), device=cuda)
+    y = SS.selective_scan(dA, dBx, Cm, h0.clone(), states)
+    assert torch.equal(y, SS.selective_scan(dA, dBx, Cm, h0.clone()))
+    want = torch.empty_like(states)
+    SS.selective_scan_plain(dA, dBx, Cm, h0.clone(), want)
+    torch.testing.assert_close(states, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(states[:, 0], h0)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_refuses_no_states(cuda):
+    dA, dBx, Cm = _inputs(cuda, (1, 8, 32, 16), torch.float32)
+    dy = torch.randn(1, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="states"):
+        SB.selective_scan_bwd(dA, dBx, Cm, None, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [256, 37])
+def test_function_gradient_matches_plain(cuda, S):
+    """The Function's gradients (the backward kernels from the forward's
+    saved states) against the plain version's (which recomputes every
+    state), at the path's width."""
+    B, d, n = 2, 4096, 16
+    dA, dBx, Cm = _inputs(cuda, (B, S, d, n), torch.float32)
+    h0 = torch.randn(B, d, n, device=cuda)
+    dy = torch.randn(B, S, d, device=cuda)
+    dh = torch.randn(B, d, n, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (dA, dBx, Cm, h0)]
+    y, h = SB.SelectiveScan.apply(*leaves)
+    torch.autograd.backward((y, h), (dy, dh))
+    want = SB.selective_scan_bwd_plain(dA, dBx, Cm, h0, dy, dh)
+    for leaf, w in zip(leaves, want):
+        assert _rel(leaf.grad, w) <= BWD_TOL
 
 
 @pytest.mark.cuda

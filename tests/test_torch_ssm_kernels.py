@@ -175,8 +175,8 @@ def test_source_matches_plain_on_host(shape, with_state, host_lib):
     y = torch.full((B, S, d), float("nan"))
     err = host_lib.selective_scan_f32(
         dA.data_ptr(), dBx.data_ptr(), Cm.data_ptr(),
-        h.data_ptr() if with_state else None, y.data_ptr(), B, S, d, n,
-        None)
+        h.data_ptr() if with_state else None, None, y.data_ptr(), B, S, d,
+        n, None)
     assert err == 0
     want = SS.selective_scan_plain(dA, dBx, Cm,
                                    want_h if with_state else None)
@@ -188,5 +188,6 @@ def test_source_refuses_a_state_size_it_does_not_take(host_lib):
     (dA, dBx, Cm), _ = _inputs((1, 4, 8, 2), 7)
     y = torch.zeros(1, 4, 8)
     assert host_lib.selective_scan_f32(dA.data_ptr(), dBx.data_ptr(),
-                                       Cm.data_ptr(), None, y.data_ptr(),
-                                       1, 4, 8, 2, None) != 0
+                                       Cm.data_ptr(), None, None,
+                                       y.data_ptr(), 1, 4, 8, 2,
+                                       None) != 0

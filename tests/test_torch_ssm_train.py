@@ -13,11 +13,15 @@ both packages. Tolerances, each with its reason:
     the mamba block's gradients against ``jax.grad`` of the reference's,
     in float32 (the point is the algorithm; the whole hybrid LM in bf16 is
     ROADMAP C15).
-  * the CUDA source run on the host (g++ and the stand-in runtime in
+  * the CUDA sources run on the host (g++ and the stand-in runtime in
     ``tests/cuda_host``) against the plain version: 1e-6 relative (the
-    same float32 recurrence; dCm summed by a warp butterfly).
+    same float32 recurrence, each segment recomputed from the forward's
+    saved state; dCm summed by a warp butterfly and over the CTAs); the
+    forward's saved states bit for bit (the same float32 operations in
+    the same order).
 """
 import ctypes
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -219,35 +223,70 @@ def test_mamba_scan_recomputes_each_chunk_in_the_backward(block,
 # tests/cuda_host (one std::thread per CUDA thread)
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+HOST_SM90 = HOST_CUDA / "sm90"
+
+
+def _host_build(tmp_path_factory, src, name, entry, argtypes, tc):
     if shutil.which("g++") is None:
         pytest.skip("g++ is needed to run the CUDA sources on the host")
-    so = tmp_path_factory.mktemp("host_ssb") / "selective_scan_bwd.so"
+    so = tmp_path_factory.mktemp(name) / f"{name}.so"
+    flags = ["-D__CUDACC__", f"-I{HOST_SM90}"] if tc else []
     p = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-         f"-I{HOST_CUDA}", "-x", "c++", "-o", str(so), str(SB.KERNEL.cu)],
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", *flags,
+         f"-I{HOST_CUDA}", "-x", "c++", "-o", str(so), str(src)],
         capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr
     lib = ctypes.CDLL(str(so))
-    lib.selective_scan_bwd_f32.argtypes = SB.KERNEL.argtypes[
-        "selective_scan_bwd_f32"]
+    getattr(lib, entry).argtypes = argtypes
     return lib
 
 
-def _host_run(lib, t, with_states):
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The backward (its cp.async copies under the emulated sm90.cuh)."""
+    return _host_build(tmp_path_factory, SB.KERNEL.cu, "host_ssb",
+                       "selective_scan_bwd_f32",
+                       SB.KERNEL.argtypes["selective_scan_bwd_f32"], True)
+
+
+@pytest.fixture(scope="module")
+def fwd_lib(tmp_path_factory):
+    """The forward, which saves the states."""
+    return _host_build(tmp_path_factory, SS.KERNEL.cu, "host_ss",
+                       "selective_scan_f32",
+                       SS.KERNEL.argtypes["selective_scan_f32"], False)
+
+
+def _host_states(fwd_lib, t, h0):
+    """The forward kernel's saved states (NaN first) from h0 (None:
+    zeros), and the states of the plain forward."""
+    B, S, d, n = t["dA"].shape
+    states = torch.full(SS.states_shape(B, S, d, n), float("nan"))
+    h = None if h0 is None else h0.clone()
+    y = torch.empty(B, S, d)
+    assert fwd_lib.selective_scan_f32(
+        t["dA"].data_ptr(), t["dBx"].data_ptr(), t["Cm"].data_ptr(),
+        None if h is None else h.data_ptr(), states.data_ptr(),
+        y.data_ptr(), B, S, d, n, None) == 0
+    want = torch.full_like(states, float("nan"))
+    SS.selective_scan_plain(t["dA"], t["dBx"], t["Cm"],
+                            None if h0 is None else h0.clone(), want)
+    return states, want
+
+
+def _host_run(lib, fwd_lib, t, h0, dh):
     B, S, d, n = t["dA"].shape
     outs = [torch.full_like(t["dA"], float("nan")),
             torch.full_like(t["dBx"], float("nan")),
             torch.full_like(t["Cm"], float("nan")),
             torch.full((B, d, n), float("nan"))]
-    n_cb = -(-d // SB.CTA_CHANNELS)
-    partial = torch.full((B, n_cb * SB.CTA_CHANNELS // 32, S, n),
-                         float("nan"))
-    h0, dh = (t["h0"], t["dh"]) if with_states else (None, None)
+    n_cb = -(-d // SB.cta_channels(n)) if n in SS.STATE_SIZES else 1
+    partial = torch.full((B, n_cb, S, n), float("nan"))
+    states = (_host_states(fwd_lib, t, h0)[0] if n in SS.STATE_SIZES
+              else torch.zeros(SS.states_shape(B, S, d, n)))
     err = lib.selective_scan_bwd_f32(
         t["dA"].data_ptr(), t["dBx"].data_ptr(), t["Cm"].data_ptr(),
-        None if h0 is None else h0.data_ptr(), t["dy"].data_ptr(),
+        states.data_ptr(), t["dy"].data_ptr(),
         None if dh is None else dh.data_ptr(), outs[0].data_ptr(),
         outs[1].data_ptr(), partial.data_ptr(), outs[2].data_ptr(),
         outs[3].data_ptr(), B, S, d, n, None)
@@ -258,15 +297,61 @@ def _host_run(lib, t, with_states):
 @pytest.mark.parametrize("shape", [
     (2, 40, 16, 8), (2, 17, 16, 16), (1, 12, 32, 4),
     (2, 9, 200, 16),      # d past one CTA and not a multiple of 32
+    (1, 13, 600, 4),      # S ragged at n = 4, d past one CTA
+    (2, 6, 300, 8),       # S ragged at n = 8, d past one CTA
 ])
 @pytest.mark.parametrize("with_states", [False, True])
-def test_source_matches_plain_on_host(shape, with_states, host_lib):
-    err, got, want = _host_run(host_lib, _inputs(shape, 30), with_states)
+def test_source_matches_plain_on_host(shape, with_states, host_lib,
+                                      fwd_lib):
+    """From the forward kernel's saved states (a segment of STATE_EVERY
+    steps; S a multiple of it or not), with h0 and dh_last or neither."""
+    t = _inputs(shape, 30)
+    h0, dh = (t["h0"], t["dh"]) if with_states else (None, None)
+    err, got, want = _host_run(host_lib, fwd_lib, t, h0, dh)
     assert err == 0
     for name, g, w in zip(("d(dA)", "d(dBx)", "dCm", "dh0"), got, want):
         assert _rel(g, w) <= HOST_TOL, name
 
 
-def test_source_refuses_a_state_size_it_does_not_take(host_lib):
+@pytest.mark.parametrize("which", ["h0", "dh_last"])
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_source_with_one_state_matches_plain_on_host(which, n, host_lib,
+                                                     fwd_lib):
+    """A first state without a last-state gradient, and the other way
+    round, at each state size, S = 11 (ragged)."""
+    t = _inputs((2, 11, 40, n), 31 + n)
+    h0 = t["h0"] if which == "h0" else None
+    dh = t["dh"] if which == "dh_last" else None
+    err, got, want = _host_run(host_lib, fwd_lib, t, h0, dh)
+    assert err == 0
+    for name, g, w in zip(("d(dA)", "d(dBx)", "dCm", "dh0"), got, want):
+        assert _rel(g, w) <= HOST_TOL, name
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 200, 16), (1, 13, 24, 4)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_forward_states_match_plain_on_host(shape, with_h0, fwd_lib):
+    """The forward kernel's states: the state entering every
+    STATE_EVERY-th step, the first h0's (or zeros), equal to the plain
+    forward's bit for bit."""
+    t = _inputs(shape, 32)
+    got, want = _host_states(fwd_lib, t, t["h0"] if with_h0 else None)
+    assert torch.equal(got, want)
+    assert torch.equal(got[:, 0], t["h0"] if with_h0
+                       else torch.zeros_like(t["h0"]))
+
+
+def test_segment_is_the_shape_of_the_states():
+    """Both scan sources take the segment from one header, whose kSeg
+    is the STATE_EVERY that sizes ``states``; the two kernels' build keys
+    cover it."""
+    m = re.search(r"constexpr int kSeg = (\d+);", SS.SEGMENT_H.read_text())
+    assert m and int(m.group(1)) == SS.STATE_EVERY
+    for k in (SS.KERNEL, SB.KERNEL):
+        assert SS.SEGMENT_H in k.headers
+        assert '#include "scan_segment.cuh"' in k.cu.read_text()
+
+
+def test_source_refuses_a_state_size_it_does_not_take(host_lib, fwd_lib):
     t = _inputs((1, 4, 8, 2), 7)
-    assert _host_run(host_lib, t, False)[0] != 0
+    assert _host_run(host_lib, fwd_lib, t, None, None)[0] != 0
