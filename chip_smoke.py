@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Thirteen paths of the port, each at full width:
+Fourteen paths of the port, each at full width:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
@@ -155,6 +155,20 @@ Thirteen paths of the port, each at full width:
     CPU on 1 x 64 tokens with 16 patches (the loss and every leaf's
     gradient; AdamW is granite's, held there). A ``{"train_encdec_vlm":
     ...}`` JSON line holds both paths' steps;
+  * distribution (``distributed_phase``): ranks as processes sharing the
+    one card over gloo, each computing on the card through the kernels
+    (gloo's point to point staged through host memory, counted): GPipe,
+    granite-3-2b's 40 layers in 4 stages on 4 ranks, 4 microbatches of 1
+    x 2048, against one process (``granite-3-2b/gpipe``); the sharded
+    train step on (data 2, model 2) at full width cut to 2 layers for
+    granite-3-2b and olmoe-1b-7b (32 of 64 experts a rank), the loss,
+    every leaf's gradient and the grad norm against the one-process step
+    (``granite-3-2b/tp_train``, ``olmoe-1b-7b/tp_train``); the sharded
+    decode on (1, 4) with a head-sharded cache and on (1, 3) with a
+    sequence-sharded one, against one process (``granite-3-2b/
+    tp_decode``). A ``{"distributed": ...}`` JSON line holds the ranks'
+    ms, peak GB and staged bytes; times shared by the ranks on one card
+    are no multi-card times;
   * the port's four examples (``examples/torch_*.py``: the quickstart,
     the SIMT demo, serving with ``--storm`` and ``--launch-storm``, 20
     steps of the ~110 M training example), each on the card in a process
@@ -3382,6 +3396,417 @@ def vlm_phase(dev, seed: int, reps: int):
     return {f"{arch}/train": counts}, summary
 
 
+# --------------------------------------------------------------------------
+# distribution: several ranks as processes that share the one card
+# --------------------------------------------------------------------------
+
+#: GPipe: granite at full width and depth, 40 layers in 4 stages of 10, 4
+#: microbatches of 1 x 2048 embedded tokens
+GPIPE_STAGES, GPIPE_M, GPIPE_S = 4, 4, 2048
+#: the sharded train step: mesh (data 2, model 2), full width cut to 2
+#: layers, one step of 4 x 2048 tokens (then one more, timed)
+TP_MESH, TP_CUT, TP_B, TP_S = (2, 2), {"n_layers": 2}, 4, 2048
+#: the sharded decode: 8 slots, 6 steps, a cache a multiple of 3 and 4
+#: long; on (1, 4) granite's 8 kv heads shard, on (1, 3) nothing divides
+#: 3 and the cache is sequence-sharded
+DEC_MESHES, DEC_SLOTS, DEC_STEPS, DEC_LEN = ((1, 4), (1, 3)), 8, 6, 384
+DIST_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_counts(fn):
+    """``fn()`` on this rank with the counts set to 0 just before and read
+    just after -> (its result, its wall s, counts, counts by route)."""
+    _zero_counts()
+    out, secs = _sync_s(fn)
+    return out, secs, _counts(), _route_counts()
+
+
+def _gpipe_rank(dev, seed, rank):
+    """One stage of the GPipe pipeline (rank 0: also the one-process run
+    of the 40 layers, microbatch by microbatch, held against it)."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.pipeline import (bubble_share,
+                                                  make_pipelined_apply)
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_config(LM_ARCH)
+    model = get_model(cfg)
+    params = init_params(model.blueprint(),
+                         torch.Generator(dev).manual_seed(seed))
+    P, L = GPIPE_STAGES, cfg.n_layers
+    staged = tree_map(lambda a: a.view((P, L // P) + a.shape[1:]),
+                      params["stack"])
+    g = torch.Generator(dev).manual_seed(seed + 3)
+    xs = torch.randn(GPIPE_M, 1, GPIPE_S, cfg.d_model, generator=g,
+                     device=dev).bfloat16()
+    pos = torch.arange(GPIPE_S, device=dev)[None, :]
+
+    def layer_fn(stage_params, x):
+        return model._run_stack(stage_params, x, pos, kinds=model.period,
+                                causal=True)[0]
+
+    mesh = make_mesh((P,), ("pipe",), dev)
+    apply = make_pipelined_apply(mesh, layer_fn, GPIPE_M)
+    col.reset()
+    ys, secs, counts, routes = _rank_counts(lambda: apply(staged, xs))
+    staged_bytes = dict(col.STAGED)
+    _, secs2 = _sync_s(lambda: apply(staged, xs))
+    out = {"counts": counts, "routes": routes, "ms": secs * 1e3,
+           "ms_again": secs2 * 1e3, "staged": staged_bytes,
+           "bubble": bubble_share(P, GPIPE_M),
+           "finite": bool(torch.isfinite(ys.float()).all())}
+    if rank == 0:
+        want = torch.stack([layer_fn(params["stack"], xs[m])
+                            for m in range(GPIPE_M)])
+        out["max_abs_err"] = float((ys.float() - want.float()).abs().max())
+        out["ok"] = bool(torch.equal(ys, want))
+        out["scale"] = float(want.float().abs().max())
+    return out
+
+
+def _tp_train_rank(dev, seed, rank, arch):
+    """One rank's sharded train step on TP_MESH (rank 0: also the
+    one-process step on the same params and batch, held against it)."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.train_step import (jit_train_step, make_step_ctx,
+                                              shard_batch)
+    cfg = dataclasses.replace(get_config(arch), **TP_CUT)
+    model = get_model(cfg)
+    mesh = make_mesh(TP_MESH, ("data", "model"), dev)
+
+    def fresh():
+        p = init_params(model.blueprint(), torch.Generator(dev).manual_seed(
+            seed))
+        _zero_routers(p)
+        return p
+
+    tg = torch.Generator(dev).manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TP_B, TP_S),
+                                     generator=tg, device=dev)}
+    opt = MOE_OPT if cfg.moe_experts else AdamWConfig()
+    scfg = StepConfig(remat=True, opt=opt)
+    step, (_, _, bsh) = jit_train_step(model, mesh, scfg, "train_4k")
+    ctx = make_step_ctx(model, mesh, "train_4k")
+    full = fresh()
+    lp = ctx.shard_tree(full)
+    del full
+    lo = init_opt_state(lp, opt)
+    lb = shard_batch(batch, ctx, bsh)
+    torch.cuda.reset_peak_memory_stats()
+    col.reset()
+    (lp, lo, met), secs, counts, routes = _rank_counts(
+        lambda: step(lp, lo, lb))
+    staged_bytes = dict(col.STAGED)
+    coll = col.counters()
+    # the gradients, sharded and whole, of every leaf: one AdamW step at
+    # the warmup's first lr (3e-6) moves a bf16 weight by less than its
+    # ulp, so the params after it barely see the gradient; the gradients
+    # and the grad norm are what hold the sharded backward
+    smodel = model.sharded(ctx)
+    gp = ctx.shard_tree(fresh())
+    _, sg = value_and_grad(smodel, gp, lb, remat=True,
+                           scale=1.0 / ctx.size(ctx.axes))
+    sg = ctx.unshard_tree(ctx.sum_replicas(sg))
+    whole = ctx.unshard_tree(lp)
+    out = {"counts": counts, "routes": routes, "first_ms": secs * 1e3,
+           "staged": staged_bytes, "collectives": coll,
+           "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])}
+    if rank == 0:
+        p1 = fresh()
+        from_zero = {n for n, a in zip(_leaf_names(p1), leaves(p1))
+                     if not a.float().any()}
+        o1 = init_opt_state(p1, opt)
+        _zero_counts()
+        p1, o1, m1 = build_train_step(model, scfg)(p1, o1, batch)
+        _, g1 = value_and_grad(model, fresh(), batch, remat=True)
+        names = _leaf_names(p1)
+
+        def rel(a, b):
+            return float((a.float() - b.float()).norm()
+                         / b.float().norm().clamp_min(1e-30))
+        out["loss_one"] = float(m1["loss"])
+        out["grad_norm_one"] = float(m1["grad_norm"])
+        out["perr"] = {n: rel(a, b) for n, a, b in
+                       zip(names, leaves(whole), leaves(p1))
+                       if n not in from_zero}
+        out["gerr"] = {n: rel(a, b) for n, a, b in
+                       zip(names, leaves(sg), leaves(g1))
+                       if b.float().any()}
+        out["zero_grads"] = sorted(
+            n for n, b in zip(names, leaves(g1)) if not b.float().any())
+        out["zero_grads_sharded"] = sorted(
+            n for n, a in zip(names, leaves(sg)) if not a.float().any())
+        del p1, o1, g1
+    del whole, sg, gp
+    torch.cuda.synchronize()
+    _, secs2 = _sync_s(lambda: step(lp, lo, lb))
+    out["step_ms"] = secs2 * 1e3
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _tp_decode_rank(dev, seed, rank, shape):
+    """DEC_STEPS sharded decode steps of granite cut to 2 layers on a mesh
+    (1, n) (rank 0: also the one-process decode_step, held against
+    them)."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.blueprint import PSpec
+    from repro_torch.train.train_step import jit_decode_step, make_step_ctx
+    cfg = dataclasses.replace(get_config(LM_ARCH), **TP_CUT)
+    model = get_model(cfg)
+    mesh = make_mesh(shape, ("data", "model"), dev)
+    params = init_params(model.blueprint(),
+                         torch.Generator(dev).manual_seed(seed))
+    step, (_, bsh) = jit_decode_step(model, mesh, "decode_32k")
+    ctx = make_step_ctx(model, mesh, "decode_32k")
+    lp = ctx.shard_tree(params)
+    cache = model.init_cache(DEC_SLOTS, DEC_LEN, device=dev)
+    lcache = tree_map(lambda t, sp: ctx.shard(t, sp).clone(), cache,
+                      bsh["cache"])
+    g = torch.Generator(dev).manual_seed(seed + 4)
+    toks = torch.randint(0, cfg.vocab, (DEC_SLOTS, DEC_STEPS), generator=g,
+                         device=dev)
+    vspec = PSpec(ctx.batch or None, None,
+                  "model" if ctx.logical("vocab") else None)
+    col.reset()
+
+    def steps():
+        outs = []
+        for t in range(DEC_STEPS):
+            pos = torch.full((DEC_SLOTS,), t, device=dev)
+            lb = {"tokens": ctx.shard(toks[:, t:t + 1], bsh["tokens"]),
+                  "pos": ctx.shard(pos, bsh["pos"]), "cache": lcache}
+            outs.append(ctx.unshard(step(lp, lb)[0], vspec))
+        return outs
+
+    got, secs, counts, routes = _rank_counts(steps)
+    out = {"counts": counts, "routes": routes, "ms": secs * 1e3 / DEC_STEPS,
+           "staged": dict(col.STAGED), "seq": list(ctx.seq),
+           "cache_spec": list(map(str, bsh["cache"][0]["k"]))}
+    if rank == 0:
+        rc = model.init_cache(DEC_SLOTS, DEC_LEN, device=dev)
+        err = 0.0
+        for t in range(DEC_STEPS):
+            want, _ = model.decode_step(params, rc, toks[:, t:t + 1],
+                                        torch.full((DEC_SLOTS,), t,
+                                                   device=dev))
+            err = max(err, float((got[t] - want).abs().max()))
+        out["max_abs_err"] = err
+    return out
+
+
+def _dist_rank(rank, world, port, parts, seed, q):
+    """A rank of the distributed phase: joins a gloo world of ``world``
+    on this card and runs ``parts`` in turn, putting each one's result
+    (or its error) on ``q``."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=240))
+        for name, args in parts:
+            fn = {"gpipe": _gpipe_rank, "tp_train": _tp_train_rank,
+                  "tp_decode": _tp_decode_rank}[name]
+            q.put((rank, name, args, fn(dev, seed, rank, *args)))
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+    except BaseException:
+        q.put((rank, "error", None, traceback.format_exc()))
+
+
+def _dist_world(world, parts, seed) -> dict:
+    """Spawn ``world`` ranks on the card, each running ``parts``; ->
+    {part: [each rank's result]}. A rank's error fails the phase."""
+    import multiprocessing as mpl
+    ctx = mpl.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(r, world, port, parts, seed, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out: dict = {}
+    try:
+        for _ in range(world * len(parts)):
+            rank, name, args, res = q.get(timeout=DIST_TIMEOUT_S)
+            if name == "error":
+                raise AssertionError(f"distributed rank {rank}:\n{res}")
+            out.setdefault((name, tuple(args)), [None] * world)[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    return out
+
+
+def _dist_path(label, results, want) -> tuple:
+    """The ranks' launches summed: every kernel of ``want`` launched
+    exactly that often in all, none other, each flash_attention and
+    flash_attention_bwd launch on the tensor cores; -> (counts, counts
+    by route)."""
+    counts = {k: sum(r["counts"][k] for r in results) for k in KERNELS}
+    routes = {k: {w: sum(r["routes"][k][w] for r in results)
+                  for w in ("tensor_cores", "cuda_cores")} for k in ROUTED}
+    full = {k: want.get(k, 0) for k in KERNELS}
+    if counts != full:
+        raise AssertionError(f"{label} launched {counts}; expected {full}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if routes[name] != {"tensor_cores": counts[name], "cuda_cores": 0}:
+            raise AssertionError(f"{label}: {name} launched {routes[name]} "
+                                 "by route; every launch must take the "
+                                 "tensor cores")
+    print(f"{label}: launches over the ranks {counts}, by route {routes}")
+    return counts, routes
+
+
+def distributed_phase(seed: int) -> tuple:
+    """Several ranks as processes on the one card, talking over gloo (NCCL
+    takes one rank a device); every rank computes on the card through the
+    port's kernels, and a collective's tensors stay there but for gloo's
+    point to point, which goes through host memory (counted). Its times
+    are this card's, shared by the ranks: no multi-card claim.
+
+      * GPipe: granite-3-2b's 40 layers in 4 stages of 10 on 4 ranks, 4
+        microbatches of 1 x 2048 embedded tokens, against one process
+        running the same layers on the same microbatches, bit for bit;
+      * the sharded train step on (data 2, model 2), full width cut to 2
+        layers, 4 x 2048 tokens: granite-3-2b (32 heads, 8 kv heads, vocab
+        sharded 2 ways) and olmoe-1b-7b (32 of 64 experts a rank, bf16
+        moments), the loss, every leaf's gathered gradient and the grad
+        norm against the one-process step (routers zeroed), and the
+        params after AdamW as well;
+      * the sharded decode of granite cut to 2 layers, 8 slots, 6 steps,
+        on (1, 4) (head-sharded cache) and (1, 3) (nothing divides 3:
+        heads replicated, the cache sequence-sharded), against the
+        one-process decode_step.
+
+    Returns (the counts by path, a summary)."""
+    world4 = _dist_world(4, [("gpipe", ()), ("tp_train", (LM_ARCH,)),
+                             ("tp_train", (MOE_ARCH,)),
+                             ("tp_decode", (DEC_MESHES[0],))], seed)
+    world3 = _dist_world(3, [("tp_decode", (DEC_MESHES[1],))], seed)
+    res = {**world4, **world3}
+    by_path, summary = {}, {}
+    cfg = get_config(LM_ARCH)
+    L = cfg.n_layers
+
+    # GPipe
+    gp = res[("gpipe", ())]
+    label = f"{LM_ARCH}/gpipe"
+    by_path[label], ROUTE_COUNTS[label] = _dist_path(
+        label, gp, {"rmsnorm": 2 * L * GPIPE_M,
+                    "flash_attention": L * GPIPE_M})
+    r0 = gp[0]
+    print(f"check {label}: {GPIPE_STAGES} stages x {L // GPIPE_STAGES} "
+          f"layers, {GPIPE_M} microbatches of 1 x {GPIPE_S}, against one "
+          f"process: max abs err {r0['max_abs_err']:.3g} (bit for bit "
+          f"required: the same kernels at the same shapes; largest |y| "
+          f"{r0['scale']:.3g})")
+    if not r0["ok"] or not all(r["finite"] for r in gp):
+        raise AssertionError(f"{label}: pipeline outputs differ from one "
+                             "process's")
+    print(f"{label}: wall ms per rank (counted run) "
+          f"{[round(r['ms'], 1) for r in gp]}, again "
+          f"{[round(r['ms_again'], 1) for r in gp]}; bubble share "
+          f"{r0['bubble']:.3f}; bytes staged through host by rank "
+          f"{[r['staged'] for r in gp]}")
+    summary["gpipe"] = {"ms": [r["ms_again"] for r in gp],
+                        "bubble": r0["bubble"],
+                        "max_abs_err": r0["max_abs_err"],
+                        "staged": [r["staged"] for r in gp]}
+
+    # the sharded train steps
+    for arch in (LM_ARCH, MOE_ARCH):
+        rs = res[("tp_train", (arch,))]
+        c = dataclasses.replace(get_config(arch), **TP_CUT)
+        Lc = c.n_layers
+        fwd = {"rmsnorm": 2 * Lc + 1 + 2 * Lc, "flash_attention": 2 * Lc,
+               "rmsnorm_bwd": 2 * Lc + 1, "flash_attention_bwd": Lc}
+        if c.moe_experts:
+            fwd.update(moe_dispatch=2 * Lc, moe_dispatch_bwd=Lc,
+                       moe_combine=3 * Lc)
+        world = TP_MESH[0] * TP_MESH[1]
+        label = f"{arch}/tp_train"
+        by_path[label], ROUTE_COUNTS[label] = _dist_path(
+            label, rs, {k: v * world for k, v in fwd.items()})
+        r0 = rs[0]
+        gap = abs(r0["loss"] - r0["loss_one"])
+        gworst = max(r0["gerr"], key=r0["gerr"].get)
+        ngap = (abs(r0["grad_norm"] - r0["grad_norm_one"])
+                / r0["grad_norm_one"])
+        worst = max(r0["perr"].values())
+        print(f"check {label} mesh {TP_MESH} (data, model), {Lc} layers at "
+              f"full width, {TP_B} x {TP_S} tokens: loss {r0['loss']:.6f} "
+              f"vs one process {r0['loss_one']:.6f}, gap {gap:.3g} (atol "
+              f"{TRAIN_LOSS_ATOL}); gradients of {len(r0['gerr'])} leaves, "
+              f"largest relative L2 error {r0['gerr'][gworst]:.3g} "
+              f"({gworst}; tol {TRAIN_GRAD_TOL}); leaves with zero gradient "
+              f"{r0['zero_grads']} (sharded {r0['zero_grads_sharded']}); "
+              f"grad norm {r0['grad_norm']:.6g} vs {r0['grad_norm_one']:.6g}"
+              f", relative gap {ngap:.3g} (tol {TRAIN_GRAD_TOL}); also the "
+              f"params after AdamW, largest relative L2 error {worst:.3g} "
+              f"(tol {TRAIN_GRAD_TOL})")
+        print(f"{label} gradient relative L2 error by leaf {r0['gerr']}")
+        if gap > TRAIN_LOSS_ATOL or r0["gerr"][gworst] > TRAIN_GRAD_TOL or \
+                r0["zero_grads"] != r0["zero_grads_sharded"] or \
+                ngap > TRAIN_GRAD_TOL or worst > TRAIN_GRAD_TOL or \
+                len({round(r["loss"], 6) for r in rs}) != 1:
+            raise AssertionError(f"{label}: sharded step past tolerance")
+        for i, r in enumerate(rs):
+            print(f"{label} rank {i}: step {r['step_ms']:.1f} ms (first "
+                  f"{r['first_ms']:.1f}), peak {r['peak_gb']:.2f} GB, "
+                  f"staged {r['staged']}, collectives {r['collectives']}")
+        summary[label] = {"step_ms": [r["step_ms"] for r in rs],
+                          "peak_gb": [r["peak_gb"] for r in rs],
+                          "loss": r0["loss"], "loss_one": r0["loss_one"],
+                          "max_gerr": r0["gerr"][gworst],
+                          "grad_norm": r0["grad_norm"],
+                          "grad_norm_one": r0["grad_norm_one"],
+                          "max_perr": worst}
+
+    # the sharded decode
+    label = f"{LM_ARCH}/tp_decode"
+    by_path[label] = dict.fromkeys(KERNELS, 0)
+    ROUTE_COUNTS[label] = {k: {"tensor_cores": 0, "cuda_cores": 0}
+                           for k in ROUTED}
+    for shape in DEC_MESHES:
+        rs = res[("tp_decode", (shape,))]
+        n = shape[0] * shape[1]
+        r0 = rs[0]
+        print(f"check {LM_ARCH}/tp_decode mesh {shape}: cache "
+              f"{r0['cache_spec']} (sequence axes {r0['seq']}), "
+              f"{DEC_STEPS} steps at {DEC_SLOTS} slots against one process: "
+              f"max abs err {r0['max_abs_err']:.3g} (atol {DECODE_ATOL}); "
+              f"ms a step by rank {[round(r['ms'], 2) for r in rs]}")
+        if r0["max_abs_err"] > DECODE_ATOL:
+            raise AssertionError(f"tp_decode {shape}: past tolerance")
+        per, routes = _dist_path(f"{label} {shape}", rs, {
+            "rmsnorm": (2 * TP_CUT["n_layers"] + 1) * DEC_STEPS * n})
+        for k in KERNELS:
+            by_path[label][k] += per[k]
+        for k in ROUTED:
+            for w, c in routes[k].items():
+                ROUTE_COUNTS[label][k][w] += c
+        summary[f"{label} {shape}"] = {"ms": [r["ms"] for r in rs],
+                                       "max_abs_err": r0["max_abs_err"]}
+    return by_path, summary
+
+
 #: the port's examples on the card, each at a small size (the script's
 #: arguments)
 EXAMPLES = [("torch_quickstart.py", []), ("torch_volt_simt_demo.py", []),
@@ -3687,6 +4112,11 @@ def main() -> int:
     print(f"train phase {VLM_ARCH} {time.perf_counter() - t0:.1f} s")
     paths.update(vlm_paths)
     print(json.dumps({"train_encdec_vlm": [encdec_train, vlm_train]}))
+    t0 = time.perf_counter()
+    dist_paths, dist_summary = distributed_phase(args.seed)
+    print(f"distributed phase {time.perf_counter() - t0:.1f} s")
+    paths.update(dist_paths)
+    print(json.dumps({"distributed": dist_summary}))
     t0 = time.perf_counter()
     examples_phase()
     print(f"examples phase {time.perf_counter() - t0:.1f} s")

@@ -24,6 +24,15 @@ taken, so nothing routes the LM off the kernel. ``attention_naive`` stays
 as the small-S reference function.
 
 Params are dict trees matching the blueprints below.
+
+``mlp``, ``gqa_attention`` and ``attention_decode`` take an optional
+sharding context (``distributed/context.py``). With none, the code path
+is the one above. With one, each works on the rank's local slice, as the
+leaf's spec says (its fsdp dims already gathered): local heads and kv
+heads, local ff columns (a gated ``wi``'s gate and up columns matching);
+a row-parallel product (attention's ``wo``, the FF's ``wo``) is
+all-reduced over exactly the mesh axes its contraction dim is sharded
+on, and a dim the rules replicate takes no collective.
 """
 from __future__ import annotations
 
@@ -112,21 +121,24 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def mlp_bp(d: int, ff: int, gated: bool = True):
-    if gated:
-        return {"wi": leaf((d, 2 * ff), ("embed", "ff"), scale_dim=0),
+    if gated:   # wi is [gate | up]: two blocks along ff
+        return {"wi": leaf((d, 2 * ff), ("embed", "ff"), scale_dim=0,
+                           blocks=2),
                 "wo": leaf((ff, d), ("ff", "embed"), scale_dim=0)}
     return {"wi": leaf((d, ff), ("embed", "ff"), scale_dim=0),
             "wo": leaf((ff, d), ("ff", "embed"), scale_dim=0)}
 
 
-def mlp(p: Params, x: torch.Tensor, gated: bool = True) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, gated: bool = True, ctx=None
+        ) -> torch.Tensor:
     h = x @ p["wi"]
     if gated:
         g, u = h.chunk(2, dim=-1)
         h = F.silu(g.float()).to(x.dtype) * u
     else:   # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ p["wo"]
+    out = h @ p["wo"]
+    return out if ctx is None else ctx.reduce(out, ctx.logical("ff"))
 
 
 # --------------------------------------------------------------------------
@@ -184,29 +196,63 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len: torch.Tensor
-                     ) -> torch.Tensor:
-    """One-token decode: q (B,1,H,D), caches (B,Smax,Hkv,D)."""
+                     v_cache: torch.Tensor, cache_len: torch.Tensor,
+                     ctx=None, seq_lo: int = 0) -> torch.Tensor:
+    """One-token decode: q (B,1,H,D), caches (B,Smax,Hkv,D).
+
+    With a context whose ``seq`` axes split the cache's sequence, the
+    caches are this rank's positions [seq_lo, seq_lo + Smax): each rank
+    takes its partial softmax, and the ranks' parts are combined by an
+    all-reduced max, sum and weighted V, in float32."""
     B, Smax, Hkv, D = k_cache.shape
     groups = q.shape[2] // Hkv
     k = _repeat_kv(k_cache, groups)
     v = _repeat_kv(v_cache, groups)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(D)
-    valid = (torch.arange(Smax, device=q.device)[None, :]
+    valid = (torch.arange(Smax, device=q.device)[None, :] + seq_lo
              < cache_len[:, None])                           # (B, Smax)
     s = s.masked_fill(~valid[:, None, None, :], _MASKED)
+    if ctx is not None and ctx.size(ctx.seq) > 1:
+        mx = ctx.rmax(s.amax(dim=-1, keepdim=True), ctx.seq)
+        e = torch.exp(s - mx)
+        den = ctx.reduce(e.sum(dim=-1, keepdim=True), ctx.seq)
+        num = ctx.reduce(torch.einsum("bhqk,bkhd->bhqd", e, v.float()),
+                         ctx.seq)
+        return (num / den).transpose(1, 2).to(q.dtype)
     # the weights are cast to q's dtype before the product with v
     w = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def local_kv(k: torch.Tensor, n_heads: int, n_kv: int, ctx
+             ) -> torch.Tensor:
+    """k or v (B, S, n_kv, D) with every kv head (the rules replicate
+    them) -> the kv heads this rank's query heads read, (B, S, Hkv', D)
+    with Hkv' dividing its local query heads: the few kv heads of its
+    heads where they fall evenly, else one a query head."""
+    lo, hi = ctx.part("heads", n_heads)
+    if (lo, hi) == (0, n_heads):
+        return k
+    g = n_heads // n_kv
+    idx = [h // g for h in range(lo, hi)]
+    uniq = sorted(set(idx))
+    if (hi - lo) % len(uniq) == 0 and all(
+            idx[j] == uniq[j // ((hi - lo) // len(uniq))]
+            for j in range(hi - lo)):
+        return k[:, :, uniq[0]:uniq[-1] + 1]
+    return k[:, :, idx]
 
 
 def gqa_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
                   *, n_heads: int, n_kv: int, causal: bool = True,
                   rope_theta: float = 10000.0, use_rope: bool = True,
                   mrope_positions: Optional[torch.Tensor] = None,
-                  kv_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  kv_in: Optional[torch.Tensor] = None, ctx=None
+                  ) -> torch.Tensor:
     """Full GQA block (projections + rope + attention + out projection).
-    ``kv_in`` switches to cross-attention (keys/values from encoder)."""
+    ``kv_in`` switches to cross-attention (keys/values from encoder).
+    With ``ctx``: the rank's heads, ``wo`` all-reduced over the heads'
+    axes."""
     src = x if kv_in is None else kv_in
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
@@ -218,6 +264,9 @@ def gqa_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
         else:
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
+    if ctx is not None and not ctx.logical("kv_heads"):
+        k, v = (local_kv(t, n_heads, n_kv, ctx) for t in (k, v))
     # K/V keep their n_kv heads: the kernel reads them per group
     o = attention_chunked(q, k, v, causal=causal)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return out if ctx is None else ctx.reduce(out, ctx.logical("heads"))

@@ -38,10 +38,20 @@ row gathers through the table, each slot one token (``_Dispatch``,
 ``_Combine``). The values are the reference's within float32 rounding.
 Capacity comes from shapes and nothing here reads a value back to the
 host.
+
+Under a sharding context (``distributed/context.py``) the layer keeps
+the one-device semantics over the whole batch: the capacity comes from
+the tokens of every data rank, and an assignment is kept where its place
+among the expert's assignments of the whole batch (this rank's preceded
+by those of the lower data ranks, from an all-gather of the per-expert
+counts) is below it; the aux loss reads the whole batch's sums. Every
+rank of a model group computes the same routing and table, runs the
+expert FF on its own experts (its block of the expert axis), and the
+combine's partial sums are all-reduced over the experts' axes.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -79,13 +89,15 @@ def route(p: Params, xt: torch.Tensor, top_k: int
 
 
 def dispatch(gate_idx: torch.Tensor, gate_vals: torch.Tensor, T: int,
-             n_experts: int, C: int
+             n_experts: int, C: int, before: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The (E*C,) table of token ids and weights, and its inverse: the
     (T, k) int32 slot of each token's gate ranks, E*C where the capacity
     dropped the assignment. Assignments are sorted stably by expert, so
     an expert's slots go to its tokens in order; those past C are
-    dropped, and free slots point at the zero row T."""
+    dropped, and free slots point at the zero row T. ``before`` (E,):
+    each expert's assignments that precede these tokens (other ranks'),
+    which count against C."""
     dev = gate_idx.device
     n = gate_idx.numel()
     flat_e = gate_idx.reshape(-1)
@@ -96,8 +108,9 @@ def dispatch(gate_idx: torch.Tensor, gate_vals: torch.Tensor, T: int,
     run_start = torch.full((n_experts,), n, device=dev).scatter_reduce(
         0, se, idx, reduce="amin")
     pos = idx - run_start[se]
+    keep = pos < C if before is None else pos + before[se] < C
     # dropped assignments all land in one spill slot past the table
-    dst = torch.where(pos < C, se * C + pos, n_experts * C)
+    dst = torch.where(keep, se * C + pos, n_experts * C)
     table = torch.full((n_experts * C + 1,), T, device=dev)
     table[dst] = st
     wtable = torch.zeros(n_experts * C + 1, device=dev)
@@ -145,29 +158,53 @@ class _Combine(torch.autograd.Function):
 
 
 def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
-           capacity_factor: float = 1.25
+           capacity_factor: float = 1.25, ctx=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux loss float32)."""
+    """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux loss float32).
+    ``ctx``: the module's docstring."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
     probs, gate_vals, gate_idx = route(p, xt, top_k)
 
     # load-balancing aux loss (Switch-style)
-    ce = torch.zeros(n_experts, device=x.device).index_add_(
+    assigned = torch.zeros(n_experts, device=x.device).index_add_(
         0, gate_idx.reshape(-1),
-        torch.ones(gate_idx.numel(), device=x.device)) / (T * top_k)
-    aux = n_experts * torch.sum(probs.mean(0) * ce)
+        torch.ones(gate_idx.numel(), device=x.device))
+    before, T_all = None, T
+    if ctx is not None and ctx.size(ctx.batch) > 1:
+        # the whole batch's counts and probabilities
+        each = ctx.gather(assigned[None], 0, ctx.batch)     # (n, E)
+        before = each[:ctx.index(ctx.batch)].sum(0)
+        T_all = T * ctx.size(ctx.batch)
+        ce = each.sum(0) / (T_all * top_k)
+        aux = n_experts * torch.sum(
+            ctx.reduce(probs.sum(0), ctx.batch) / T_all * ce)
+    else:
+        ce = assigned / (T * top_k)
+        aux = n_experts * torch.sum(probs.mean(0) * ce)
 
-    C = capacity(T, top_k, n_experts, capacity_factor)
-    table, wtable, slots = dispatch(gate_idx, gate_vals, T, n_experts, C)
+    C = capacity(T_all, top_k, n_experts, capacity_factor)
+    table, wtable, slots = dispatch(gate_idx, gate_vals, T, n_experts, C,
+                                    before)
+    E_lo, E_hi = (0, n_experts) if ctx is None else ctx.part("experts",
+                                                             n_experts)
+    if (E_lo, E_hi) != (0, n_experts):    # this rank's experts only
+        table = table[E_lo * C:E_hi * C]
+        wtable = wtable[E_lo * C:E_hi * C]
+        M = (E_hi - E_lo) * C
+        slots = slots - E_lo * C
+        slots = torch.where((slots >= 0) & (slots < M), slots, M)
+    E = E_hi - E_lo
     # filled slots of each expert: min(assigned, C), on the device
-    counts = (table.view(n_experts, C) != T).sum(1, dtype=torch.int32)
-    xg = _Dispatch.apply(xt, table, slots).reshape(n_experts, C, d)
+    counts = (table.view(E, C) != T).sum(1, dtype=torch.int32)
+    xg = _Dispatch.apply(xt, table, slots).reshape(E, C, d)
     y = GroupedExpertFF.apply(xg, p["wi"], p["wo"], counts,
                               torch.is_grad_enabled())
-    yw = y.reshape(n_experts * C, d).float() * wtable[:, None]
+    yw = y.reshape(E * C, d).float() * wtable[:, None]
     out = _Combine.apply(yw, table, slots)
+    if ctx is not None:
+        out = ctx.reduce(out, ctx.logical("experts"))
     return out.reshape(B, S, d).to(x.dtype), aux
 
 

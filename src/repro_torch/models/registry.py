@@ -2,9 +2,9 @@
 
 Port of ``repro.models.registry``. ``input_specs`` gives each input's
 shape and torch dtype (``Spec`` records; nothing is allocated) where the
-reference gives ``jax.ShapeDtypeStruct``s. The sharding rules
-(``input_shardings``, ``dynamic_rules``) wait for the distributed slice
-(ROADMAP A10).
+reference gives ``jax.ShapeDtypeStruct``s; ``input_shardings`` the
+matching ``PSpec``s and ``dynamic_rules`` the rules adapted to a mesh,
+both the reference's.
 
 ``mrope_grid_positions`` lays out the (3, B, S) M-RoPE positions of a
 prompt that opens with one image, as Qwen2-VL does: a model input the
@@ -12,12 +12,12 @@ reference takes from its caller.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from ..configs.base import SHAPES, ModelConfig
-from .blueprint import tree_map
+from .blueprint import DEFAULT_RULES, PSpec, tree_map
 from .transformer import LM
 
 MODEL_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -77,6 +77,91 @@ def input_specs(cfg: ModelConfig, shape_name: str) -> Dict[str, Any]:
     if cfg.enc_dec:
         out["enc_out"] = _spec((B, 4096, cfg.d_model), bf16)
     return out
+
+
+def batch_spec(shape_name: str, data_axes=("data",),
+               axis_sizes: Optional[Dict[str, int]] = None):
+    """The mesh axes the shape's batch dim shards over (a name or a tuple
+    of names), or None where the global batch does not divide them."""
+    axis_sizes = axis_sizes or {"data": 16, "model": 16}
+    B = SHAPES[shape_name].global_batch
+    da = tuple(data_axes)
+    da_size = 1
+    for a in da:
+        da_size *= axis_sizes.get(a, 1)
+    dspec = da if len(da) > 1 else da[0]
+    return dspec if B % da_size == 0 and B >= da_size else None
+
+
+def input_shardings(cfg: ModelConfig, shape_name: str,
+                    data_axes=("data",),
+                    axis_sizes: Optional[Dict[str, int]] = None
+                    ) -> Dict[str, Any]:
+    """PSpecs matching input_specs. Batch shards over the data axes when
+    divisible; batch-1 long-decode shards the KV/sequence dim instead
+    (sequence parallelism)."""
+    axis_sizes = axis_sizes or {"data": 16, "model": 16}
+    sh = SHAPES[shape_name]
+    da = tuple(data_axes)
+    bspec = batch_spec(shape_name, da, axis_sizes)
+    model_size = axis_sizes.get("model", 1)
+
+    if sh.kind in ("train", "prefill"):
+        out = {"tokens": PSpec(bspec, None)}
+        has_frontend = (cfg.enc_dec if sh.kind == "prefill"
+                        else (cfg.enc_dec or cfg.frontend_embeds))
+        if has_frontend:
+            out["frontend_embeds"] = PSpec(bspec, None, None)
+        if cfg.pos == "mrope" and sh.kind == "train":
+            out["mrope_positions"] = PSpec(None, bspec, None)
+        return out
+
+    # decode: per-layer-kind cache specs from the model
+    model = LM(cfg)
+    if bspec is not None:
+        seq_axes: Any = "model"          # heads unshardable -> SP on model
+    else:
+        seq_axes = tuple(list(da) + ["model"])  # batch-1: SP over all axes
+    cache = model.cache_pspecs(bspec=bspec, seq_axes=seq_axes,
+                               model_size=model_size)
+    out = {
+        "tokens": PSpec(bspec, None),
+        "pos": PSpec(bspec),
+        "cache": cache,
+    }
+    if cfg.enc_dec:
+        out["enc_out"] = PSpec(bspec, None, None)
+    return out
+
+
+def dynamic_rules(cfg: ModelConfig, axis_sizes: Dict[str, int],
+                  base: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Adapt the logical->mesh rules to this (arch, mesh): a logical axis
+    whose size does not divide its mesh axis falls back to replication
+    (e.g. starcoder2's 36 heads on a 16-way model axis, GQA kv=8 heads)."""
+    rules = dict(base or DEFAULT_RULES)
+    m = axis_sizes.get("model", 1)
+
+    def fits(n: int) -> bool:
+        return n % m == 0
+
+    if not fits(cfg.n_heads):
+        rules["heads"] = None
+    if not fits(cfg.n_kv_heads):
+        rules["kv_heads"] = None
+    if not fits(cfg.padded_vocab):
+        rules["vocab"] = None
+    if cfg.d_ff and not fits(cfg.d_ff):
+        rules["ff"] = None
+    if cfg.family == "ssm" and cfg.d_ff == 0:
+        # xlstm: "ff" axis carries 4*d_model gate blocks
+        if not fits(4 * cfg.d_model):
+            rules["ff"] = None
+    if cfg.moe_experts and not fits(cfg.moe_experts):
+        rules["experts"] = None
+    if not fits(cfg.ssm_d_inner):
+        rules["d_inner"] = None
+    return rules
 
 
 def mrope_grid_positions(B: int, S: int, grid_h: int, grid_w: int,

@@ -65,6 +65,23 @@ from one normed input (command-r-plus). The reference's
 ``_decode_layer`` never reads ``parallel_block`` and decodes such a
 layer sequentially, so its decode does not reproduce its own prefill
 (ROADMAP C11); the port's does.
+
+``LM(cfg, ctx)`` (or ``model.sharded(ctx)``) runs one rank's part of a
+sharded step (``distributed/context.py``): the params are its shards,
+and each period's leaves are all-gathered over the fsdp axes just
+before use, inside the period's checkpoint region under remat, so the
+backward gathers them again (ZeRO-3 over the reference's ``"embed":
+"fsdp"`` rule); ``embed``, ``unembed`` and the final norms are gathered
+where they are read. The embedding with vocab on the model axis looks up
+the rows it owns and all-reduces; the loss is a vocab-parallel
+log-sum-exp (all-reduced max and sum, the label's logit from its owner)
+whose numerator and token count are summed over the batch's axes.
+``prefill`` and ``decode_step`` return the rank's logits (its batch rows
+and vocab columns). A sequence-sharded cache (``cache_pspecs`` puts it
+there where the kv heads do not divide the model axis) is written at the
+new token's position by the rank that owns it, and read through
+``layers.attention_decode``'s partial softmax. The mamba and xLSTM
+mixers take no context: ``sharded`` raises (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -79,7 +96,7 @@ from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
 from . import xlstm as XL
-from .blueprint import Leaf, leaf, leaves, tree_map
+from .blueprint import Leaf, PSpec, leaf, leaves, tree_map
 
 Params = Any
 
@@ -99,7 +116,7 @@ def _stack_bp(bp, n: int):
     return tree_map(
         lambda l: Leaf((n,) + l.shape, ("layers",) + l.axes, l.dtype,
                        l.init, None if l.scale_dim is None
-                       else l.scale_dim + 1), bp)
+                       else l.scale_dim + 1, l.blocks), bp)
 
 
 #: the encoder's one layer kind: self-attention, dense feed-forward
@@ -109,12 +126,49 @@ ENC_KIND = LayerKind("attn", "dense")
 class LM:
     """See configs/base.py:ModelConfig for the knob list."""
 
-    def __init__(self, cfg) -> None:
+    def __init__(self, cfg, ctx=None) -> None:
         self.cfg = cfg
         assert cfg.n_layers % len(cfg.layer_pattern()) == 0, \
             f"{cfg.name}: pattern does not tile n_layers"
         self.period = cfg.layer_pattern()
         self.n_periods = cfg.n_layers // len(self.period)
+        self.ctx = ctx
+
+    def sharded(self, ctx) -> "LM":
+        """This model as one rank of ``ctx``'s mesh (the module's
+        docstring)."""
+        for kind in self.period:
+            if kind.mixer in ("mamba", "mlstm", "slstm"):
+                raise NotImplementedError(
+                    f"{self.cfg.name}: the {kind.mixer} mixer under a "
+                    "sharding context is not ported (ROADMAP A16)")
+        return LM(self.cfg, ctx)
+
+    def _p(self, params, name: str):
+        """A top-level leaf (or subtree) as this rank reads it: gathered
+        over the fsdp axes under a context."""
+        if self.ctx is None:
+            return params[name]
+        return self.ctx.gather_fsdp(params[name], self.ctx.layout(name))
+
+    def _embed(self, params, tokens) -> torch.Tensor:
+        """The tokens' embedding rows, bf16; with vocab on the model axis
+        each rank looks up the rows it owns and the ranks' rows are
+        summed."""
+        table = self._p(params, "embed")
+        ctx = self.ctx
+        if ctx is None or not ctx.logical("vocab"):
+            return table[tokens.long()].to(torch.bfloat16)
+        lo, hi = ctx.part("vocab", self.cfg.padded_vocab)
+        local = tokens.long() - lo
+        own = (local >= 0) & (local < hi - lo)
+        rows = table[local.clamp(0, hi - lo - 1)] * own[..., None]
+        return ctx.reduce(rows.to(torch.bfloat16), ctx.logical("vocab"))
+
+    def _vocab_lo(self) -> int:
+        if self.ctx is None or not self.ctx.logical("vocab"):
+            return 0
+        return self.ctx.part("vocab", self.cfg.padded_vocab)[0]
 
     # -- blueprints -----------------------------------------------------------
     def _layer_bp(self, kind: LayerKind):
@@ -166,14 +220,14 @@ class LM:
         return bp
 
     def _unembed(self, params) -> torch.Tensor:
-        return (params["embed"].T if self.cfg.tie_embeddings
-                else params["unembed"])
+        return (self._p(params, "embed").T if self.cfg.tie_embeddings
+                else self._p(params, "unembed"))
 
     # -- one period of layers ---------------------------------------------------
     def _apply_layer(self, kind: LayerKind, p, x, positions, *,
                      causal: bool, enc_out=None, mrope=None,
                      aux: Optional[List] = None):
-        c = self.cfg
+        c, ctx = self.cfg, self.ctx
         h = L.rmsnorm(p["ln1"], x)
         if kind.mixer == "mamba":
             mix = SSM.mamba_scan_chunked(p["mamba"], h,
@@ -188,10 +242,10 @@ class LM:
             mix = L.gqa_attention(
                 p["attn"], h, positions, n_heads=c.n_heads,
                 n_kv=c.n_kv_heads, causal=causal, rope_theta=c.rope_theta,
-                use_rope=(c.pos != "none"), mrope_positions=mrope)
+                use_rope=(c.pos != "none"), mrope_positions=mrope, ctx=ctx)
         if c.parallel_block and kind.ff == "dense":
             # Cohere-style: attn and FF read the same normed input
-            return x + mix + L.mlp(p["mlp"], h, c.gated_mlp)
+            return x + mix + L.mlp(p["mlp"], h, c.gated_mlp, ctx)
         x = self._cross(kind, p, x + mix, enc_out)
         return self._ff(kind, p, x, aux)
 
@@ -204,34 +258,44 @@ class LM:
         hx = L.rmsnorm(p["lnx"], x)
         return x + L.gqa_attention(p["xattn"], hx, None, n_heads=c.n_heads,
                                    n_kv=c.n_kv_heads, causal=False,
-                                   use_rope=False, kv_in=enc_out)
+                                   use_rope=False, kv_in=enc_out,
+                                   ctx=self.ctx)
 
     def _ff(self, kind: LayerKind, p, x, aux: Optional[List] = None):
         """The layer's feed-forward residual, sequential after the
         mixer; an MoE layer appends its load-balancing loss to ``aux``
         where given."""
-        c = self.cfg
+        c, ctx = self.cfg, self.ctx
         if kind.ff == "dense":
-            x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), c.gated_mlp)
+            x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), c.gated_mlp, ctx)
         elif kind.ff == "moe":
             h2 = L.rmsnorm(p["ln2"], x)
             y, a = MOE.moe_ff(p["moe"], h2, n_experts=c.moe_experts,
                               top_k=c.moe_top_k,
-                              capacity_factor=c.moe_capacity)
+                              capacity_factor=c.moe_capacity, ctx=ctx)
             if c.moe_shared_ff:
-                y = y + L.mlp(p["shared_mlp"], h2, c.gated_mlp)
+                y = y + L.mlp(p["shared_mlp"], h2, c.gated_mlp, ctx)
             x = x + y
             if aux is not None:
                 aux.append(a)
         return x
 
     def _run_stack(self, stack_params, x, positions, *, kinds, causal,
-                   enc_out=None, mrope=None, remat: bool = False):
+                   enc_out=None, mrope=None, remat: bool = False,
+                   stack: str = "stack"):
         """The periods in turn -> (x, the MoE layers' aux losses summed,
         float32). ``remat``: each period is a checkpoint region, which
         takes the encoder's output and the M-RoPE positions as arguments
-        (the encoder's gradient flows back through every region)."""
+        (the encoder's gradient flows back through every region). Under a
+        context each period's leaves are gathered over the fsdp axes
+        first, inside the region (``stack`` names the blueprint subtree
+        whose specs they follow)."""
+        layout = (None if self.ctx is None
+                  else self.ctx.layout(stack, period=True))
+
         def period_fn(x, auxs, enc_out, mrope, pparams):
+            if layout is not None:
+                pparams = self.ctx.gather_fsdp(pparams, layout)
             aux: List = []
             for k, kind in enumerate(kinds):
                 x = self._apply_layer(kind, pparams[k], x, positions,
@@ -257,8 +321,9 @@ class LM:
         src = frames.to(torch.bfloat16)
         spos = torch.arange(src.shape[1], device=src.device)[None, :]
         enc, _ = self._run_stack(params["enc_stack"], src, spos,
-                                 kinds=[ENC_KIND], causal=False, remat=remat)
-        return L.rmsnorm(params["enc_ln_f"], enc)
+                                 kinds=[ENC_KIND], causal=False, remat=remat,
+                                 stack="enc_stack")
+        return L.rmsnorm(self._p(params, "enc_ln_f"), enc)
 
     def _decoder_forward(self, params, tokens, enc_out):
         """The decoder's full causal forward over ``tokens`` (B, S)
@@ -288,7 +353,7 @@ class LM:
         c = self.cfg
         tokens = batch["tokens"].long()
         B, S = tokens.shape
-        x = params["embed"][tokens].to(torch.bfloat16)
+        x = self._embed(params, tokens)
         positions = torch.arange(S, device=tokens.device)[None, :]
         mrope = batch.get("mrope_positions") if c.pos == "mrope" else None
         if c.frontend_embeds:
@@ -304,7 +369,7 @@ class LM:
         x, aux = self._run_stack(params["stack"], x, positions,
                                  kinds=self.period, causal=True,
                                  enc_out=enc_out, mrope=mrope, remat=remat)
-        x = L.rmsnorm(params["ln_f"], x)
+        x = L.rmsnorm(self._p(params, "ln_f"), x)
         unembed = self._unembed(params)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         valid = torch.ones(B, S, dtype=torch.float32, device=x.device)
@@ -319,16 +384,34 @@ class LM:
                                           vs[:, i])
         else:
             tot = self._nll_sum(x, unembed, labels, valid)
-        nll = tot / valid.sum().clamp_min(1.0)
+        count = valid.sum()
+        if self.ctx is not None:   # the whole batch's sums
+            tot = self.ctx.reduce(tot, self.ctx.batch)
+            count = self.ctx.reduce(count, self.ctx.batch)
+        nll = tot / count.clamp_min(1.0)
         return nll + 0.01 * aux / max(1, self.n_periods)
 
     def _nll_sum(self, x, unembed, labels, valid) -> torch.Tensor:
         """The summed NLL of ``labels`` under the float32 logits of x,
-        counting the ``valid`` positions only."""
+        counting the ``valid`` positions only. With vocab on the model
+        axis, a vocab-parallel log-sum-exp: the max and the sum of
+        exponentials all-reduced, the label's logit from its owner."""
         logits = torch.einsum("bsd,dv->bsv", x, unembed).float()
-        logits = _mask_vocab_pad(logits, self.cfg.vocab)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, labels[..., None])[..., 0]
+        lo = self._vocab_lo()
+        logits = _mask_vocab_pad(logits, self.cfg.vocab, lo)
+        vax = () if self.ctx is None else self.ctx.logical("vocab")
+        if not vax:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, labels[..., None])[..., 0]
+            return ((lse - ll) * valid).sum()
+        ctx, n = self.ctx, logits.shape[-1]
+        mx = ctx.rmax(logits.amax(dim=-1), vax)
+        se = ctx.reduce(torch.exp(logits - mx[..., None]).sum(-1), vax)
+        lse = mx + torch.log(se)
+        local = labels - lo
+        own = (local >= 0) & (local < n)
+        ll = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+        ll = ctx.reduce(ll * own, vax)
         return ((lse - ll) * valid).sum()
 
     # -- decode -----------------------------------------------------------------
@@ -362,6 +445,40 @@ class LM:
         dev = resolve_device(device)
         return [self._layer_cache(k, B, S_max, dev) for k in self.period]
 
+    def cache_pspecs(self, *, bspec, seq_axes, model_size: int):
+        """PSpecs matching init_cache, layer-kind aware (the reference's).
+
+        bspec: mesh axes for the batch dim (None when batch unshardable);
+        seq_axes: axes for the KV sequence dim when heads cannot shard
+        (GQA kv heads not divisible by the model axis -> sequence-shard
+        the cache instead); model_size: size of the model axis.
+        """
+        c = self.cfg
+        kv_headable = c.n_kv_heads % model_size == 0
+
+        def kind_spec(kind: LayerKind):
+            if kind.mixer in ("attn", "attn_cross"):
+                if kv_headable:
+                    s = PSpec(None, bspec, None, "model", None)
+                else:
+                    s = PSpec(None, bspec, seq_axes, None, None)
+                return {"k": s, "v": s}
+            if kind.mixer == "mamba":
+                cs = "model" if c.ssm_d_inner % model_size == 0 else None
+                return {"conv": PSpec(None, bspec, None, cs),
+                        "ssm": PSpec(None, bspec, cs, None)}
+            if kind.mixer == "mlstm":
+                return {"C": PSpec(None, bspec, None, None, None),
+                        "n": PSpec(None, bspec, None, None),
+                        "m": PSpec(None, bspec, None)}
+            if kind.mixer == "slstm":
+                ds = "model" if c.d_model % model_size == 0 else None
+                return (PSpec(None, bspec, ds), PSpec(None, bspec, ds),
+                        PSpec(None, bspec, ds), PSpec(None, bspec, ds))
+            raise ValueError(kind.mixer)
+
+        return [kind_spec(k) for k in self.period]
+
     def recurrent_state(self, cache):
         """The cache's recurrent leaves (those of mamba and xLSTM layers),
         each (n_periods, B, ...), as (leaf, its initial value) pairs:
@@ -386,17 +503,22 @@ class LM:
         (B, S_src, d), the encoder's output, for an encoder-decoder's
         cross-attention (none without it, as in the reference).
         Returns (logits (B,1,V) float32, cache updated in place)."""
-        x = params["embed"][tokens].to(torch.bfloat16)
+        x = self._embed(params, tokens)
         positions = pos[:, None]
+        layout = (None if self.ctx is None
+                  else self.ctx.layout("stack", period=True))
         for i in range(self.n_periods):
             pparams = tree_map(lambda a: a[i], params["stack"])
+            if layout is not None:
+                pparams = self.ctx.gather_fsdp(pparams, layout)
             pcache = tree_map(lambda a: a[i], cache)
             for k, kind in enumerate(self.period):
                 x = self._decode_layer(kind, pparams[k], pcache[k], x,
                                        positions, pos, enc_out)
-        x = L.rmsnorm(params["ln_f"], x)
+        x = L.rmsnorm(self._p(params, "ln_f"), x)
         logits = (x @ self._unembed(params)).float()
-        return _mask_vocab_pad(logits, self.cfg.vocab), cache
+        return _mask_vocab_pad(logits, self.cfg.vocab,
+                               self._vocab_lo()), cache
 
     def _decode_layer(self, kind: LayerKind, p, cache, x, positions, pos,
                       enc_out=None):
@@ -419,14 +541,29 @@ class LM:
         if c.pos != "none":
             q = L.apply_rope(q, positions, c.rope_theta)
             k = L.apply_rope(k, positions, c.rope_theta)
-        kc = _insert_at(cache["k"], k, pos)
-        vc = _insert_at(cache["v"], v, pos)
-        o = L.attention_decode(q, kc, vc, pos + 1)
+        ctx = self.ctx
+        if ctx is not None and ctx.size(ctx.seq) > 1:
+            # a sequence-sharded cache of every kv head: this rank's
+            # positions, every query head (gathered), then its own heads
+            lo = ctx.index(ctx.seq) * cache["k"].shape[1]
+            kc = _insert_at(cache["k"], k, pos, lo)
+            vc = _insert_at(cache["v"], v, pos, lo)
+            hax = ctx.logical("heads")
+            o = L.attention_decode(ctx.gather(q, 2, hax), kc, vc, pos + 1,
+                                   ctx, lo)
+            h_lo, h_hi = ctx.part("heads", c.n_heads)
+            o = o[:, :, h_lo:h_hi]
+        else:
+            kc = _insert_at(cache["k"], k, pos)
+            vc = _insert_at(cache["v"], v, pos)
+            o = L.attention_decode(q, kc, vc, pos + 1)
         mix = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+        if ctx is not None:
+            mix = ctx.reduce(mix, ctx.logical("heads"))
         if c.parallel_block and kind.ff == "dense":
             # as prefill computes it (the reference decodes it
             # sequentially: ROADMAP C11)
-            return x + mix + L.mlp(p["mlp"], h, c.gated_mlp)
+            return x + mix + L.mlp(p["mlp"], h, c.gated_mlp, ctx)
         return self._ff(kind, p, self._cross(kind, p, x + mix, enc_out))
 
     # -- prefill ------------------------------------------------------------------
@@ -436,11 +573,11 @@ class LM:
         prefill runs the decoder alone, without cross-attention, as the
         reference's does (it passes no encoder output)."""
         B, S = tokens.shape
-        x = params["embed"][tokens].to(torch.bfloat16)
+        x = self._embed(params, tokens)
         positions = torch.arange(S, device=tokens.device)[None, :]
         x, _ = self._run_stack(params["stack"], x, positions,
                                kinds=self.period, causal=True)
-        x = L.rmsnorm(params["ln_f"], x)
+        x = L.rmsnorm(self._p(params, "ln_f"), x)
         return (x[:, -1] @ self._unembed(params)).float()
 
 
@@ -453,18 +590,30 @@ def _unstack(stack_params) -> list:
             for i in range(leaves(stack_params)[0].shape[0])]
 
 
-def _mask_vocab_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Padded vocab columns (Megatron-style padding) get -1e30."""
-    if logits.shape[-1] == vocab:
+def _mask_vocab_pad(logits: torch.Tensor, vocab: int, lo: int = 0
+                    ) -> torch.Tensor:
+    """Padded vocab columns (Megatron-style padding) get -1e30; ``lo``:
+    the vocab index of the logits' first column (a rank's shard)."""
+    if lo == 0 and logits.shape[-1] == vocab:
         return logits
-    keep = torch.arange(logits.shape[-1], device=logits.device) < vocab
+    keep = torch.arange(logits.shape[-1], device=logits.device) + lo < vocab
     return logits.masked_fill(~keep, -1e30)
 
 
-def _insert_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
-               ) -> torch.Tensor:
+def _insert_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+               lo: Optional[int] = None) -> torch.Tensor:
     """cache (B,S,H,D), new (B,1,H,D), pos (B,): writes row ``pos[b]`` of
-    every batch entry in place and returns the cache."""
+    every batch entry in place and returns the cache. ``lo``: the cache
+    holds positions [lo, lo + S) of a sequence-sharded cache; an entry
+    whose position lies elsewhere is left as it was."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, pos.long()] = new[:, 0].to(cache.dtype)
+    if lo is None:
+        cache[rows, pos.long()] = new[:, 0].to(cache.dtype)
+        return cache
+    local = pos.long() - lo
+    own = (local >= 0) & (local < cache.shape[1])
+    local = local.clamp(0, cache.shape[1] - 1)
+    cache[rows, local] = torch.where(own[:, None, None],
+                                     new[:, 0].to(cache.dtype),
+                                     cache[rows, local])
     return cache

@@ -15,6 +15,16 @@ from ``init_params`` with a ``torch.Generator`` on the device seeded from
 ``DataConfig.seed`` (the reference uses ``PRNGKey(0)``); params that the
 caller passes are trained in place. A step's time is the host clock
 around the step, which ends when its loss is read back.
+
+With a ``mesh`` (``launch/mesh.py``) each rank runs the sharded step
+(``train_step.build_train_step`` with ``data_parallel_ctx``): it holds
+its shards of the params and moments (of fresh params drawn whole from
+the seed on every rank, of the caller's params, or of a checkpoint) and
+its rows of each global batch, which the mesh's data axes must divide.
+Checkpoints stay in the reference's format: every rank gathers the whole
+leaves, rank 0 writes them, and each rank reads its shard back, so a run
+resumes onto another mesh, or onto one device (the reference's "elastic"
+resume).
 """
 from __future__ import annotations
 
@@ -24,13 +34,33 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.blueprint import init_params
 from .checkpoint import CheckpointManager
 from .data import DataConfig, Prefetcher
 from .optimizer import init_opt_state
-from .train_step import StepConfig, build_train_step
+from .train_step import (StepConfig, build_train_step, data_parallel_ctx,
+                         shard_rows)
+
+
+def _moments(fn, opt_state) -> dict:
+    """AdamW's state with ``fn`` applied to both moment trees."""
+    return {"step": opt_state["step"], "m": fn(opt_state["m"]),
+            "v": fn(opt_state["v"])}
+
+
+def _save(mgr: CheckpointManager, step: int, params, opt_state, ctx
+          ) -> None:
+    """A checkpoint of the whole leaves: with a context every rank
+    gathers them and rank 0 writes."""
+    if ctx is not None:
+        params = ctx.unshard_tree(params)
+        opt_state = _moments(ctx.unshard_tree, opt_state)
+        if dist.get_rank() != 0:
+            return
+    mgr.save(step, params, opt_state, extra={"data_step": step})
 
 
 @dataclass
@@ -51,16 +81,26 @@ class LoopResult:
     #: each step's grad norm and wall ms, beside ``losses``
     grad_norms: List[float] = field(default_factory=list)
     step_ms: List[float] = field(default_factory=list)
+    #: this process's rank (0 without a mesh)
+    rank: int = 0
 
 
 def train_loop(model, data_cfg: DataConfig, loop_cfg: LoopConfig,
                step_cfg: StepConfig, ckpt_dir: str,
-               params: Optional[Any] = None, device=None) -> LoopResult:
+               params: Optional[Any] = None, device=None,
+               mesh=None) -> LoopResult:
     """Run (or resume) training. Params are initialized fresh where no
-    checkpoint exists and none are passed."""
+    checkpoint exists and none are passed. ``mesh``: the sharded step on
+    it (the module's docstring); the result's losses are the global
+    batch's on every rank."""
     dev = resolve_device(device)
     mgr = CheckpointManager(ckpt_dir)
-    step_fn = build_train_step(model, step_cfg)
+    if mesh is None:
+        ctx, step_fn = None, build_train_step(model, step_cfg)
+    else:
+        ctx = data_parallel_ctx(model, mesh, data_cfg.global_batch)
+        step_fn = build_train_step(model, step_cfg, ctx)
+    lead = ctx is None or dist.get_rank() == 0
 
     resumed_from = None
     start_step = 0
@@ -70,10 +110,15 @@ def train_loop(model, data_cfg: DataConfig, loop_cfg: LoopConfig,
             (bp, {"step": None, "m": bp, "v": bp}), device=dev)
         start_step = int(extra.get("data_step", mgr.latest_step()))
         resumed_from = mgr.latest_step()
+        if ctx is not None:
+            params = ctx.shard_tree(params)
+            opt_state = _moments(ctx.shard_tree, opt_state)
     else:
         if params is None:
             params = init_params(model.blueprint(), torch.Generator(
                 dev).manual_seed(data_cfg.seed))
+        if ctx is not None:
+            params = ctx.shard_tree(params)
         opt_state = init_opt_state(params, step_cfg.opt)
 
     # preemption: checkpoint on SIGTERM and exit cleanly
@@ -84,7 +129,8 @@ def train_loop(model, data_cfg: DataConfig, loop_cfg: LoopConfig,
 
     old_handler = signal.signal(signal.SIGTERM, _on_term)
 
-    result = LoopResult(steps_done=start_step, resumed_from=resumed_from)
+    result = LoopResult(steps_done=start_step, resumed_from=resumed_from,
+                        rank=0 if ctx is None else dist.get_rank())
     pre = Prefetcher(data_cfg, start_step=start_step)
     ewma = None
     try:
@@ -97,6 +143,8 @@ def train_loop(model, data_cfg: DataConfig, loop_cfg: LoopConfig,
                 raise RuntimeError(f"data stream desync {ds} != {s}")
             tbatch = {k: torch.from_numpy(v).to(dev)
                       for k, v in batch.items()}
+            if ctx is not None:
+                tbatch = shard_rows(tbatch, ctx)
             params, opt_state, metrics = step_fn(params, opt_state, tbatch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
@@ -108,13 +156,15 @@ def train_loop(model, data_cfg: DataConfig, loop_cfg: LoopConfig,
                 result.straggler_events.append(
                     {"step": s, "dt": dt, "ewma": ewma,
                      "host": data_cfg.host_id})
-            if loop_cfg.log_every and s % loop_cfg.log_every == 0:
+            if lead and loop_cfg.log_every and s % loop_cfg.log_every == 0:
                 print(f"[train] step={s} loss={loss:.4f} dt={dt*1e3:.0f}ms",
                       flush=True)
             result.steps_done = s + 1
+            if ctx is not None:     # a signal to any rank stops them all
+                preempted["flag"] = bool(ctx.rmax(torch.tensor(
+                    float(preempted["flag"]), device=dev), ctx.axes))
             if (s + 1) % loop_cfg.ckpt_every == 0 or preempted["flag"]:
-                mgr.save(s + 1, params, opt_state,
-                         extra={"data_step": s + 1})
+                _save(mgr, s + 1, params, opt_state, ctx)
             if preempted["flag"]:
                 print("[train] preemption checkpoint written, exiting",
                       flush=True)

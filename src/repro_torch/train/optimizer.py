@@ -19,7 +19,7 @@ for the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -74,12 +74,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig,
+                 grad_norm: Optional[torch.Tensor] = None):
     """Returns (params, new_state, metrics); params and the moments are
     updated in place (the module's docstring), the step is a new 0-d
-    int32 tensor."""
+    int32 tensor. ``grad_norm``: the gradients' global norm where they
+    are shards (``ShardCtx.global_norm``: the local squared norms
+    all-reduced over every axis, each leaf counted once however it is
+    replicated); else ``global_norm(grads)``."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     lr = _schedule(cfg, state["step"])
     bc1 = 1 - cfg.b1 ** step

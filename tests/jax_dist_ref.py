@@ -1,0 +1,105 @@
+"""The JAX package's side of ``tests/test_torch_distributed.py``, run in a
+subprocess with 4 host devices: the reference's ``make_pipelined_apply``
+on the test's tanh layers, and for the smoke granite with the test's
+params and tokens: its ``build_train_step`` on a (2, 2) host mesh (the
+loss and grad norm), each leaf's gradient of its loss under that mesh's
+shardings, and its ``jit_prefill_step`` and a few ``jit_decode_step``
+steps on the meshes (2, 2) and (1, 4).
+
+    python tests/jax_dist_ref.py WORKDIR   (writes WORKDIR/jax_ref.npz)
+"""
+import os
+import sys
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config  # noqa: E402
+from repro.distributed.pipeline import make_pipelined_apply  # noqa: E402
+from repro.models import get_model  # noqa: E402
+from repro.models.blueprint import is_leaf  # noqa: E402
+from repro.train.train_step import (StepConfig, build_train_step,  # noqa
+                                    jit_decode_step, jit_prefill_step,
+                                    param_sharding_tree)
+from repro.train.optimizer import AdamWConfig, init_opt_state  # noqa
+
+
+def auto_mesh(shape, names):
+    """A mesh whose axes are all ``Auto``, as the reference's sharded steps
+    were written for (newer JAX makes ``Explicit`` axes by default, under
+    which the embedding's gather of a sharded table is refused)."""
+    return jax.make_mesh(shape, names, axis_types=(
+        jax.sharding.AxisType.Auto,) * len(shape))
+
+
+def main(workdir: str) -> None:
+    g = np.load(os.path.join(workdir, "gpipe.npz"))
+    Ws, xs = jnp.asarray(g["Ws"]), jnp.asarray(g["xs"])
+    L, d = Ws.shape[0], Ws.shape[1]
+    mesh = jax.make_mesh((4,), ("pipe",))
+
+    def layer_fn(stage_params, x):
+        def one(x, w):
+            return jnp.tanh(x @ w), None
+        y, _ = jax.lax.scan(one, x, stage_params)
+        return y
+    piped = make_pipelined_apply(mesh, layer_fn, xs.shape[0])
+    with mesh:
+        ys = piped(Ws.reshape(4, L // 4, d, d), xs)
+
+    model = get_model(get_config("granite-3-2b", smoke=True))
+    arrays = np.load(os.path.join(workdir, "params.npz"))
+    paths, treedef = jax.tree_util.tree_flatten_with_path(
+        model.blueprint(), is_leaf=is_leaf)
+
+    def key(path):
+        return "__".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                         for p in path)
+    params = jax.tree.unflatten(treedef, [
+        jnp.asarray(arrays[key(p)], dtype=l.dtype) for p, l in paths])
+    b = np.load(os.path.join(workdir, "batch.npz"))
+    tokens = jnp.asarray(b["tokens"])
+    tmesh = auto_mesh((2, 2), ("data", "model"))
+    oc = AdamWConfig(lr=1e-3)
+    step = jax.jit(build_train_step(model, tmesh,
+                                    StepConfig(remat=True, opt=oc)))
+    out = {"ys": np.asarray(ys)}
+    with tmesh:
+        _, _, met = step(params, init_opt_state(params, oc),
+                         {"tokens": tokens})
+        grads = jax.jit(jax.grad(lambda p, t: model.loss_fn(
+            p, {"tokens": t}, remat=True)))(
+            jax.device_put(params, param_sharding_tree(model, tmesh)),
+            tokens)
+    out.update(loss=np.float64(met["loss"]),
+               grad_norm=np.float64(met["grad_norm"]))
+    for (p, _), g in zip(paths, jax.tree.leaves(grads)):
+        out["grad__" + key(p)] = np.asarray(g, np.float32)
+
+    pre_s, dec_len, steps = (int(b[k]) for k in ("pre_s", "dec_len",
+                                                  "dec_steps"))
+    B = tokens.shape[0]
+    for shape in ((2, 2), (1, 4)):
+        mesh = auto_mesh(shape, ("data", "model"))
+        tag = f"{shape[0]}x{shape[1]}"
+        pre, _ = jit_prefill_step(model, mesh, "prefill_32k")
+        dec, _ = jit_decode_step(model, mesh, "decode_32k")
+        with mesh:
+            out["prefill_" + tag] = np.asarray(
+                pre(params, {"tokens": tokens[:, :pre_s]}), np.float32)
+            cache = model.init_cache(B, dec_len)
+            logits = []
+            for t in range(steps):
+                lo, cache = dec(params, {
+                    "tokens": tokens[:, t:t + 1],
+                    "pos": jnp.full((B,), t, jnp.int32), "cache": cache})
+                logits.append(np.asarray(lo, np.float32))
+            out["decode_" + tag] = np.stack(logits)
+    np.savez(os.path.join(workdir, "jax_ref.npz"), **out)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

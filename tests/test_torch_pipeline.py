@@ -78,7 +78,10 @@ def test_port_imports_nothing_of_jax_or_the_reference():
         "'core.backends.torchgen', 'train.data', 'train.optimizer', "
         "'train.train_step', 'train.checkpoint', 'train.loop', "
         "'launch.train', 'kernels.rmsnorm.rmsnorm_bwd', "
-        "'kernels.flash_attention.flash_attention_bwd')}\n"
+        "'kernels.flash_attention.flash_attention_bwd', "
+        "'distributed.collectives', 'distributed.context', "
+        "'distributed.pipeline', 'launch.mesh', 'launch.dryrun', "
+        "'launch.roofline', 'launch.perf_table', 'launch.recost')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -90,3 +93,21 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("clean")
+
+
+def test_importing_the_dry_run_changes_no_state():
+    """The reference's dry run sets XLA_FLAGS at import; the port's sets
+    nothing and starts no process group until a cell runs."""
+    code = (
+        "import os, torch.distributed as dist\n"
+        "env = dict(os.environ)\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.recost\n"
+        "import repro_torch.launch.mesh, repro_torch.distributed.pipeline\n"
+        "assert dict(os.environ) == env, set(os.environ) ^ set(env)\n"
+        "assert not dist.is_initialized()\n"
+        "print('unchanged')\n")
+    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}:{ROOT}"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("unchanged")

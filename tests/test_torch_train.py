@@ -29,6 +29,7 @@ quadratic. The straggler watchdog's slow step is injected by step number
 clock calls (ROADMAP C3).
 """
 import json
+import os
 import types
 
 import jax
@@ -532,5 +533,12 @@ def test_launch_train_cli_on_the_cpu(tmp_path, capsys):
     launch_train.main(["--device", "cpu", "--steps", "2", "--batch", "2",
                        "--seq", "16", "--ckpt-dir", str(tmp_path)])
     assert "done: 2 steps" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        launch_train.main(["--distributed", "--device", "cpu"])
+    # --distributed takes its ranks from a launcher's environment
+    # (tests/test_torch_distributed.py runs two)
+    env = {k: os.environ.pop(k) for k in ("RANK", "WORLD_SIZE")
+           if k in os.environ}
+    try:
+        with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE"):
+            launch_train.main(["--distributed", "--device", "cpu"])
+    finally:
+        os.environ.update(env)
