@@ -166,9 +166,20 @@ Fourteen paths of the port, each at full width:
     (``granite-3-2b/tp_train``, ``olmoe-1b-7b/tp_train``); the sharded
     decode on (1, 4) with a head-sharded cache and on (1, 3) with a
     sequence-sharded one, against one process (``granite-3-2b/
-    tp_decode``). A ``{"distributed": ...}`` JSON line holds the ranks'
-    ms, peak GB and staged bytes; times shared by the ranks on one card
-    are no multi-card times;
+    tp_decode``); granite's step with the sequence-parallel residual
+    against the same step without it, their gradients and collective
+    bytes by kind (``granite-3-2b/tp_seqpar``); jamba-1.5-large's step
+    on (2, 2) at full width cut to a mamba and an attention layer with
+    dense FFs, 2.85 B params, the selective scan and its backward on a
+    rank's 4,096 of 16,384 ``d_inner`` channels, its loss, grad norm and
+    every leaf's gradient against one process
+    (``jamba-1.5-large-398b/tp_train``), and its decode on (1, 4)
+    (``.../tp_decode``); xlstm-1.3b's decode and a 1 x 512 prefill on
+    (1, 4), one period at full width (``xlstm-1.3b/tp_decode``,
+    ``.../tp_prefill``), held within ROADMAP C15's yardstick where bf16
+    noise of the random weights passes the atol. A ``{"distributed":
+    ...}`` JSON line holds the ranks' ms, peak GB and staged bytes;
+    times shared by the ranks on one card are no multi-card times;
   * the port's four examples (``examples/torch_*.py``: the quickstart,
     the SIMT demo, serving with ``--storm`` and ``--launch-storm``, 20
     steps of the ~110 M training example), each on the card in a process
@@ -333,6 +344,7 @@ rows.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -3410,6 +3422,18 @@ TP_MESH, TP_CUT, TP_B, TP_S = (2, 2), {"n_layers": 2}, 4, 2048
 #: long; on (1, 4) granite's 8 kv heads shard, on (1, 3) nothing divides
 #: 3 and the cache is sequence-sharded
 DEC_MESHES, DEC_SLOTS, DEC_STEPS, DEC_LEN = ((1, 4), (1, 3)), 8, 6, 384
+#: jamba's sharded train step on TP_MESH and decode on (1, 4): full width
+#: cut to a mamba layer and an attention layer, each with the dense FF
+#: (no MoE: olmoe's tp_train holds MoE under a context), 2.85 B params
+HYBRID_TP_CUT = {"n_layers": 2, "attn_every_k": 2, "moe_experts": 0}
+#: xlstm's sharded decode and prefill on (1, 4): one period at full width
+#: (1 sLSTM, 7 mLSTM layers; one head a rank), a prefill of 1 x 512
+XLSTM_TP_CUT, XLSTM_TP_PREFILL = {"n_layers": 8}, 512
+#: xlstm's sharded decode and prefill in float32 against one process's in
+#: float32 (``_float32_lm``), max abs err on the logits: the same sums in
+#: another order (the CPU tests' F32_TOL)
+XLSTM_F32_ATOL = 1e-3
+RECURRENT_MESH = (1, 4)
 DIST_TIMEOUT_S = 300
 
 
@@ -3603,6 +3627,267 @@ def _tp_decode_rank(dev, seed, rank, shape):
     return out
 
 
+def _rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def _noisy_embed(params):
+    """params with a tenth of the embedding's entries one bf16 ulp up:
+    ROADMAP C15's yardstick of how far bf16 noise moves a result."""
+    e = params["embed"].clone()
+    g = torch.Generator(e.device).manual_seed(0)
+    mask = torch.rand(e.shape, generator=g, device=e.device) < 0.1
+    e[mask] = (e[mask].float() * (1 + 2 ** -8)).bfloat16()
+    return {**params, "embed": e}
+
+
+def _tp_train_hybrid_rank(dev, seed, rank):
+    """jamba's sharded train step on TP_MESH at HYBRID_TP_CUT (rank 0:
+    the one-process loss, grad norm and gradients on the same params and
+    batch, and the one-process gradients from ``_noisy_embed``'s params,
+    C15's yardstick). The sharded gradients are gathered and compared a
+    leaf at a time: no rank holds two whole trees."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import (jit_train_step, make_step_ctx,
+                                              shard_batch)
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), **HYBRID_TP_CUT)
+    model = get_model(cfg)
+    mesh = make_mesh(TP_MESH, ("data", "model"), dev)
+
+    def fresh():
+        return init_params(model.blueprint(),
+                           torch.Generator(dev).manual_seed(seed))
+
+    tg = torch.Generator(dev).manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TP_B, TP_S),
+                                     generator=tg, device=dev)}
+    scfg = StepConfig(remat=True, opt=AdamWConfig())
+    step, (_, _, bsh) = jit_train_step(model, mesh, scfg, "train_4k")
+    ctx = make_step_ctx(model, mesh, "train_4k")
+    lp = ctx.shard_tree(fresh())
+    lo = init_opt_state(lp, scfg.opt)
+    lb = shard_batch(batch, ctx, bsh)
+    torch.cuda.reset_peak_memory_stats()
+    col.reset()
+    # one step, timed: the kernels are warm from the phase's earlier
+    # parts, and a second step would add 12 s of gloo for the same time
+    (lp, lo, met), secs, counts, routes = _rank_counts(
+        lambda: step(lp, lo, lb))
+    coll = col.counters()
+    del lp, lo
+    _, sg = value_and_grad(model.sharded(ctx), ctx.shard_tree(fresh()), lb,
+                           remat=True, scale=1.0 / ctx.size(ctx.axes))
+    sg = ctx.sum_replicas(sg)
+    out = {"counts": counts, "routes": routes, "step_ms": secs * 1e3,
+           "staged": dict(col.STAGED), "collectives": coll,
+           "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])}
+    if rank == 0:
+        p1 = fresh()
+        loss1, g1 = value_and_grad(model, p1, batch, remat=True)
+        _, gn = value_and_grad(model, _noisy_embed(p1), batch, remat=True)
+        del p1
+        out["loss_one"] = float(loss1)
+        out["grad_norm_one"] = float(global_norm(g1))
+        out["grad_norm_noise"] = abs(float(global_norm(gn))
+                                     / out["grad_norm_one"] - 1)
+        g1, gn = leaves(g1), leaves(gn)
+        out["gerr"], out["noise"] = {}, {}
+    names = _leaf_names(sg)
+    blocks = [l.blocks for l in leaves(ctx.bp)]
+    with torch.no_grad():
+        for i, (g, spec) in enumerate(zip(leaves(sg), leaves(ctx.specs))):
+            whole = ctx.unshard(g, spec, blocks[i])
+            if rank == 0 and g1[i].float().any():
+                out["gerr"][names[i]] = _rel_l2(whole, g1[i])
+                out["noise"][names[i]] = _rel_l2(gn[i], g1[i])
+            del whole
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _tp_seqpar_rank(dev, seed, rank):
+    """granite cut to TP_CUT on TP_MESH: the sharded step with
+    ``seq_shard_activations`` (counted) and without it, each one's
+    collective bytes by kind on this rank, and its gradients (rank 0:
+    the two held against each other, leaf by leaf)."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.train_step import (jit_train_step, make_step_ctx,
+                                              shard_batch)
+    mesh = make_mesh(TP_MESH, ("data", "model"), dev)
+    base = dataclasses.replace(get_config(LM_ARCH), **TP_CUT)
+    tg = torch.Generator(dev).manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, base.vocab, (TP_B, TP_S),
+                                     generator=tg, device=dev)}
+    out, grads = {}, {}
+    for sp in (False, True):
+        model = get_model(dataclasses.replace(base,
+                                              seq_shard_activations=sp))
+
+        def fresh():
+            return init_params(model.blueprint(),
+                               torch.Generator(dev).manual_seed(seed))
+        scfg = StepConfig(remat=True, opt=AdamWConfig())
+        step, (_, _, bsh) = jit_train_step(model, mesh, scfg, "train_4k")
+        ctx = make_step_ctx(model, mesh, "train_4k")
+        lp = ctx.shard_tree(fresh())
+        lo = init_opt_state(lp, scfg.opt)
+        lb = shard_batch(batch, ctx, bsh)
+        torch.cuda.reset_peak_memory_stats()
+        col.reset()
+        (lp, lo, met), secs, counts, routes = _rank_counts(
+            lambda: step(lp, lo, lb))
+        coll = col.counters()
+        _, secs2 = _sync_s(lambda: step(lp, lo, lb))
+        _, sg = value_and_grad(model.sharded(ctx), ctx.shard_tree(fresh()),
+                               lb, remat=True,
+                               scale=1.0 / ctx.size(ctx.axes))
+        grads[sp] = leaves(ctx.unshard_tree(ctx.sum_replicas(sg)))
+        out[sp] = {"counts": counts, "routes": routes, "sp": list(ctx.sp),
+                   "first_ms": secs * 1e3, "step_ms": secs2 * 1e3,
+                   "collectives": coll, "loss": float(met["loss"]),
+                   "grad_norm": float(met["grad_norm"]),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del lp, lo, sg
+    res = {"counts": out[True]["counts"], "routes": out[True]["routes"],
+           "off": out[False], "on": out[True]}
+    if rank == 0:
+        names = _leaf_names(model.blueprint())
+        res["gerr"] = {n: _rel_l2(a, b) for n, a, b in
+                       zip(names, grads[True], grads[False])
+                       if b.float().any()}
+    return res
+
+
+@contextlib.contextmanager
+def _float32_lm():
+    """The LM in float32 while inside (the CPU tests' ``float32_lm``): the
+    embedding's rows upcast, so that every layer computes in float32
+    from float32 params and caches. A check's patch, not a path of the
+    port: it holds the sharded logic where bf16 noise on the random
+    full-width models (ROADMAP C15) would hide it."""
+    from repro_torch.models.transformer import LM
+    orig = LM._embed
+    LM._embed = lambda self, p, t: orig(self, p, t).float()
+    try:
+        yield
+    finally:
+        LM._embed = orig
+
+
+def _f32_tree(tree):
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                    tree)
+
+
+def _tp_recurrent_rank(dev, seed, rank, arch):
+    """jamba (HYBRID_TP_CUT) or xlstm (XLSTM_TP_CUT) on RECURRENT_MESH:
+    DEC_STEPS sharded decode steps on DEC_SLOTS slots, and for xlstm a
+    sharded prefill of 1 x XLSTM_TP_PREFILL tokens (rank 0: the one-
+    process decode_step and prefill against them, and from
+    ``_noisy_embed``'s params, C15's yardstick). xlstm's decode and
+    prefill again in float32 (``_float32_lm``), uncounted, against one
+    process's in float32."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.blueprint import PSpec
+    from repro_torch.train.train_step import (jit_decode_step,
+                                              jit_prefill_step, make_step_ctx,
+                                              shard_batch)
+    cut = HYBRID_TP_CUT if arch == HYBRID_ARCH else XLSTM_TP_CUT
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    model = get_model(cfg)
+    mesh = make_mesh(RECURRENT_MESH, ("data", "model"), dev)
+    params = init_params(model.blueprint(),
+                         torch.Generator(dev).manual_seed(seed))
+    step, (_, bsh) = jit_decode_step(model, mesh, "decode_32k")
+    ctx = make_step_ctx(model, mesh, "decode_32k")
+    lp = ctx.shard_tree(params)
+    if rank:
+        del params
+
+    def cache(f32=False):
+        c = model.init_cache(DEC_SLOTS, DEC_LEN, device=dev)
+        return _f32_tree(c) if f32 else c
+
+    def local_cache(f32=False):
+        return tree_map(lambda t, sp: ctx.shard(t, sp).clone(), cache(f32),
+                        bsh["cache"])
+    lcache = local_cache()
+    g = torch.Generator(dev).manual_seed(seed + 4)
+    toks = torch.randint(0, cfg.vocab, (DEC_SLOTS, DEC_STEPS), generator=g,
+                         device=dev)
+    vspec = PSpec(ctx.batch or None, None,
+                  "model" if ctx.logical("vocab") else None)
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps(lp, lcache):
+        outs = []
+        for t in range(DEC_STEPS):
+            pos = torch.full((DEC_SLOTS,), t, device=dev)
+            lb = {"tokens": ctx.shard(toks[:, t:t + 1], bsh["tokens"]),
+                  "pos": ctx.shard(pos, bsh["pos"]), "cache": lcache}
+            outs.append(ctx.unshard(step(lp, lb)[0], vspec))
+        return outs
+
+    got, secs, counts, routes = _rank_counts(lambda: steps(lp, lcache))
+    out = {"counts": counts, "routes": routes, "ms": secs * 1e3 / DEC_STEPS,
+           "cache": [list(map(str, s)) for s in leaves(bsh["cache"])[:2]],
+           "local_state": [tuple(t.shape) for t in leaves(lcache)[:2]]}
+    pre_toks = None
+    if arch == XLSTM_ARCH:
+        pre, (_, psh) = jit_prefill_step(model, mesh, "prefill_32k")
+        pctx = make_step_ctx(model, mesh, "prefill_32k")
+        pg = torch.Generator(dev).manual_seed(seed + 5)
+        pre_toks = torch.randint(0, cfg.vocab, (1, XLSTM_TP_PREFILL),
+                                 generator=pg, device=dev)
+        pspec = PSpec(None, "model" if pctx.logical("vocab") else None)
+
+        def prefill(lp):
+            return pctx.unshard(
+                pre(lp, shard_batch({"tokens": pre_toks}, pctx, psh)), pspec)
+        plog, psecs, pcounts, proutes = _rank_counts(lambda: prefill(lp))
+        out["prefill"] = {"counts": pcounts, "routes": proutes,
+                          "ms": psecs * 1e3}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if arch == XLSTM_ARCH:      # in float32, after the counted runs
+        with _float32_lm():
+            lp32 = _f32_tree(lp)
+            got32 = steps(lp32, local_cache(True))
+            plog32 = prefill(lp32)
+        del lp32
+
+    def one(p, f32=False):
+        rc = cache(f32)
+        dec = [model.decode_step(p, rc, toks[:, t:t + 1],
+                                 torch.full((DEC_SLOTS,), t,
+                                            device=dev))[0]
+               for t in range(DEC_STEPS)]
+        pf = None if pre_toks is None else model.prefill(p, pre_toks)
+        return dec, pf
+
+    def gap(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(a, b))
+    if rank == 0:
+        dec, pf = one(params)
+        ndec, npf = one(_noisy_embed(params))
+        out["max_abs_err"], out["noise"] = gap(got, dec), gap(ndec, dec)
+        if pf is not None:
+            out["prefill"]["max_abs_err"] = gap([plog], [pf])
+            out["prefill"]["noise"] = gap([npf], [pf])
+        if arch == XLSTM_ARCH:
+            with _float32_lm():
+                dec32, pf32 = one(_f32_tree(params), f32=True)
+            out["f32"] = {"decode": gap(got32, dec32),
+                          "prefill": gap([plog32], [pf32]),
+                          "scale": max(float(t[t > -1e29].abs().max())
+                                       for t in dec32)}
+    return out
+
+
 def _dist_rank(rank, world, port, parts, seed, q):
     """A rank of the distributed phase: joins a gloo world of ``world``
     on this card and runs ``parts`` in turn, putting each one's result
@@ -3619,7 +3904,10 @@ def _dist_rank(rank, world, port, parts, seed, q):
             world_size=world, timeout=datetime.timedelta(seconds=240))
         for name, args in parts:
             fn = {"gpipe": _gpipe_rank, "tp_train": _tp_train_rank,
-                  "tp_decode": _tp_decode_rank}[name]
+                  "tp_decode": _tp_decode_rank,
+                  "tp_train_hybrid": _tp_train_hybrid_rank,
+                  "tp_seqpar": _tp_seqpar_rank,
+                  "tp_recurrent": _tp_recurrent_rank}[name]
             q.put((rank, name, args, fn(dev, seed, rank, *args)))
             torch.cuda.empty_cache()
         dist.destroy_process_group()
@@ -3693,12 +3981,32 @@ def distributed_phase(seed: int) -> tuple:
       * the sharded decode of granite cut to 2 layers, 8 slots, 6 steps,
         on (1, 4) (head-sharded cache) and (1, 3) (nothing divides 3:
         heads replicated, the cache sequence-sharded), against the
-        one-process decode_step.
+        one-process decode_step;
+      * granite's sharded train step with ``seq_shard_activations``
+        against the same step without it on (2, 2): the loss, every
+        leaf's gradient, and the collective bytes by kind a rank;
+      * jamba's sharded train step on (2, 2) at full width cut to a mamba
+        and an attention layer with dense FFs (HYBRID_TP_CUT, 2.85 B
+        params): the loss, the grad norm and every leaf's gradient
+        against one process's, the selective scan and its backward on
+        each rank's 4,096 of the 16,384 ``d_inner`` channels; its decode
+        on (1, 4), 8 slots, 6 steps, against one process;
+      * xlstm's decode (8 slots, 6 steps) and a prefill of 1 x 512 on
+        (1, 4), one period at full width (one head a rank), against one
+        process: in bf16 printed beside C15's yardstick, for information,
+        and held in float32 (both sides) at XLSTM_F32_ATOL.
+
+    Where a jamba leaf's gradient misses its tolerance, the one-process
+    step's own movement under one bf16 ulp on a tenth of the embedding
+    (ROADMAP C15's yardstick) is the bound, printed beside it.
 
     Returns (the counts by path, a summary)."""
     world4 = _dist_world(4, [("gpipe", ()), ("tp_train", (LM_ARCH,)),
                              ("tp_train", (MOE_ARCH,)),
-                             ("tp_decode", (DEC_MESHES[0],))], seed)
+                             ("tp_decode", (DEC_MESHES[0],)),
+                             ("tp_seqpar", ()), ("tp_train_hybrid", ()),
+                             ("tp_recurrent", (HYBRID_ARCH,)),
+                             ("tp_recurrent", (XLSTM_ARCH,))], seed)
     world3 = _dist_world(3, [("tp_decode", (DEC_MESHES[1],))], seed)
     res = {**world4, **world3}
     by_path, summary = {}, {}
@@ -3804,7 +4112,154 @@ def distributed_phase(seed: int) -> tuple:
                 ROUTE_COUNTS[label][k][w] += c
         summary[f"{label} {shape}"] = {"ms": [r["ms"] for r in rs],
                                        "max_abs_err": r0["max_abs_err"]}
+    _seqpar_checks(res, by_path, summary)
+    _hybrid_train_checks(res, by_path, summary)
+    _recurrent_checks(res, by_path, summary)
     return by_path, summary
+
+
+def _world_launches(cfg, world: int) -> dict:
+    """A sharded train step's launches over ``world`` ranks, each running
+    the whole step's kernels on its shard (``_train_launches``)."""
+    return {k: v * world for k, v in _train_launches(cfg).items()}
+
+
+def _seqpar_checks(res, by_path, summary) -> None:
+    rs = res[("tp_seqpar", ())]
+    cfg = dataclasses.replace(get_config(LM_ARCH), **TP_CUT)
+    world = TP_MESH[0] * TP_MESH[1]
+    label = f"{LM_ARCH}/tp_seqpar"
+    by_path[label], ROUTE_COUNTS[label] = _dist_path(
+        label, rs, _world_launches(cfg, world))
+    r0 = rs[0]
+    gap = abs(r0["on"]["loss"] - r0["off"]["loss"])
+    worst = max(r0["gerr"], key=r0["gerr"].get)
+    print(f"check {label} mesh {TP_MESH}, residual split on "
+          f"{r0['on']['sp']}: loss {r0['on']['loss']:.6f} vs "
+          f"{r0['off']['loss']:.6f} without, gap {gap:.3g} (atol "
+          f"{TRAIN_LOSS_ATOL}); gradients of {len(r0['gerr'])} leaves, "
+          f"largest relative L2 error {r0['gerr'][worst]:.3g} ({worst}; "
+          f"tol {TRAIN_GRAD_TOL})")
+    for i, r in enumerate(rs):
+        off, on = r["off"], r["on"]
+        print(f"{label} rank {i}: step {on['step_ms']:.1f} ms (without "
+              f"{off['step_ms']:.1f}), peak {on['peak_gb']:.2f} GB "
+              f"(without {off['peak_gb']:.2f}); collective bytes with "
+              f"{on['collectives']['bytes']}, without "
+              f"{off['collectives']['bytes']}")
+        b_on, b_off = on["collectives"]["bytes"], off["collectives"]["bytes"]
+        if not (b_on["all-reduce"] < b_off["all-reduce"]
+                and b_on["reduce-scatter"] > b_off["reduce-scatter"]
+                and b_on["all-gather"] > b_off["all-gather"]):
+            raise AssertionError(f"{label} rank {i}: the residual's "
+                                 "all-reduces did not become reduce-"
+                                 "scatters and all-gathers")
+    if gap > TRAIN_LOSS_ATOL or r0["gerr"][worst] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"{label}: past tolerance")
+    summary[label] = {
+        "step_ms": [r["on"]["step_ms"] for r in rs],
+        "step_ms_without": [r["off"]["step_ms"] for r in rs],
+        "peak_gb": [r["on"]["peak_gb"] for r in rs],
+        "loss_gap": gap, "max_gerr": r0["gerr"][worst],
+        "bytes": [r["on"]["collectives"]["bytes"] for r in rs],
+        "bytes_without": [r["off"]["collectives"]["bytes"] for r in rs]}
+
+
+def _hybrid_train_checks(res, by_path, summary) -> None:
+    rs = res[("tp_train_hybrid", ())]
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), **HYBRID_TP_CUT)
+    world = TP_MESH[0] * TP_MESH[1]
+    label = f"{HYBRID_ARCH}/tp_train"
+    by_path[label], ROUTE_COUNTS[label] = _dist_path(
+        label, rs, _world_launches(cfg, world))
+    r0 = rs[0]
+    gap = abs(r0["loss"] - r0["loss_one"])
+    ngap = abs(r0["grad_norm"] - r0["grad_norm_one"]) / r0["grad_norm_one"]
+    missed = {k: (e, r0["noise"][k]) for k, e in r0["gerr"].items()
+              if e > TRAIN_GRAD_TOL}
+    worst = max(r0["gerr"], key=r0["gerr"].get)
+    n_params = count_params(get_model(cfg).blueprint())
+    print(f"check {label} mesh {TP_MESH}, {n_params / 1e9:.2f} B "
+          f"params ({cfg.n_layers} layers at full width: "
+          f"{[k.mixer for k in cfg.layer_pattern()]}), {TP_B} x {TP_S} "
+          f"tokens: loss {r0['loss']:.6f} vs one process "
+          f"{r0['loss_one']:.6f}, gap {gap:.3g} (atol {TRAIN_LOSS_ATOL}); "
+          f"grad norm {r0['grad_norm']:.6g} vs {r0['grad_norm_one']:.6g}, "
+          f"relative gap {ngap:.3g} (tol 1e-3; C15 yardstick "
+          f"{r0['grad_norm_noise']:.3g}); gradients of "
+          f"{len(r0['gerr'])} leaves, largest relative L2 error "
+          f"{r0['gerr'][worst]:.3g} ({worst}; tol {TRAIN_GRAD_TOL}); "
+          f"leaves past it, with the one-process gradient's own movement "
+          f"under C15's noise: {missed}")
+    print(f"{label} gradient relative L2 error by leaf {r0['gerr']}; "
+          f"C15 yardstick by leaf {r0['noise']}")
+    for i, r in enumerate(rs):
+        print(f"{label} rank {i}: step {r['step_ms']:.1f} ms, peak "
+              f"{r['peak_gb']:.2f} GB, collectives {r['collectives']}")
+    if gap > TRAIN_LOSS_ATOL or ngap > 1e-3 or any(
+            e > n for e, n in missed.values()) or \
+            len({round(r["loss"], 6) for r in rs}) != 1:
+        raise AssertionError(f"{label}: sharded step past tolerance")
+    summary[label] = {"step_ms": [r["step_ms"] for r in rs],
+                      "peak_gb": [r["peak_gb"] for r in rs],
+                      "loss": r0["loss"], "loss_one": r0["loss_one"],
+                      "grad_norm_gap": ngap,
+                      "max_gerr": r0["gerr"][worst], "missed": missed}
+
+
+def _recurrent_checks(res, by_path, summary) -> None:
+    n = RECURRENT_MESH[0] * RECURRENT_MESH[1]
+    for arch, cut in ((HYBRID_ARCH, HYBRID_TP_CUT),
+                      (XLSTM_ARCH, XLSTM_TP_CUT)):
+        rs = res[("tp_recurrent", (arch,))]
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        r0 = rs[0]
+        norms = 2 * cfg.n_layers + 1 if arch == HYBRID_ARCH \
+            else cfg.n_layers + 1
+        label = f"{arch}/tp_decode"
+        by_path[label], ROUTE_COUNTS[label] = _dist_path(
+            label, rs, {"rmsnorm": norms * DEC_STEPS * n})
+        print(f"check {label} mesh {RECURRENT_MESH}, {cfg.n_layers} layers "
+              f"at full width, cache {r0['cache']} (local "
+              f"{r0['local_state']}), {DEC_STEPS} steps at {DEC_SLOTS} "
+              f"slots against one process: max abs err "
+              f"{r0['max_abs_err']:.3g} (C15 yardstick {r0['noise']:.3g}"
+              + (f"; atol {DECODE_ATOL})" if arch == HYBRID_ARCH else
+                 f"; information only: the float32 check below holds it)")
+              + f"; ms a step by rank {[round(r['ms'], 2) for r in rs]}, "
+              f"peak GB {[round(r['peak_gb'], 2) for r in rs]}")
+        if arch == HYBRID_ARCH and r0["max_abs_err"] > DECODE_ATOL:
+            raise AssertionError(f"{label}: past tolerance")
+        summary[label] = {"ms": [r["ms"] for r in rs],
+                          "peak_gb": [r["peak_gb"] for r in rs],
+                          "max_abs_err": r0["max_abs_err"],
+                          "noise": r0["noise"]}
+        if arch != XLSTM_ARCH:
+            continue
+        f32 = r0["f32"]
+        print(f"check {arch} float32 (decode and prefill sharded on "
+              f"{RECURRENT_MESH} against one process, both in float32): "
+              f"decode max abs err {f32['decode']:.3g}, prefill "
+              f"{f32['prefill']:.3g} (atol {XLSTM_F32_ATOL}; largest "
+              f"|logit| {f32['scale']:.3g}, the padded vocab's -1e30 "
+              f"aside)")
+        if max(f32["decode"], f32["prefill"]) > XLSTM_F32_ATOL:
+            raise AssertionError(f"{arch}: float32 sharded decode or "
+                                 "prefill past tolerance")
+        summary[label]["f32"] = f32
+        label = f"{arch}/tp_prefill"
+        pre = [r["prefill"] for r in rs]
+        by_path[label], ROUTE_COUNTS[label] = _dist_path(
+            label, pre, {"rmsnorm": norms * n})
+        p0 = pre[0]
+        print(f"check {label} mesh {RECURRENT_MESH}, 1 x {XLSTM_TP_PREFILL} "
+              f"tokens against one process: max abs err "
+              f"{p0['max_abs_err']:.3g} (C15 yardstick {p0['noise']:.3g}; "
+              f"information only: the float32 check above holds it); ms by "
+              f"rank {[round(p['ms'], 1) for p in pre]}")
+        summary[label] = {"ms": [p["ms"] for p in pre],
+                          "max_abs_err": p0["max_abs_err"],
+                          "noise": p0["noise"]}
 
 
 #: the port's examples on the card, each at a small size (the script's

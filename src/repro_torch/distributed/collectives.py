@@ -8,6 +8,8 @@ Thin wrappers over ``torch.distributed``'s c10d calls on a process group
     rank's loss), or a max without gradient;
   * ``all_gather`` along a dim (the fsdp gather of a leaf), whose
     backward is a reduce-scatter that sums;
+  * ``reduce_scatter`` along a dim (the sequence-parallel residual's
+    sum of a row-parallel product), whose backward is the all-gather;
   * ``send``, ``recv``, ``broadcast`` for the pipeline, forward only.
 
 Each call counts what it moves under the reference's five kinds
@@ -162,6 +164,19 @@ class _AllGather(torch.autograd.Function):
                 None, None, None)
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter0(x.movedim(dim, 0), group).movedim(0, dim) \
+            .contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gather0(g.movedim(ctx.dim, 0), ctx.group)
+                .movedim(0, ctx.dim).contiguous(), None, None)
+
+
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The sum (or max) of ``x`` over the group's ranks, a new tensor.
     The sum is differentiable (its backward sums the gradients over the
@@ -178,6 +193,13 @@ def all_gather(x: torch.Tensor, dim: int, group, blocks: int = 1
     ``blocks`` equal blocks, and the pieces are joined block by block.
     Differentiable: the backward reduce-scatters (sums) the gradient."""
     return _AllGather.apply(x, dim, group, blocks)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``x`` over the group's ranks, of which each rank keeps
+    its block along ``dim`` (in group-rank order). Differentiable: the
+    backward all-gathers the gradient."""
+    return _ReduceScatter.apply(x, dim, group)
 
 
 # -- point to point and broadcast (the pipeline; forward only) ----------------

@@ -3,25 +3,35 @@
 ``ShardCtx`` holds a mesh, the rules that ``models/registry.py:
 dynamic_rules`` adapted to it, the model's blueprint and the specs that
 ``param_specs`` derives from both, and, for one step, the axes its batch
-and a sequence-sharded cache are split over. The layers read it to work
-on their local slice of heads, kv heads, ff columns, experts or vocab;
-with no context they run the one-device code, untouched.
+and a sequence-sharded cache are split over, and those the residual
+stream's sequence is split over between layers. The layers read it to
+work on their local slice of heads, kv heads, ff columns, experts,
+``d_inner`` channels or vocab; with no context they run the one-device
+code, untouched.
 
 A leaf's shard is the rank's block of every sharded dim: dim ``i`` split
 over the mesh axes ``spec[i]`` (major first) in as many equal parts as
 those axes have ranks, the rank taking the part of its index in
 ``launch/mesh.py:axis_group(mesh, axes)``. A leaf with ``blocks`` > 1
-(a gated FF's ``wi``, [gate | up]) has its last dim cut block by block:
-the shard holds the rank's part of each block, side by side, so that the
-rank's gate and up columns match (Megatron's layout of a SwiGLU's
-column-parallel product).
+has its last dim cut block by block: the shard holds the rank's part of
+each block, side by side, so that the rank's columns of every block
+match (Megatron's layout of a SwiGLU's column-parallel product). The
+gated FF's ``wi`` [gate | up] and mamba's ``in_proj`` [x | z] have 2
+blocks, the sLSTM's ``wx``, ``wh`` and ``b`` [i | f | z | o] have 4.
+Where a dim divides its axes but not its blocks' parts (4·d dividing
+the model axis where d does not), ``shard`` raises.
 
 Design limits, as the reference's rules set them: a dim is sharded on
 the model axis only where ``dynamic_rules`` shards it; activations are
-replicated over the model axis and split over the data axes (the batch
-spec of ``input_shardings``); there is no sequence-parallel residual
-(``seq_shard_activations``, ROADMAP A16); the mamba and xLSTM mixers
-refuse a context (ROADMAP A16).
+split over the data axes (the batch spec of ``input_shardings``) and
+replicated over the model axis, but where the config sets
+``seq_shard_activations`` (``sp``, train and prefill steps): the
+residual stream between layers is then (B, S/m, d) on the model axis,
+as Megatron-LM's sequence parallelism has it (Korthikanti et al., 2022,
+arXiv:2205.05198). The norms and residual adds run on the rank's S
+shard; ``seq_full`` all-gathers S before each column-parallel product,
+and ``row_out`` reduce-scatters S after each row-parallel one where
+``reduce`` would all-reduce.
 
 The gradient convention: every rank computes the same global loss L
 (the sums over the data and model axes are all-reduced) and back-
@@ -60,6 +70,7 @@ class ShardCtx:
     specs: Any = None                    # param_specs(bp, rules, fsdp)
     batch: Tuple[str, ...] = ()          # axes this step's batch is split on
     seq: Tuple[str, ...] = ()            # axes a seq-sharded cache is split on
+    sp: Tuple[str, ...] = ()             # axes the residual's S is split on
 
     def __post_init__(self):
         if self.specs is None:
@@ -97,8 +108,9 @@ class ShardCtx:
             return 0
         return dist.get_rank(self.group(axes))
 
-    def with_step(self, batch=(), seq=()) -> "ShardCtx":
-        return replace(self, batch=as_axes(batch), seq=as_axes(seq))
+    def with_step(self, batch=(), seq=(), sp=()) -> "ShardCtx":
+        return replace(self, batch=as_axes(batch), seq=as_axes(seq),
+                       sp=as_axes(sp))
 
     # -- logical axes ---------------------------------------------------------
     def logical(self, name: str) -> Tuple[str, ...]:
@@ -138,6 +150,44 @@ class ShardCtx:
             return x
         return col.all_gather(x, dim, self.group(axes), blocks)
 
+    # -- the sequence-parallel residual ---------------------------------------
+    def seq_full(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual's S shard (B, S/m, ...) -> (B, S, ...), gathered
+        over ``sp`` (x itself without it)."""
+        return self.gather(x, 1, self.sp) if self.sp else x
+
+    def seq_part(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, S, ...), the same on every rank of ``sp`` -> this rank's
+        S shard (no communication). S must split over ``sp``."""
+        k = self._seq_split(x)
+        if k == 1:
+            return x
+        S = x.shape[1]
+        return x.narrow(1, self.index(self.sp) * (S // k), S // k)
+
+    def _seq_split(self, x: torch.Tensor) -> int:
+        """The ranks of ``sp``; raises where x's S does not split over
+        them."""
+        k = self.size(self.sp)
+        if x.shape[1] % k:
+            raise ValueError(f"seq_shard_activations: a sequence of "
+                             f"{x.shape[1]} does not split over {self.sp} "
+                             f"({k} ranks)")
+        return k
+
+    def row_out(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """A row-parallel product's output x (B, S, ...), partial over
+        ``axes``: summed over them, or under the sequence-parallel
+        residual, summed and this rank's S shard kept (a reduce-scatter
+        where ``axes`` are the residual's; a slice where nothing is
+        partial)."""
+        axes = as_axes(axes)
+        if not self.sp:
+            return self.reduce(x, axes)
+        if axes == self.sp and self._seq_split(x) > 1:
+            return col.reduce_scatter(x, 1, self.group(axes))
+        return self.seq_part(self.reduce(x, axes))
+
     # -- leaves ---------------------------------------------------------------
     def shard(self, t: torch.Tensor, spec: PSpec, blocks: int = 1
               ) -> torch.Tensor:
@@ -152,8 +202,11 @@ class ShardCtx:
             n = t.shape[d]
             b = blocks if d == t.dim() - 1 else 1
             if n % (k * b):
+                why = (f": each of its {b} blocks of {n // b} must split "
+                       f"{k} ways, and {n // b} does not"
+                       if b > 1 and n % k == 0 else "")
                 raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
-                                 f"split {k} x {b} ways ({spec})")
+                                 f"split {k} x {b} ways ({spec}){why}")
             s = n // (k * b)
             if b == 1:
                 t = t.narrow(d, i * s, s)

@@ -30,19 +30,39 @@ the reference's keys:
   * ``lower_s``: seconds to build the step and its fake inputs;
     ``compile_s``: seconds of the traced step.
 
+Two loops of the plain versions step through time one position at a
+time, and under ``FakeTensorMode`` each step costs a Python iteration
+and a few dispatched ops: the selective scan's and its backward's
+(``kernels/selective_scan``), and the sLSTM's (``models/xlstm.py:
+_slstm_steps``). jamba's ``train_4k`` record took more than 3 minutes
+on its smoke config alone that way. So the trace counts them from their
+shapes (``_by_shape``): the scan's S products h_t · C_t (B, d, n) x (n,)
+are one batched product of the same flops (2·B·S·d·n), and every
+operand the loop reads or writes (dA, dBx, Cm, the state and the saved
+states) is read or written once by an elementwise op; its backward has
+no matrix product (the plain loop's FlopCounter count is 0 too), and
+reads each input and writes each gradient once; the sLSTM's time loop
+is ``_slstm_cell`` over all S steps at once, its S products h_{t-1} @ wh
+one (B·S, d) x (d, 4d) product, whose backward makes both products (one
+(B, d) x (d, 4d) product more than the loop, whose first h needs no
+gradient). The bytes so counted lie between the operands' own and the
+stepped loop's, which moves the state through memory every step
+(``tests/test_torch_dryrun.py`` holds each stand-in to its loop). The
+collectives, the rest of the step and every other loop are traced as
+they run.
+
 The port's stack is a Python loop, so every period is counted;
 ``extrapolated`` stays, filled by ``_depth_extrapolate`` from the 1- and
 2-period variants as ``launch/recost.py`` does, and equal to the full
-count (``tests/test_torch_dryrun.py``). A config whose mixers the port
-does not shard (mamba, xLSTM) writes ``status: "not_ported"`` with the
-reason (ROADMAP A16); a shape the config does not support is
-``skipped``, as in the reference.
+count (``tests/test_torch_dryrun.py``). A shape the config does not
+support is ``skipped``, as in the reference.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--mesh 4x4]
 """
 import argparse
+import contextlib
 import dataclasses as _dc
 import json
 import math
@@ -76,6 +96,8 @@ VARIANTS = {
     # MoE capacity tightening
     "moe_cap1": lambda c: _dc.replace(c, moe_capacity=1.0),
     "moe_cap2": lambda c: _dc.replace(c, moe_capacity=2.0),
+    # sequence parallelism on the residual stream (AR -> RS+AG)
+    "seqpar": lambda c: _dc.replace(c, seq_shard_activations=True),
 }
 
 #: the reference's variants whose knob the port does not read
@@ -85,8 +107,6 @@ DROPPED = {
     "chunk1k": "attn_chunk: the kernel tiles by itself",
     "naive_attn": "attn_impl: attention always goes through the "
                   "flash_attention kernel",
-    "seqpar": "seq_shard_activations: no sequence-parallel residual "
-              "(ROADMAP A16)",
 }
 
 
@@ -174,6 +194,69 @@ def _fake(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype)
 
 
+def _scan_by_shape(dA, dBx, Cm, h=None, states=None):
+    """``selective_scan_plain``'s work from its shapes (the module's
+    docstring): dA, dBx and Cm read once, the loop's S products h_t · C_t
+    as one batched product of the same flops, y written once, and h and
+    ``states`` read and written where given. Stand-ins, not the scan's
+    values."""
+    from ..kernels.selective_scan.selective_scan import STATE_EVERY
+    hs = dA.float() * dBx.float()       # every step's state, stood in
+    if h is not None:
+        h.copy_(h + hs[:, -1])
+    if states is not None:
+        states.copy_(hs[:, ::STATE_EVERY])
+    return torch.einsum("bsdn,bsn->bsd", hs, Cm.float()).to(dA.dtype)
+
+
+def _scan_bwd_by_shape(dA, dBx, Cm, h0, dy, dh_last=None):
+    """``selective_scan_bwd_plain``'s work from its shapes: every input
+    read once, every gradient written once in its dtype, and no matrix
+    product (the loop has none). Stand-ins, not the gradients' values."""
+    a, c, gy = dA.float(), Cm.float(), dy.float()
+    hs = a * dBx.float()                    # the states again
+    g = gy[..., None] * c[:, :, None]       # every step's dL/dh
+    dh0 = a[:, 0] * g[:, 0]
+    for t in (h0, dh_last):
+        if t is not None:
+            dh0 = dh0 + t
+    return ((g * hs).to(dA.dtype), g.to(dBx.dtype),
+            (gy[..., None] * hs).sum(2).to(Cm.dtype), dh0)
+
+
+def _slstm_steps_by_shape(p, zx, d):
+    """``xlstm._slstm_steps``' work from its shapes: ``_slstm_cell`` once
+    over all S steps from the initial state, broadcast, with an h_in of
+    zx's that stands in for every step's h, so that the S products h @ wh
+    are one product of the same flops and, where zx needs a gradient,
+    the backward makes both of its products (the loop's first h is the
+    initial state's and needs none: one (B, d) x (d, 4d) product more)."""
+    from ..models.xlstm import _slstm_cell, slstm_init_state
+    B = zx.shape[0]
+    carry = tuple(t[:, None] for t in slstm_init_state(B, d, zx.dtype,
+                                                       zx.device))
+    return _slstm_cell(p, zx, carry, zx[..., :d])[0]
+
+
+@contextlib.contextmanager
+def _by_shape():
+    """The time loops counted from their shapes while inside."""
+    from ..kernels.selective_scan import selective_scan as ss
+    from ..kernels.selective_scan import selective_scan_bwd as sb
+    from ..models import xlstm
+    saved = [(ss, "selective_scan_plain", _scan_by_shape),
+             (sb, "selective_scan_bwd_plain", _scan_bwd_by_shape),
+             (xlstm, "_slstm_steps", _slstm_steps_by_shape)]
+    olds = [getattr(m, n) for m, n, _ in saved]
+    for m, n, f in saved:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for (m, n, _), old in zip(saved, olds):
+            setattr(m, n, old)
+
+
 def _trace(cfg, shape: str, mesh, kind: str, memory: bool = False) -> dict:
     """Trace rank 0's step of one cell -> its counts (and with
     ``memory`` the memory analysis and timings)."""
@@ -187,7 +270,7 @@ def _trace(cfg, shape: str, mesh, kind: str, memory: bool = False) -> dict:
     params_abs = abstract_params(model.blueprint())
     t0 = time.time()
     ctx = make_step_ctx(model, mesh, shape)     # its groups made here
-    with FakeTensorMode():
+    with FakeTensorMode(), _by_shape():
         params = ctx.shard_tree(tree_map(_fake, params_abs))
         specs = input_specs(cfg, shape)
         if kind == "train":
@@ -276,15 +359,6 @@ def run_cell(arch: str, shape: str, mesh_spec: str, out_dir: Path,
                          "(see DESIGN.md SArch-applicability)"}
         _write(out_dir, rec)
         return rec
-    mixers = sorted({k.mixer for k in cfg.layer_pattern()}
-                    & {"mamba", "mlstm", "slstm"})
-    if mixers:
-        rec = {**base, "status": "not_ported",
-               "reason": f"the {', '.join(mixers)} mixer under a sharding "
-                         "context is not ported (ROADMAP A16)"}
-        _write(out_dir, rec)
-        return rec
-
     fake_world(mesh_size(mesh_spec))
     try:
         mesh = mesh_from_spec(mesh_spec, "cpu")
@@ -367,7 +441,7 @@ def main(argv=None) -> int:
         fname = out_dir / f"{a}__{s}__{mesh_spec}.json"
         if args.skip_existing and fname.exists():
             prev = json.loads(fname.read_text())
-            if prev.get("status") in ("ok", "skipped", "not_ported"):
+            if prev.get("status") in ("ok", "skipped"):
                 print(f"[dryrun] skip existing {a} {s}", flush=True)
                 continue
         try:

@@ -16,8 +16,8 @@ from .roofline import analyze
 CELLS = [
     ("llama3-405b", "prefill_32k", [""]),
     ("xlstm-1.3b", "train_4k", ["", "xlstm_chunk64", "xlstm_chunk512"]),
-    ("jamba-1.5-large-398b", "train_4k", ["", "moe_cap1"]),
-    ("llama3-405b", "train_4k", ["", "loss_chunk"]),
+    ("jamba-1.5-large-398b", "train_4k", ["", "seqpar", "seqpar+moe_cap1"]),
+    ("llama3-405b", "train_4k", ["", "seqpar"]),
 ]
 
 

@@ -32,7 +32,11 @@ leaf's spec says (its fsdp dims already gathered): local heads and kv
 heads, local ff columns (a gated ``wi``'s gate and up columns matching);
 a row-parallel product (attention's ``wo``, the FF's ``wo``) is
 all-reduced over exactly the mesh axes its contraction dim is sharded
-on, and a dim the rules replicate takes no collective.
+on, and a dim the rules replicate takes no collective. Under the
+sequence-parallel residual (``ShardCtx.sp``) their input is the whole
+sequence, gathered by the caller, and their output is
+``ShardCtx.row_out``'s: reduce-scattered over S, or sliced where nothing
+is partial.
 """
 from __future__ import annotations
 
@@ -138,7 +142,7 @@ def mlp(p: Params, x: torch.Tensor, gated: bool = True, ctx=None
     else:   # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     out = h @ p["wo"]
-    return out if ctx is None else ctx.reduce(out, ctx.logical("ff"))
+    return out if ctx is None else ctx.row_out(out, ctx.logical("ff"))
 
 
 # --------------------------------------------------------------------------
@@ -269,4 +273,4 @@ def gqa_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
     # K/V keep their n_kv heads: the kernel reads them per group
     o = attention_chunked(q, k, v, causal=causal)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    return out if ctx is None else ctx.reduce(out, ctx.logical("heads"))
+    return out if ctx is None else ctx.row_out(out, ctx.logical("heads"))

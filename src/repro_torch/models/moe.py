@@ -47,7 +47,9 @@ by those of the lower data ranks, from an all-gather of the per-expert
 counts) is below it; the aux loss reads the whole batch's sums. Every
 rank of a model group computes the same routing and table, runs the
 expert FF on its own experts (its block of the expert axis), and the
-combine's partial sums are all-reduced over the experts' axes.
+combine's partial sums are all-reduced over the experts' axes (under the
+sequence-parallel residual, reduce-scattered over S:
+``ShardCtx.row_out``).
 """
 from __future__ import annotations
 
@@ -202,10 +204,10 @@ def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     y = GroupedExpertFF.apply(xg, p["wi"], p["wo"], counts,
                               torch.is_grad_enabled())
     yw = y.reshape(E * C, d).float() * wtable[:, None]
-    out = _Combine.apply(yw, table, slots)
+    out = _Combine.apply(yw, table, slots).reshape(B, S, d)
     if ctx is not None:
-        out = ctx.reduce(out, ctx.logical("experts"))
-    return out.reshape(B, S, d).to(x.dtype), aux
+        out = ctx.row_out(out, ctx.logical("experts"))
+    return out.to(x.dtype), aux
 
 
 def dropped_share(p: Params, x: torch.Tensor, *, n_experts: int,

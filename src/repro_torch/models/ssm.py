@@ -27,6 +27,22 @@ tensor that the kernel overwrites in place, chunk after chunk.
 
 Decode: the O(1) recurrent update of one token in plain torch, as in the
 reference; it runs no kernel. The state is advanced in place.
+
+Under a sharding context (``distributed/context.py``) every ``d_inner``
+dim is the rank's block of channels [lo, hi), as the reference's rules
+shard it on the model axis. ``in_proj`` is [x | z] in two blocks, so the
+rank's x and z columns match; ``conv_w``, ``conv_b``, ``dt_proj``'s
+columns, ``dt_bias``, ``A_log`` and ``D`` are its slices, and the conv,
+the scan (kernel and backward) and the gate run on its channels alone.
+Two products are row-parallel: ``x_proj``, whose (B, S, dt_rank + 2N)
+partial sums are all-reduced in float32 and rounded to bf16 once, as the
+one-device product is (``dt`` then goes through softplus and exp(dt·A),
+which would amplify a second rounding), and ``out_proj``, summed by
+``ShardCtx.row_out`` (an all-reduce, or the sequence-parallel residual's
+reduce-scatter). The ``x_proj`` all-reduce sits inside each chunk's
+checkpoint region, so it runs again when the region is recomputed; its
+exact adjoint sums the ranks' partial dC, dB and d(dt) over channels.
+The decode state's conv and SSM leaves are sharded on ``d_inner`` too.
 """
 from __future__ import annotations
 
@@ -48,7 +64,8 @@ def mamba_bp(d: int, d_inner: int, d_state: int = 16, d_conv: int = 4,
              dt_rank: Optional[int] = None):
     dt_rank = dt_rank or max(1, d // 16)
     return {
-        "in_proj": leaf((d, 2 * d_inner), ("embed", "d_inner"), scale_dim=0),
+        "in_proj": leaf((d, 2 * d_inner), ("embed", "d_inner"), scale_dim=0,
+                        blocks=2),
         "conv_w": leaf((d_conv, d_inner), ("conv", "d_inner"), init="small",
                        scale_dim=0),
         "conv_b": leaf((d_inner,), ("d_inner",), init="zeros"),
@@ -76,10 +93,15 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b, xp[:, S:]
 
 
-def _ssm_params(p: Params, xz: torch.Tensor, d_state: int):
+def _ssm_params(p: Params, xz: torch.Tensor, d_state: int, ctx=None):
     """dt (B,S,C), A (C,N), Bm and Cm (B,S,N), all float32."""
     dt_rank = p["dt_proj"].shape[0]
-    proj = (xz @ p["x_proj"]).float()
+    ax = () if ctx is None else ctx.logical("d_inner")
+    if ax:   # the ranks' partial sums, in float32, rounded once
+        proj = ctx.reduce(xz.float() @ p["x_proj"].float(), ax)
+        proj = proj.to(xz.dtype).float()
+    else:
+        proj = (xz @ p["x_proj"]).float()
     dt, Bm, Cm = proj.split([dt_rank, d_state, d_state], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
@@ -96,59 +118,64 @@ def _in(p: Params, x: torch.Tensor, conv_state=None):
 
 
 def _out(p: Params, y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
-         dtype: torch.dtype) -> torch.Tensor:
+         dtype: torch.dtype, ctx=None) -> torch.Tensor:
     """The skip through D, the silu(z) gate and the out projection."""
     y = y + xs.float() * p["D"].float()
     y = y * F.silu(z.float())
-    return y.to(dtype) @ p["out_proj"]
+    out = y.to(dtype) @ p["out_proj"]
+    return out if ctx is None else ctx.row_out(out, ctx.logical("d_inner"))
 
 
-def _scan_inputs(p: Params, xc: torch.Tensor, d_state: int):
+def _scan_inputs(p: Params, xc: torch.Tensor, d_state: int, ctx=None):
     """A chunk's dA = exp(dt A), dBx = dt x B (B, c, C, N) and Cm (B, c,
     N), float32."""
-    dt, A, Bm, Cm = _ssm_params(p, xc, d_state)
+    dt, A, Bm, Cm = _ssm_params(p, xc, d_state, ctx)
     dA = (dt[..., None] * A).exp_()
     dBx = (dt * xc.float())[..., None] * Bm[:, :, None, :]
     return dA, dBx, Cm.contiguous()
 
 
 def mamba_scan_chunked(p: Params, x: torch.Tensor, *, d_state: int = 16,
-                       chunk: int = 256) -> torch.Tensor:
+                       chunk: int = 256, ctx=None) -> torch.Tensor:
     """Prefill's and training's selective scan. x: (B, S, d) -> (B, S,
-    d)."""
+    d), or the rank's S shard of it under the sequence-parallel
+    residual. ``ctx``: the module's docstring."""
     B, S, _ = x.shape
     xs, z, _ = _in(p, x)
     C = xs.shape[-1]
     h = torch.zeros(B, C, d_state, dtype=torch.float32, device=x.device)
     if needs_grad(xs, *p.values()):
         def chunk_fn(xc, h):
-            return SelectiveScan.apply(*_scan_inputs(p, xc, d_state), h)
+            return SelectiveScan.apply(*_scan_inputs(p, xc, d_state, ctx),
+                                       h)
 
         ys = []
         for c0 in range(0, S, chunk):
             yc, h = checkpoint(chunk_fn, xs[:, c0:c0 + chunk], h,
                                use_reentrant=False)
             ys.append(yc)
-        return _out(p, torch.cat(ys, dim=1), xs, z, x.dtype)
+        return _out(p, torch.cat(ys, dim=1), xs, z, x.dtype, ctx)
     y = torch.empty(B, S, C, dtype=torch.float32, device=x.device)
     for c0 in range(0, S, chunk):
-        dA, dBx, Cm = _scan_inputs(p, xs[:, c0:c0 + chunk], d_state)
+        dA, dBx, Cm = _scan_inputs(p, xs[:, c0:c0 + chunk], d_state, ctx)
         y[:, c0:c0 + chunk] = selective_scan(dA, dBx, Cm, h)
         del dA, dBx
-    return _out(p, y, xs, z, x.dtype)
+    return _out(p, y, xs, z, x.dtype, ctx)
 
 
 def mamba_decode_step(p: Params, x: torch.Tensor,
-                      state: Dict[str, torch.Tensor], *, d_state: int = 16
+                      state: Dict[str, torch.Tensor], *, d_state: int = 16,
+                      ctx=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, 1, d); state: {"conv": (B, K-1, C) bf16, "ssm": (B, C, N)
-    float32}, advanced in place. Returns (out (B, 1, d), state)."""
+    float32}, advanced in place (under ``ctx``, C the rank's channels).
+    Returns (out (B, 1, d), state)."""
     xs, z, tail = _in(p, x, state["conv"])
-    dt, A, Bm, Cm = _ssm_params(p, xs, d_state)
+    dt, A, Bm, Cm = _ssm_params(p, xs, d_state, ctx)
     dA = torch.exp(dt[:, 0, :, None] * A)                   # (B, C, N)
     dBx = (dt[:, 0] * xs[:, 0].float())[..., None] * Bm[:, 0, None, :]
     h = dA * state["ssm"] + dBx
     y = torch.bmm(h, Cm[:, 0, :, None])[..., 0][:, None, :]  # (B, 1, C)
     state["conv"].copy_(tail)
     state["ssm"].copy_(h)
-    return _out(p, y, xs, z, x.dtype), state
+    return _out(p, y, xs, z, x.dtype, ctx), state

@@ -80,8 +80,27 @@ whose numerator and token count are summed over the batch's axes.
 and vocab columns). A sequence-sharded cache (``cache_pspecs`` puts it
 there where the kv heads do not divide the model axis) is written at the
 new token's position by the rank that owns it, and read through
-``layers.attention_decode``'s partial softmax. The mamba and xLSTM
-mixers take no context: ``sharded`` raises (ROADMAP A16).
+``layers.attention_decode``'s partial softmax. Every mixer takes a
+context: attention on the rank's heads, mamba on its ``d_inner``
+channels (``models/ssm.py``), the mLSTM on its heads and the sLSTM on its
+channels of each gate (``models/xlstm.py``), each with its row-parallel
+out projection summed, and their decode states sharded as
+``cache_pspecs`` says.
+
+Where the config sets ``seq_shard_activations``, a train or prefill
+step's context splits the residual stream's S over the model axis
+(``ShardCtx.sp``): the embedding's vocab-parallel sum is a
+reduce-scatter over S (a slice where vocab is replicated), the norms and
+residual adds run on the rank's (B, S/m, d), each layer all-gathers S
+after its norm for the column-parallel products (attention's q/k/v, the
+FF's ``wi``, the MoE's router and dispatch, mamba's ``in_proj``, the
+xLSTM's projections), and each row-parallel product is reduce-scattered
+over S in place of the all-reduce. The final norm runs on the shard,
+then S is gathered for the unembedding and the loss. An encoder's
+frames are split the same way and its output gathered whole for the
+cross-attention. Decode is untouched: a decode step's context never
+splits the residual (``train_step.make_step_ctx``), as the reference
+applies the flag in its stack alone.
 """
 from __future__ import annotations
 
@@ -137,11 +156,6 @@ class LM:
     def sharded(self, ctx) -> "LM":
         """This model as one rank of ``ctx``'s mesh (the module's
         docstring)."""
-        for kind in self.period:
-            if kind.mixer in ("mamba", "mlstm", "slstm"):
-                raise NotImplementedError(
-                    f"{self.cfg.name}: the {kind.mixer} mixer under a "
-                    "sharding context is not ported (ROADMAP A16)")
         return LM(self.cfg, ctx)
 
     def _p(self, params, name: str):
@@ -154,16 +168,33 @@ class LM:
     def _embed(self, params, tokens) -> torch.Tensor:
         """The tokens' embedding rows, bf16; with vocab on the model axis
         each rank looks up the rows it owns and the ranks' rows are
-        summed."""
+        summed. Under the sequence-parallel residual: the rank's S
+        shard."""
         table = self._p(params, "embed")
         ctx = self.ctx
         if ctx is None or not ctx.logical("vocab"):
-            return table[tokens.long()].to(torch.bfloat16)
+            x = table[tokens.long()].to(torch.bfloat16)
+            return x if ctx is None else ctx.seq_part(x)
         lo, hi = ctx.part("vocab", self.cfg.padded_vocab)
         local = tokens.long() - lo
         own = (local >= 0) & (local < hi - lo)
         rows = table[local.clamp(0, hi - lo - 1)] * own[..., None]
-        return ctx.reduce(rows.to(torch.bfloat16), ctx.logical("vocab"))
+        return ctx.row_out(rows.to(torch.bfloat16), ctx.logical("vocab"))
+
+    def _full(self, x) -> torch.Tensor:
+        """The residual's S shard gathered whole under the
+        sequence-parallel residual (x itself otherwise)."""
+        return x if self.ctx is None else self.ctx.seq_full(x)
+
+    def _write_frames(self, fe, x) -> torch.Tensor:
+        """The frames fe (B, Sf, d) written over the first Sf positions
+        of x (the rank's S shard under the sequence-parallel
+        residual)."""
+        ctx = self.ctx
+        lo = (ctx.index(ctx.sp) * x.shape[1]
+              if ctx is not None and ctx.sp else 0)
+        n = min(max(fe.shape[1] - lo, 0), x.shape[1])
+        return torch.cat([fe[:, lo:lo + n].to(x.dtype), x[:, n:]], dim=1)
 
     def _vocab_lo(self) -> int:
         if self.ctx is None or not self.ctx.logical("vocab"):
@@ -228,16 +259,16 @@ class LM:
                      causal: bool, enc_out=None, mrope=None,
                      aux: Optional[List] = None):
         c, ctx = self.cfg, self.ctx
-        h = L.rmsnorm(p["ln1"], x)
+        h = self._full(L.rmsnorm(p["ln1"], x))
         if kind.mixer == "mamba":
             mix = SSM.mamba_scan_chunked(p["mamba"], h,
                                          d_state=c.ssm_d_state,
-                                         chunk=c.ssm_chunk)
+                                         chunk=c.ssm_chunk, ctx=ctx)
         elif kind.mixer == "mlstm":
             mix = XL.mlstm_chunked(p["mlstm"], h, n_heads=c.n_heads,
-                                   chunk=c.xlstm_chunk)
+                                   chunk=c.xlstm_chunk, ctx=ctx)
         elif kind.mixer == "slstm":
-            mix = XL.slstm_seq(p["slstm"], h)
+            mix = XL.slstm_seq(p["slstm"], h, ctx)
         else:
             mix = L.gqa_attention(
                 p["attn"], h, positions, n_heads=c.n_heads,
@@ -255,7 +286,7 @@ class LM:
         if kind.mixer != "attn_cross" or enc_out is None:
             return x
         c = self.cfg
-        hx = L.rmsnorm(p["lnx"], x)
+        hx = self._full(L.rmsnorm(p["lnx"], x))
         return x + L.gqa_attention(p["xattn"], hx, None, n_heads=c.n_heads,
                                    n_kv=c.n_kv_heads, causal=False,
                                    use_rope=False, kv_in=enc_out,
@@ -267,9 +298,10 @@ class LM:
         where given."""
         c, ctx = self.cfg, self.ctx
         if kind.ff == "dense":
-            x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), c.gated_mlp, ctx)
+            x = x + L.mlp(p["mlp"], self._full(L.rmsnorm(p["ln2"], x)),
+                          c.gated_mlp, ctx)
         elif kind.ff == "moe":
-            h2 = L.rmsnorm(p["ln2"], x)
+            h2 = self._full(L.rmsnorm(p["ln2"], x))
             y, a = MOE.moe_ff(p["moe"], h2, n_experts=c.moe_experts,
                               top_k=c.moe_top_k,
                               capacity_factor=c.moe_capacity, ctx=ctx)
@@ -284,12 +316,13 @@ class LM:
                    enc_out=None, mrope=None, remat: bool = False,
                    stack: str = "stack"):
         """The periods in turn -> (x, the MoE layers' aux losses summed,
-        float32). ``remat``: each period is a checkpoint region, which
-        takes the encoder's output and the M-RoPE positions as arguments
-        (the encoder's gradient flows back through every region). Under a
-        context each period's leaves are gathered over the fsdp axes
-        first, inside the region (``stack`` names the blueprint subtree
-        whose specs they follow)."""
+        float32); x is the rank's S shard, in and out, under the
+        sequence-parallel residual. ``remat``: each period is a
+        checkpoint region, which takes the encoder's output and the
+        M-RoPE positions as arguments (the encoder's gradient flows back
+        through every region). Under a context each period's leaves are
+        gathered over the fsdp axes first, inside the region (``stack``
+        names the blueprint subtree whose specs they follow)."""
         layout = (None if self.ctx is None
                   else self.ctx.layout(stack, period=True))
 
@@ -320,10 +353,12 @@ class LM:
         ``enc_ln_f``; bf16 (B, S_src, d)."""
         src = frames.to(torch.bfloat16)
         spos = torch.arange(src.shape[1], device=src.device)[None, :]
+        if self.ctx is not None:
+            src = self.ctx.seq_part(src)
         enc, _ = self._run_stack(params["enc_stack"], src, spos,
                                  kinds=[ENC_KIND], causal=False, remat=remat,
                                  stack="enc_stack")
-        return L.rmsnorm(self._p(params, "enc_ln_f"), enc)
+        return self._full(L.rmsnorm(self._p(params, "enc_ln_f"), enc))
 
     def _decoder_forward(self, params, tokens, enc_out):
         """The decoder's full causal forward over ``tokens`` (B, S)
@@ -363,13 +398,13 @@ class LM:
                     f"{fe.shape[1]} frontend frames for {S} tokens: the "
                     "frames are written over the token embeddings and "
                     "cannot outnumber them (ROADMAP C16)")
-            x = torch.cat([fe.to(x.dtype), x[:, fe.shape[1]:]], dim=1)
+            x = self._write_frames(fe, x)
         enc_out = (self._encode(params, batch["frontend_embeds"],
                                 remat=remat) if c.enc_dec else None)
         x, aux = self._run_stack(params["stack"], x, positions,
                                  kinds=self.period, causal=True,
                                  enc_out=enc_out, mrope=mrope, remat=remat)
-        x = L.rmsnorm(self._p(params, "ln_f"), x)
+        x = self._full(L.rmsnorm(self._p(params, "ln_f"), x))
         unembed = self._unembed(params)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         valid = torch.ones(B, S, dtype=torch.float32, device=x.device)
@@ -522,18 +557,18 @@ class LM:
 
     def _decode_layer(self, kind: LayerKind, p, cache, x, positions, pos,
                       enc_out=None):
-        c = self.cfg
+        c, ctx = self.cfg, self.ctx
         h = L.rmsnorm(p["ln1"], x)
         if kind.mixer == "mamba":
             mix, _ = SSM.mamba_decode_step(p["mamba"], h, cache,
-                                           d_state=c.ssm_d_state)
+                                           d_state=c.ssm_d_state, ctx=ctx)
             return self._ff(kind, p, x + mix)
         if kind.mixer == "mlstm":
             mix, _ = XL.mlstm_decode_step(p["mlstm"], h, cache,
-                                          n_heads=c.n_heads)
+                                          n_heads=c.n_heads, ctx=ctx)
             return self._ff(kind, p, x + mix)
         if kind.mixer == "slstm":
-            mix, _ = XL.slstm_decode_step(p["slstm"], h, cache)
+            mix, _ = XL.slstm_decode_step(p["slstm"], h, cache, ctx)
             return self._ff(kind, p, x + mix)
         q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
         k = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wk"])
@@ -541,7 +576,6 @@ class LM:
         if c.pos != "none":
             q = L.apply_rope(q, positions, c.rope_theta)
             k = L.apply_rope(k, positions, c.rope_theta)
-        ctx = self.ctx
         if ctx is not None and ctx.size(ctx.seq) > 1:
             # a sequence-sharded cache of every kv head: this rank's
             # positions, every query head (gathered), then its own heads
@@ -577,7 +611,7 @@ class LM:
         positions = torch.arange(S, device=tokens.device)[None, :]
         x, _ = self._run_stack(params["stack"], x, positions,
                                kinds=self.period, causal=True)
-        x = L.rmsnorm(self._p(params, "ln_f"), x)
+        x = self._full(L.rmsnorm(self._p(params, "ln_f"), x))
         return (x[:, -1] @ self._unembed(params)).float()
 
 

@@ -38,6 +38,26 @@ before its time loop; only h @ wh stays in the loop, as bf16 products
 summed in bf16 and then cast, as the reference rounds them.
 
 The decode steps advance their state in place and return it.
+
+Under a sharding context (``distributed/context.py``):
+
+  * the mLSTM works on the rank's heads (``wq``, ``wk``, ``wv`` and
+    ``wif`` column-parallel on ``heads``); its chunk loop is local, and
+    ``wo`` is row-parallel, summed by ``ShardCtx.row_out``. Its decode
+    state is replicated (the reference's ``cache_pspecs``), so at decode
+    the step's q, k, v and gates, (B, H, hd) and (B, H), are all-gathered
+    over the heads, every rank advances the whole state, and only its
+    heads go through ``wo`` before the sum;
+  * the sLSTM's ``ff`` axis is four gate blocks [i | f | z | o] of d
+    each: ``wx``, ``wh`` and ``b`` have 4 blocks, so a rank holds the
+    same channels of every gate, and ``wo`` (d, d) is row-parallel over
+    those channels. ``slstm_seq`` keeps every collective out of its time
+    loop: it gathers the layer's ``wx``, ``wh`` and ``b`` whole once,
+    runs the recurrence on every channel, and takes the rank's h channels
+    into ``wo`` (the gathers' adjoint sums each rank's part of the
+    weights' gradients, so each shard gets its whole gradient once). Its
+    decode state is sharded on d: h is all-gathered once a step, before
+    ``h @ wh``, and the rest of the step is the rank's channels.
 """
 from __future__ import annotations
 
@@ -95,11 +115,13 @@ def _mlstm_in(p: Params, x: torch.Tensor, n_heads: int):
 
 
 def mlstm_chunked(p: Params, x: torch.Tensor, *, n_heads: int,
-                  chunk: int = 128) -> torch.Tensor:
-    """Prefill's mLSTM, causal. x: (B, S, d) -> (B, S, d)."""
+                  chunk: int = 128, ctx=None) -> torch.Tensor:
+    """Prefill's mLSTM, causal. x: (B, S, d) -> (B, S, d) (``ctx``: the
+    rank's heads, the module's docstring)."""
     B, S, d = x.shape
     hd = d // n_heads
     q, k, v, ig, fg = _mlstm_in(p, x, n_heads)
+    n_heads = q.shape[2]                                 # the rank's
     # (B, H, S, D) and (B, H, S), float32
     q, k, v = (t.float().transpose(1, 2) for t in (q, k, v))
     ig, fg = ig.transpose(1, 2), fg.transpose(1, 2)
@@ -130,15 +152,21 @@ def mlstm_chunked(p: Params, x: torch.Tensor, *, n_heads: int,
         n = n * decay + (kc * u[..., None]).sum(-2)
         m = m_new
     y = y.transpose(1, 2).to(x.dtype)                            # (B,S,H,D)
-    return torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    out = torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    return out if ctx is None else ctx.row_out(out, ctx.logical("heads"))
 
 
 def mlstm_decode_step(p: Params, x: torch.Tensor,
-                      state: Dict[str, torch.Tensor], *, n_heads: int
+                      state: Dict[str, torch.Tensor], *, n_heads: int,
+                      ctx=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, 1, d); state: C (B, H, Dk, Dv), n (B, H, Dk), m (B, H),
-    float32, advanced in place. Returns (out (B, 1, d), state)."""
+    float32, advanced in place (every head, under ``ctx`` too). Returns
+    (out (B, 1, d), state)."""
     q, k, v, ig, fg = _mlstm_in(p, x, n_heads)
+    hax = () if ctx is None else ctx.logical("heads")
+    if hax:     # every head's step, for the replicated state
+        q, k, v, ig, fg = (ctx.gather(t, 2, hax) for t in (q, k, v, ig, fg))
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
     ig, fg = ig[:, 0], fg[:, 0]
     m = state["m"]
@@ -154,7 +182,11 @@ def mlstm_decode_step(p: Params, x: torch.Tensor,
     state["C"].copy_(C)
     state["n"].copy_(nvec)
     state["m"].copy_(m_new)
-    return torch.einsum("bshk,hkd->bsd", y, p["wo"]), state
+    if hax:     # the rank's heads through its rows of wo
+        lo, hi = ctx.part("heads", n_heads)
+        y = y[:, :, lo:hi]
+    out = torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    return (out if ctx is None else ctx.reduce(out, hax)), state
 
 
 # --------------------------------------------------------------------------
@@ -162,10 +194,11 @@ def mlstm_decode_step(p: Params, x: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def slstm_bp(d: int, n_heads: int):
+    # ff is [i | f | z | o], four gate blocks of d
     return {
-        "wx": leaf((d, 4 * d), ("embed", "ff"), scale_dim=0),
-        "wh": leaf((d, 4 * d), ("embed", "ff"), scale_dim=0),
-        "b": leaf((4 * d,), ("ff",), init="zeros"),
+        "wx": leaf((d, 4 * d), ("embed", "ff"), scale_dim=0, blocks=4),
+        "wh": leaf((d, 4 * d), ("embed", "ff"), scale_dim=0, blocks=4),
+        "b": leaf((4 * d,), ("ff",), init="zeros", blocks=4),
         "wo": leaf((d, d), ("ff", "embed"), scale_dim=0),
     }
 
@@ -179,11 +212,13 @@ def slstm_init_state(B: int, d: int, dtype=torch.bfloat16, device=None):
             torch.full((B, d), M_INIT, device=device))
 
 
-def _slstm_cell(p: Params, zx: torch.Tensor, carry):
+def _slstm_cell(p: Params, zx: torch.Tensor, carry, h_in=None):
     """One step from zx = x_t @ wx (B, 4d) in x's dtype: the new (h, c, n,
-    m)."""
+    m). ``h_in``: the h that multiplies ``wh`` where it is not the
+    carry's (all the channels, where the carry holds a rank's)."""
     h, c, n, m = carry
-    z = (zx + h @ p["wh"]).float() + p["b"].float()
+    z = (zx + (h if h_in is None else h_in) @ p["wh"]).float() \
+        + p["b"].float()
     zi, zf, zz, zo = z.chunk(4, dim=-1)
     lf = F.logsigmoid(zf)
     m_new = torch.maximum(lf + m, zi)
@@ -195,23 +230,44 @@ def _slstm_cell(p: Params, zx: torch.Tensor, carry):
     return h_new, c_new, n_new, m_new
 
 
-def slstm_seq(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d), a sequential loop over time."""
-    B, S, d = x.shape
-    zx = x @ p["wx"]                                      # (B, S, 4d)
-    carry = slstm_init_state(B, d, x.dtype, x.device)
-    hs = torch.empty(B, S, d, dtype=x.dtype, device=x.device)
+def slstm_seq(p: Params, x: torch.Tensor, ctx=None) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d), a sequential loop over time (``ctx``:
+    the module's docstring)."""
+    d = x.shape[-1]
+    fax = () if ctx is None else ctx.logical("ff")
+    wo = p["wo"]
+    if fax:     # every channel's weights, once, outside the loop
+        p = {k: ctx.gather(p[k], p[k].dim() - 1, fax, blocks=4)
+             for k in ("wx", "wh", "b")}
+    hs = _slstm_steps(p, x @ p["wx"], d)                 # zx (B, S, 4d)
+    if fax:     # the rank's channels, its rows of wo
+        lo, hi = ctx.part("ff", d)
+        hs = hs[..., lo:hi]
+    out = hs @ wo
+    return out if ctx is None else ctx.row_out(out, fax)
+
+
+def _slstm_steps(p: Params, zx: torch.Tensor, d: int) -> torch.Tensor:
+    """The time loop from the initial state: zx (B, S, 4d) -> every
+    step's h (B, S, d) in zx's dtype."""
+    B, S, _ = zx.shape
+    carry = slstm_init_state(B, d, zx.dtype, zx.device)
+    hs = torch.empty(B, S, d, dtype=zx.dtype, device=zx.device)
     for t in range(S):
         carry = _slstm_cell(p, zx[:, t], carry)
         hs[:, t] = carry[0]
-    return hs @ p["wo"]
+    return hs
 
 
-def slstm_decode_step(p: Params, x: torch.Tensor, state
+def slstm_decode_step(p: Params, x: torch.Tensor, state, ctx=None
                       ) -> Tuple[torch.Tensor, Any]:
-    """x: (B, 1, d); state: the (h, c, n, m) tuple, advanced in place.
-    Returns (out (B, 1, d), state)."""
-    carry = _slstm_cell(p, x[:, 0] @ p["wx"], state)
+    """x: (B, 1, d); state: the (h, c, n, m) tuple, advanced in place
+    (under ``ctx``, each the rank's channels). Returns (out (B, 1, d),
+    state)."""
+    fax = () if ctx is None else ctx.logical("ff")
+    h_in = ctx.gather(state[0], 1, fax) if fax else None
+    carry = _slstm_cell(p, x[:, 0] @ p["wx"], state, h_in)
     for t, new in zip(state, carry):
         t.copy_(new)
-    return (carry[0] @ p["wo"])[:, None], state
+    out = (carry[0] @ p["wo"])[:, None]
+    return (out if ctx is None else ctx.reduce(out, fax)), state

@@ -135,7 +135,9 @@ def make_step_ctx(model, mesh, shape_name: str,
     """The model's sharding context on ``mesh`` for one (arch x shape)
     cell: the batch split over the data axes where the shape's global
     batch divides them; a decode cache whose kv heads do not divide the
-    model axis split on its sequence (``input_shardings``)."""
+    model axis split on its sequence (``input_shardings``); a train or
+    prefill step's residual stream split on S over the model axis where
+    the config sets ``seq_shard_activations``."""
     from ..configs.base import SHAPES
     from ..distributed.context import as_axes, make_ctx
     ctx = make_ctx(model, mesh, rules)
@@ -143,10 +145,18 @@ def make_step_ctx(model, mesh, shape_name: str,
     bspec = batch_spec(shape_name, da, mesh_axis_sizes(mesh))
     seq = ()
     m = mesh_axis_sizes(mesh).get("model", 1)
-    if SHAPES[shape_name].kind in ("decode", "long_decode") and \
-            model.cfg.n_kv_heads % m:
+    kind = SHAPES[shape_name].kind
+    if kind in ("decode", "long_decode") and model.cfg.n_kv_heads % m:
         seq = ("model",) if bspec is not None else da + ("model",)
-    return ctx.with_step(batch=as_axes(bspec), seq=seq)
+    sp = _sp_axes(model, mesh) if kind in ("train", "prefill") else ()
+    return ctx.with_step(batch=as_axes(bspec), seq=seq, sp=sp)
+
+
+def _sp_axes(model, mesh) -> tuple:
+    """The axes the residual's S is split on: the model axis where the
+    config sets ``seq_shard_activations`` and the axis has ranks."""
+    m = mesh_axis_sizes(mesh).get("model", 1)
+    return ("model",) if model.cfg.seq_shard_activations and m > 1 else ()
 
 
 def data_parallel_ctx(model, mesh, global_batch: int,
@@ -161,7 +171,8 @@ def data_parallel_ctx(model, mesh, global_batch: int,
     if global_batch % n:
         raise ValueError(f"a global batch of {global_batch} does not split "
                          f"over the data axes {da} of {n} ranks")
-    return make_ctx(model, mesh, rules).with_step(batch=da)
+    return make_ctx(model, mesh, rules).with_step(
+        batch=da, sp=_sp_axes(model, mesh))
 
 
 def param_sharding_tree(model, mesh, rules: Optional[Dict] = None):

@@ -4,10 +4,19 @@ on the test's tanh layers, and for the smoke granite with the test's
 params and tokens: its ``build_train_step`` on a (2, 2) host mesh (the
 loss and grad norm), each leaf's gradient of its loss under that mesh's
 shardings, and its ``jit_prefill_step`` and a few ``jit_decode_step``
-steps on the meshes (2, 2) and (1, 4).
+steps on the meshes (2, 2) and (1, 4). On the (2, 2) mesh, with the
+test's params for them (routers zeroed): jamba's smoke loss from
+``build_train_step`` (in a second process); in float32 (``float32_lm``)
+its prefill of 32 tokens (a multiple of its ``ssm_chunk``: ROADMAP C10)
+and 6 decode steps, and xlstm's smoke 6 decode steps (its recurrence;
+its chunked prefill is ROADMAP C14's).
 
     python tests/jax_dist_ref.py WORKDIR   (writes WORKDIR/jax_ref.npz)
+    python tests/jax_dist_ref.py WORKDIR jamba_train
+        (jamba's train step alone, the slowest to compile, beside the
+        rest: writes WORKDIR/jax_ref_jamba_train.npz)
 """
+import contextlib
 import os
 import sys
 
@@ -35,6 +44,43 @@ def auto_mesh(shape, names):
         jax.sharding.AxisType.Auto,) * len(shape))
 
 
+@contextlib.contextmanager
+def float32_lm():
+    """The reference's LM in float32 while inside: its embedding's rows,
+    which ``repro.models.transformer`` casts to ``jnp.bfloat16`` by name,
+    stay float32 there, so that every layer computes in its input's dtype
+    from float32 params and caches. A test's patch, the counterpart of
+    ``torch_dist_worker.float32_lm``: it holds the sharded port to the
+    reference where bf16 noise on the random smoke models (ROADMAP C15)
+    would hide it."""
+    import repro.models.transformer as T
+
+    class Names:
+        def __getattr__(self, name):
+            return jnp.float32 if name == "bfloat16" else getattr(jnp, name)
+    saved, T.jnp = T.jnp, Names()
+    try:
+        yield
+    finally:
+        T.jnp = saved
+
+
+def jamba_train(workdir: str) -> None:
+    model = get_model(get_config("jamba-1.5-large-398b", smoke=True))
+    _, params = load(workdir, model, "params_jamba.npz")
+    tokens = jnp.asarray(np.load(os.path.join(workdir, "batch.npz"))
+                         ["tokens"])
+    mesh = auto_mesh((2, 2), ("data", "model"))
+    oc = AdamWConfig(lr=1e-3)
+    step = jax.jit(build_train_step(model, mesh,
+                                    StepConfig(remat=True, opt=oc)))
+    with mesh:
+        _, _, met = step(params, init_opt_state(params, oc),
+                         {"tokens": tokens})
+    np.savez(os.path.join(workdir, "jax_ref_jamba_train.npz"),
+             jamba_loss=np.float64(met["loss"]))
+
+
 def main(workdir: str) -> None:
     g = np.load(os.path.join(workdir, "gpipe.npz"))
     Ws, xs = jnp.asarray(g["Ws"]), jnp.asarray(g["xs"])
@@ -51,15 +97,7 @@ def main(workdir: str) -> None:
         ys = piped(Ws.reshape(4, L // 4, d, d), xs)
 
     model = get_model(get_config("granite-3-2b", smoke=True))
-    arrays = np.load(os.path.join(workdir, "params.npz"))
-    paths, treedef = jax.tree_util.tree_flatten_with_path(
-        model.blueprint(), is_leaf=is_leaf)
-
-    def key(path):
-        return "__".join(str(getattr(p, "key", getattr(p, "idx", p)))
-                         for p in path)
-    params = jax.tree.unflatten(treedef, [
-        jnp.asarray(arrays[key(p)], dtype=l.dtype) for p, l in paths])
+    paths, params = load(workdir, model, "params.npz")
     b = np.load(os.path.join(workdir, "batch.npz"))
     tokens = jnp.asarray(b["tokens"])
     tmesh = auto_mesh((2, 2), ("data", "model"))
@@ -98,8 +136,45 @@ def main(workdir: str) -> None:
                     "pos": jnp.full((B,), t, jnp.int32), "cache": cache})
                 logits.append(np.asarray(lo, np.float32))
             out["decode_" + tag] = np.stack(logits)
+
+    mesh = auto_mesh((2, 2), ("data", "model"))
+    for arch, name in (("jamba-1.5-large-398b", "jamba"),
+                       ("xlstm-1.3b", "xlstm")):
+        model = get_model(get_config(arch, smoke=True))
+        _, params = load(workdir, model, f"params_{name}.npz", jnp.float32)
+        with float32_lm(), mesh:
+            dec, _ = jit_decode_step(model, mesh, "decode_32k")
+            if name == "jamba":
+                pre, _ = jit_prefill_step(model, mesh, "prefill_32k")
+                out["jamba_prefill"] = np.asarray(pre(params, {
+                    "tokens": tokens[:, :int(b["pre_s_hybrid"])]}))
+            cache = jax.tree.map(lambda t: t.astype(jnp.float32),
+                                 model.init_cache(B, dec_len))
+            logits = []
+            for t in range(steps):
+                lo, cache = dec(params, {
+                    "tokens": tokens[:, t:t + 1],
+                    "pos": jnp.full((B,), t, jnp.int32), "cache": cache})
+                logits.append(np.asarray(lo))
+            out[name + "_decode"] = np.stack(logits)
     np.savez(os.path.join(workdir, "jax_ref.npz"), **out)
 
 
+def key(path) -> str:
+    return "__".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                     for p in path)
+
+
+def load(workdir: str, model, fname: str, dtype=None):
+    """(the blueprint's leaves with their paths, the params) from the
+    test's numpy draw in ``fname``, in each leaf's dtype or ``dtype``."""
+    arrays = np.load(os.path.join(workdir, fname))
+    paths, treedef = jax.tree_util.tree_flatten_with_path(
+        model.blueprint(), is_leaf=is_leaf)
+    return paths, jax.tree.unflatten(treedef, [
+        jnp.asarray(arrays[key(p)], dtype=dtype or l.dtype)
+        for p, l in paths])
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    (jamba_train if sys.argv[2:] == ["jamba_train"] else main)(sys.argv[1])

@@ -36,10 +36,31 @@ one-device path, on the CPU.
   (e) ``launch/train.py --distributed`` with 2 gloo ranks for 3 steps:
       its losses equal the one-process run's within 1e-4 relative (the
       data-parallel sums run in another order), and a one-process run
-      resumes from its checkpoint and continues.
+      resumes from its checkpoint and continues; jamba's smoke config's
+      losses too, in float32 on both sides (``W.float32_launch``).
+  (f) The recurrent mixers sharded, on (2, 2) and (1, 4): jamba's and
+      xlstm's smoke loss within ``STEP_TOL`` of the one-device port's;
+      their prefill logits and 6 decode steps in float32 (the test's
+      ``float32_lm`` patch) within ``F32_TOL``, and in bf16 within the
+      one-device port's own movement under one bf16 ulp of noise on a
+      tenth of the embedding (ROADMAP C15: these random smoke LMs are
+      ill-conditioned in bf16, and TOL cannot hold them whole); each
+      mixer block (mamba, mLSTM, sLSTM) in float32, its output and every
+      gradient at ``GRAD_TOL``, and 3 decode steps of each, under the
+      context against none; jamba's sharded loss against the reference's
+      ``build_train_step`` at ``STEP_TOL``, and its prefill and decode
+      logits, and xlstm's decode, in float32 on both sides (each one's
+      ``float32_lm`` patch) against the reference's on a (2, 2) host
+      mesh at ``F32_TOL``; the 2- and 4-block layouts.
+  (g) The sequence-parallel residual: the sharded step with
+      ``seq_shard_activations`` against the same step without it on
+      (2, 2), for a config of every family (jamba and xlstm in float32,
+      the rest in bf16): the loss within ``STEP_TOL``, every leaf's
+      gradient at ``GRAD_TOL``, and the all-reduce's bytes moved to the
+      reduce-scatter and the all-gather.
 
-One world of 4 ranks runs (b), (c) and (d), and one of 2 runs (e)
-(module-scoped fixtures; ``tests/torch_dist_worker.py`` holds the
+One world of 4 ranks runs (b), (c), (d), (f) and (g), and one of 2 runs
+(e) (module-scoped fixtures; ``tests/torch_dist_worker.py`` holds the
 ranks' code), while the JAX subprocess runs beside them.
 """
 import os
@@ -79,6 +100,10 @@ TOL = 0.1                 # tests/test_torch_lm.py
 #: backward (a sum left out, a block layout crossed, a sign) is off by
 #: order 1
 REF_GRAD_TOL = 3e-2
+#: the sharded LM against the one-device LM or the reference's, all in
+#: float32: the same sums in another order (measured up to 2.6e-4 on
+#: logits of |4|)
+F32_TOL = 1e-3
 MESHES = {"16x16": {"data": 16, "model": 16},
           "2x16x16": {"pod": 2, "data": 16, "model": 16},
           "2x4": {"data": 2, "model": 4},
@@ -209,21 +234,19 @@ def _spawn(target, n, args):
     for p in procs:
         p.start()
     for p in procs:
-        p.join(timeout=240)
+        p.join(timeout=600)
         if p.is_alive():
             p.kill()
     return [p.exitcode for p in procs]
 
 
-def _draws(wd: Path) -> None:
-    """The inputs both packages read, from numpy seeds."""
-    rng = np.random.default_rng(0)
-    bp = get_model(get_config("granite-3-2b", smoke=True)).blueprint()
+def _draw_params(wd: Path, arch: str, rng) -> None:
+    bp = get_model(get_config(arch, smoke=True)).blueprint()
     arrays = {}
     for path, l in W._paths(bp).items():
         if l.init == "ones":
             a = np.ones(l.shape, np.float32)
-        elif l.init == "zeros":
+        elif l.init == "zeros" or path.endswith("/router"):
             a = np.zeros(l.shape, np.float32)
         else:
             fan = (l.shape[l.scale_dim] if l.scale_dim is not None
@@ -233,13 +256,23 @@ def _draws(wd: Path) -> None:
         # rounded to bf16 once, here, for both
         arrays[W.npz_key(path)] = torch.from_numpy(a).to(
             l.dtype).float().numpy()
-    np.savez(wd / "params.npz", **arrays)
+    np.savez(wd / W.params_file(arch), **arrays)
+
+
+def _draws(wd: Path) -> None:
+    """The inputs both packages read, from numpy seeds (jamba's routers
+    zeroed: bf16 near-ties route tokens apart otherwise)."""
+    rng = np.random.default_rng(0)
+    _draw_params(wd, "granite-3-2b", rng)
     np.savez(wd / "batch.npz", tokens=rng.integers(
         0, 512, (W.B, W.S)).astype(np.int32), pre_s=W.PRE_S,
-        dec_len=W.DEC_LEN, dec_steps=W.DEC_STEPS)
+        pre_s_hybrid=W.PRE_S_HYBRID, dec_len=W.DEC_LEN,
+        dec_steps=W.DEC_STEPS)
     np.savez(wd / "gpipe.npz",
              Ws=(rng.standard_normal((8, 16, 16)) * 0.1).astype(np.float32),
              xs=rng.standard_normal((4, 2, 16)).astype(np.float32))
+    for seed, arch in enumerate(W.RECURRENT_ARCHS, 1):
+        _draw_params(wd, arch, np.random.default_rng(seed))
 
 
 @pytest.fixture(scope="module")
@@ -248,17 +281,20 @@ def world(tmp_path_factory):
     _draws(wd)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "JAX_PLATFORMS": "cpu"}
-    jx = subprocess.Popen([sys.executable, str(ROOT / "tests" /
-                                               "jax_dist_ref.py"), str(wd)],
-                          env=env, stdout=subprocess.PIPE,
-                          stderr=subprocess.PIPE, text=True)
+    jxs = [subprocess.Popen([sys.executable, str(ROOT / "tests" /
+                                                 "jax_dist_ref.py"), str(wd),
+                             *part], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+           for part in ([], ["jamba_train"])]
     codes = _spawn(W.rank_main, 4, (4, str(wd), W.all_tasks()))
     ranks = [torch.load(wd / f"rank{r}.pt", weights_only=False)
              if (wd / f"rank{r}.pt").exists() else {} for r in range(4)]
-    out, err = jx.communicate(timeout=300)
-    assert jx.returncode == 0, err[-3000:]
+    for jx in jxs:
+        out, err = jx.communicate(timeout=600)
+        assert jx.returncode == 0, err[-3000:]
     return {"codes": codes, "ranks": ranks,
-            "jax": dict(np.load(wd / "jax_ref.npz")), "wd": wd}
+            "jax": {**np.load(wd / "jax_ref.npz"),
+                    **np.load(wd / "jax_ref_jamba_train.npz")}, "wd": wd}
 
 
 def _result(world, task):
@@ -405,6 +441,154 @@ def test_sharded_prefill_and_decode_match_reference(world, shape):
 
 
 # --------------------------------------------------------------------------
+# (f) the recurrent mixers sharded
+# --------------------------------------------------------------------------
+
+REC_CASES = [(shape, arch) for shape in W.MESHES
+             for arch in W.RECURRENT_ARCHS]
+REC_IDS = [f"{a.split('-')[0]}-{s[0]}x{s[1]}" for s, a in REC_CASES]
+
+
+@pytest.mark.parametrize("shape,arch", REC_CASES, ids=REC_IDS)
+def test_recurrent_sharded_loss_matches_one_device(world, shape, arch):
+    rs = _result(world, ("loss", shape, arch))
+    assert len({r["loss"] for r in rs}) == 1
+    assert abs(rs[0]["loss"] - rs[0]["loss_one"]) < STEP_TOL
+
+
+@pytest.mark.parametrize("shape,arch", REC_CASES, ids=REC_IDS)
+def test_recurrent_sharded_prefill_and_decode_match_one_device(
+        world, shape, arch):
+    r0 = _result(world, ("serve", shape, arch))[0]
+    assert r0["f32"]["prefill"] <= F32_TOL, r0["f32"]
+    assert r0["f32"]["decode"] <= F32_TOL, r0["f32"]
+    noise = r0["noise"]
+    assert r0["prefill_err"] <= noise["prefill"], (r0["prefill_err"], noise)
+    assert max(r0["decode_errs"]) <= noise["decode"], \
+        (r0["decode_errs"], noise)
+    if arch.startswith("jamba"):    # kv 2 on 4: the sequence is split
+        assert r0["seq"] == (["model"] if shape[1] == 4 else [])
+
+
+@pytest.mark.parametrize("shape", W.MESHES,
+                         ids=[f"{s[0]}x{s[1]}" for s in W.MESHES])
+@pytest.mark.parametrize("which", sorted(W.MIXERS))
+def test_sharded_mixer_gradients_match_one_device(world, shape, which):
+    """A mixer block in float32: its output, its input's gradient and
+    every leaf's, under the context (gathered) against none."""
+    r0 = _result(world, ("mixer", shape, which))[0]
+    assert r0["y"] <= GRAD_TOL and r0["x"] <= GRAD_TOL, r0
+    bad = {k: e for k, e in r0["grads"].items() if not e <= GRAD_TOL}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("shape", W.MESHES,
+                         ids=[f"{s[0]}x{s[1]}" for s in W.MESHES])
+def test_mamba_x_proj_adjoint_sums_the_ranks_partials(world, shape):
+    """Each rank's dC, dB and d(dt) are sums over its own ``d_inner``
+    channels only; the x_proj all-reduce's adjoint sums them over the
+    ranks. Without that sum, x_proj's gradient (xz^T of the whole dC, dB
+    and d(dt)) and the input's (through in_proj) would hold one rank's
+    part alone."""
+    r0 = _result(world, ("mixer", shape, "mamba"))[0]
+    for k in ("x_proj", "in_proj", "dt_proj", "A_log"):
+        assert r0["grads"][k] <= GRAD_TOL, (k, r0["grads"][k])
+    assert r0["x"] <= GRAD_TOL
+
+
+@pytest.mark.parametrize("shape", W.MESHES,
+                         ids=[f"{s[0]}x{s[1]}" for s in W.MESHES])
+@pytest.mark.parametrize("which", sorted(W.MIXERS))
+def test_sharded_mixer_decode_matches_one_device(world, shape, which):
+    """3 decode steps of a mixer in float32 under the context against
+    none: each step's output and each rank's part of the state; the
+    state sharded as ``cache_pspecs`` says (mamba and sLSTM on their
+    channels, the mLSTM's replicated)."""
+    rs = _result(world, ("mixer_decode", shape, which))
+    cfg = get_config(W.MIXERS[which][0], smoke=True)
+    m = shape[1]
+    want = {"mamba": [(W.MIX_B, cfg.ssm_d_conv - 1, cfg.ssm_d_inner // m),
+                      (W.MIX_B, cfg.ssm_d_inner // m, cfg.ssm_d_state)],
+            "mlstm": [(W.MIX_B, cfg.n_heads, cfg.head_dim, cfg.head_dim),
+                      (W.MIX_B, cfg.n_heads, cfg.head_dim),
+                      (W.MIX_B, cfg.n_heads)],
+            "slstm": [(W.MIX_B, cfg.d_model // m)] * 4}[which]
+    for r in rs:
+        assert max(r["y"]) <= GRAD_TOL and max(r["state"]) <= GRAD_TOL, r
+        assert r["local_state"] == want
+
+
+def test_jamba_sharded_matches_reference(world):
+    """jamba's smoke on (2, 2): the sharded loss against the reference's
+    ``build_train_step`` at ``STEP_TOL``; its prefill (32 tokens) and 6
+    decode steps in float32 (each side's ``float32_lm``) against the
+    reference's ``jit_prefill_step`` and ``jit_decode_step`` at
+    ``F32_TOL`` (the one-device port is 4.4e-5 from them in float32; in
+    bf16 these random smoke models are ROADMAP C15's)."""
+    ref = world["jax"]
+    loss = _result(world, ("loss", (2, 2), "jamba-1.5-large-398b"))[0]
+    assert abs(loss["loss"] - float(ref["jamba_loss"])) < STEP_TOL
+    r0 = _result(world, ("serve", (2, 2), "jamba-1.5-large-398b"))[0]
+    for kind in ("prefill", "decode"):
+        np.testing.assert_allclose(r0[kind], ref["jamba_" + kind],
+                                   atol=F32_TOL, rtol=0)
+
+
+def test_xlstm_sharded_decode_matches_reference(world):
+    """xlstm's smoke on (2, 2): 6 sharded decode steps in float32 against
+    the reference's ``jit_decode_step`` (its recurrence), at ``F32_TOL``
+    (the one-device port is 2.2e-4 from it in float32)."""
+    r0 = _result(world, ("serve", (2, 2), "xlstm-1.3b"))[0]
+    np.testing.assert_allclose(r0["decode"], world["jax"]["xlstm_decode"],
+                               atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_blocks_layouts_shard_and_round_trip(world, blocks):
+    """On (1, 4): a leaf of ``blocks`` blocks, each rank's shard its part
+    of every block (mamba's in_proj [x | z], the sLSTM's [i | f | z |
+    o]), and ``unshard`` gives the leaf back."""
+    for r in _result(world, ("blocks", (1, 4))):
+        assert r[blocks] == {"shard": True, "round_trip": True}
+
+
+def test_blocks_refuse_a_block_that_does_not_split(world):
+    """4 blocks of 6 on a model axis of 4: 24 splits 4 ways, a block does
+    not; the error names the case."""
+    for r in _result(world, ("blocks", (1, 4))):
+        assert r["refused"] and "each of its 4 blocks of 6" in r["refused"]
+
+
+# --------------------------------------------------------------------------
+# (g) the sequence-parallel residual
+# --------------------------------------------------------------------------
+
+def test_seqpar_refuses_a_sequence_that_does_not_split(world):
+    """On (1, 4): a rank's shard is its quarter of S; S = 6 is refused,
+    naming the flag, before a slice or a reduce-scatter."""
+    for r in _result(world, ("seq_split", (1, 4))):
+        assert r["part"]
+        for k in ("seq_part", "row_out"):
+            assert r[k] and "seq_shard_activations" in r[k], r
+
+
+@pytest.mark.parametrize("arch", W.SEQPAR_ARCHS)
+def test_seqpar_step_matches_step_without(world, arch):
+    rs = _result(world, ("seqpar", (2, 2), arch))
+    r0 = rs[0]
+    assert r0["sp"] == ["model"] and r0["sp_off"] == []
+    assert r0["f32"] == (arch in W.RECURRENT_ARCHS)
+    assert abs(r0["loss_sp"] - r0["loss"]) < STEP_TOL
+    bad = {k: e for k, e in r0["gerr"].items() if not e <= GRAD_TOL}
+    assert not bad, bad
+    for r in rs:    # the residual's all-reduces became RS + AG
+        off, on = r["coll"]["bytes"], r["coll_sp"]["bytes"]
+        assert on["all-reduce"] < off["all-reduce"]
+        assert on["reduce-scatter"] > off["reduce-scatter"]
+        assert on["all-gather"] > off["all-gather"]
+
+
+# --------------------------------------------------------------------------
 # (e) launch/train.py --distributed
 # --------------------------------------------------------------------------
 
@@ -414,13 +598,25 @@ def launched(tmp_path_factory):
     process straight for 5 steps."""
     wd = tmp_path_factory.mktemp("launch")
     ck = wd / "ckpt"
-    codes = _spawn(W.launch_rank, 2, (_port(), str(ck), str(wd)))
+    codes = _spawn(W.launch_rank, 2, ([_port() for _ in W.LAUNCH_ARCHS],
+                                      str(ck), str(wd)))
     runs = [torch.load(wd / f"launch{r}.pt") if (wd / f"launch{r}.pt")
             .exists() else None for r in range(2)]
-    straight = _one(["--steps", "5", "--ckpt-dir", str(wd / "straight"),
-                     "--ckpt-every", "100"])
-    return {"codes": codes, "runs": runs, "ckpt": ck,
-            "straight": straight.losses}
+    threads = torch.get_num_threads()
+    # one thread, as each rank: the plain scan's many small ops crawl on
+    # a host whose cores the other test workers share
+    torch.set_num_threads(1)
+    try:
+        straight = _one(["--steps", "5", "--ckpt-dir",
+                         str(wd / "straight"), "--ckpt-every", "100"])
+        with W.float32_launch():
+            jamba = _one(["--steps", "3", "--arch", "jamba-1.5-large-398b",
+                          "--ckpt-dir", str(wd / "jamba"), "--ckpt-every",
+                          "100"])
+    finally:
+        torch.set_num_threads(threads)
+    return {"codes": codes, "runs": runs, "ckpt": ck / "granite-3-2b",
+            "straight": straight.losses, "jamba": jamba.losses}
 
 
 def _one(args):
@@ -431,10 +627,22 @@ def _one(args):
 
 def test_launch_train_distributed_matches_one_process(launched):
     assert launched["codes"] == [0, 0]
-    r0, r1 = launched["runs"]
+    r0, r1 = (r["granite-3-2b"] for r in launched["runs"])
     assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 3
     np.testing.assert_allclose(r0["losses"], launched["straight"][:3],
                                rtol=1e-4)
+
+
+def test_launch_train_distributed_takes_jamba(launched):
+    """jamba's smoke config (mamba, attention, MoE with its random router)
+    under the launcher's (2, 1) mesh, in float32 on both sides
+    (``W.float32_launch``: the bf16 gradients of these random smoke
+    models are ill-conditioned, ROADMAP C15): every step's loss equals
+    one process's within 1e-4 relative."""
+    assert launched["codes"] == [0, 0]
+    r0, r1 = (r["jamba-1.5-large-398b"] for r in launched["runs"])
+    assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 3
+    np.testing.assert_allclose(r0["losses"], launched["jamba"], rtol=1e-4)
 
 
 def test_launch_train_resumes_onto_one_device(launched):
