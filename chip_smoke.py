@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Fourteen paths of the port, each at full width:
+Seventeen paths of the port, each at full width:
 
   * the compiler's main path (kernel source -> frontend -> VIR ->
     run_pipeline -> CUDA ``simt_launch``): every launch held against the
@@ -155,6 +155,28 @@ Fourteen paths of the port, each at full width:
     CPU on 1 x 64 tokens with 16 patches (the loss and every leaf's
     gradient; AdamW is granite's, held there). A ``{"train_encdec_vlm":
     ...}`` JSON line holds both paths' steps;
+  * the dense configs that granite's paths had not reached (random
+    weights from ``--seed``, qwen2-vl's freed first): starcoder2-7b at
+    full width and depth (32 layers, d_model 4608, 36 heads on 4 KV heads
+    of 128: a GQA group of 9, the non-gated gelu MLP, 7.40 B params),
+    then command-r-plus-104b (d_model 12,288, 96 heads on 8, parallel
+    attention and FF blocks, vocab 256,000; 7.87 B) and llama3-405b
+    (d_model 16,384, 128 heads on 8, d_ff 53,248, vocab 128,256; 7.39 B)
+    at full width cut to one layer (``DENSE_CUTS``). Each is served as
+    granite is (``lm_phase``: its kernels checked and timed at its shapes
+    before its params exist, a counted prefill of 4 x 2048 tokens, the
+    engine, 64 teacher-forced decode steps against prefill; starcoder2's
+    depth-2 prefill card vs CPU) and trained with bf16 AdamW moments
+    (MOE_OPT; float32 ones would pass the card's memory): starcoder2
+    through ``train_loop`` as granite (``train_phase``: counted, every
+    leaf's gradient, the depth-2 step card vs CPU at 1 x 512 at the same
+    moments), the cut ones (``cut_train_phase``) through
+    ``build_train_step`` after their chunked loss (``loss_chunk`` 512)
+    is held against the whole logits' on 4 x 2048 tokens, then one step
+    at depth 1 card vs CPU on 1 x 64 tokens in two loss chunks of 32 over
+    the whole vocab (the loss and every leaf's gradient). Their
+    rmsnorm_bwd runs rows of 12,288 and 16,384 (512 threads a CTA). A
+    ``{"train_dense": ...}`` JSON line holds the three paths' steps;
   * distribution (``distributed_phase``): ranks as processes sharing the
     one card over gloo, each computing on the card through the kernels
     (gloo's point to point staged through host memory, counted): GPipe,
@@ -206,7 +228,9 @@ before, read just after): a record's ``launches_by_path`` gives each
 path's own count (``compiler``; ``<model>/prefill`` and
 ``<model>/serve``; ``granite-3-2b/train``, ``olmoe-1b-7b/train``,
 ``jamba-1.5-large-398b/train``; seamless's ``/encode``,
-``/prefill``, ``/decode`` and ``/train``; ``qwen2-vl-72b/train``) and ``launches`` their sum
+``/prefill``, ``/decode`` and ``/train``; ``qwen2-vl-72b/train``;
+``starcoder2-7b``'s, ``command-r-plus-104b``'s and ``llama3-405b``'s
+``/prefill``, ``/serve`` and ``/train``) and ``launches`` their sum
 (rmsnorm's record also names xlstm's check, flash_attention's and
 moe_dispatch's their past-fp16 checks, ``past_fp16``);
 the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``,
@@ -220,7 +244,8 @@ four prefill paths, the train paths and seamless's paths must take the
 tensor cores. flash_attention's and flash_attention_bwd's records hold
 the cross routes' rows under ``seamless``.
 nvcc's ``-Xptxas -v`` registers and spills of the tensor-core kernels
-(and of rmsnorm_bwd's vector route) are printed after the build. Each
+(and of rmsnorm_bwd's bf16 vector route at every width, none of which
+may spill) are printed after the build. Each
 kernel is timed, and
 the script prints one JSON line of kernel records and a last line
 ``{"ok": true, "device": {...}}``.
@@ -232,6 +257,9 @@ from 8 layers to 4 (``n_layers`` 72 -> 4, ``attn_every_k`` 8 -> 4, both
 printed). Attention is one layer in four, not one in eight, so it takes
 a larger share of prefill than in a deployment. kimi's: ``n_layers`` 61
 -> 1 (printed), one whole period; two layers would be 73.0 GB.
+command-r-plus-104b's and llama3-405b's: ``n_layers`` 64 -> 1 and 126 ->
+1 (printed); their embedding and unembedding alone are 6.3 B and 4.2 B
+params.
 
 It needs a CUDA device and the CUDA toolkit (nvcc), and exits non-zero
 without a result when either is missing or any check fails.
@@ -324,6 +352,9 @@ check lines print both):
     same 2e-2). olmoe's with its routers zeroed (bf16 near-ties would
     route tokens apart on the two devices); jamba's smoke period the loss
     alone, its mamba mixer's gradients in float32 at 2e-2.
+  * the cut dense configs' loss with ``loss_chunk`` 512 against the whole
+    logits' at a relative 1e-5 (the same float32 terms, summed in another
+    order); their depth-1 step card vs CPU as the depth-2 ones.
   * the new backward kernels as the others (bf16 1e-2, float32 1e-4 of
     each output's largest value); the combine's gather against its plain
     version exactly (the same float32 sums in the same order) and against
@@ -384,7 +415,7 @@ from repro_torch.kernels.simt_exec import codegen  # noqa: E402
 from repro_torch.kernels.simt_exec import simt_exec as sx  # noqa: E402
 from repro_torch.kernels.simt_exec.ops import volt_torch_run  # noqa: E402
 from repro_torch.volt_bench import suite  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import \
@@ -869,6 +900,15 @@ def runtime_phase(dev, seed: int, cases: dict, outs: dict) -> list:
 LM_ARCH, MOE_ARCH, HYBRID_ARCH, KIMI_ARCH, XLSTM_ARCH = (
     "granite-3-2b", "olmoe-1b-7b", "jamba-1.5-large-398b", "kimi-k2-1t-a32b",
     "xlstm-1.3b")
+#: the dense configs that follow granite's paths: starcoder2-7b (36 heads
+#: on 4 KV heads, the non-gated gelu MLP) at full width and depth,
+#: command-r-plus-104b (parallel blocks, 96 heads on 8, vocab 256,000)
+#: and llama3-405b (d_model 16,384, 128 heads on 8) at full width
+DENSE_ARCH, COHERE_ARCH, LLAMA_ARCH = (
+    "starcoder2-7b", "command-r-plus-104b", "llama3-405b")
+#: their cuts for one card: one layer each (7.87 B and 7.39 B params,
+#: nearly all of them the embedding and unembedding)
+DENSE_CUTS = {COHERE_ARCH: {"n_layers": 1}, LLAMA_ARCH: {"n_layers": 1}}
 #: jamba on one card: every width, one layer of each kind
 HYBRID_CUT = {"n_layers": 4, "attn_every_k": 4}
 #: kimi-k2 on one card: every width, one period (one attention / MoE layer)
@@ -939,6 +979,14 @@ def _count(cfg, mixer=None, ff=None) -> int:
         k.mixer == mixer or k.ff == ff for k in period)
 
 
+def _norms(cfg) -> int:
+    """RMSNorms of one pass through the stack, ln_f left out: ln1 in every
+    layer, ln2 in every layer with a feed-forward, except a dense one in a
+    parallel block, which reads ln1's output (command-r-plus)."""
+    parallel = _count(cfg, ff="dense") if cfg.parallel_block else 0
+    return 2 * cfg.n_layers - _count(cfg, ff="none") - parallel
+
+
 #: launches of the two-route kernels by route, on each counted path
 ROUTE_COUNTS: dict = {}
 ROUTED = {"flash_attention": fa, "moe_dispatch": md,
@@ -971,11 +1019,22 @@ PTXAS_NAMES = ((r"fa_tc_kernelILi(\d+)E", "fa_tc_kernel<{}>"),
                 "moe_ff_partial<bf16, 1>"),
                (r"fa_bwd_dkdv_tcILi(\d+)E", "fa_bwd_dkdv_tc<{}>"),
                (r"fa_bwd_dq_tcILi(\d+)E", "fa_bwd_dq_tc<{}>"),
-               (r"rmsnorm_bwd_vecI13__nv_bfloat16Li1E",
-                "rmsnorm_bwd_vec<bf16, 1>"),
+               (r"rmsnorm_bwd_vecI13__nv_bfloat16Li(\d+)ELi(\d+)ELb(\d)E",
+                "rmsnorm_bwd_vec<bf16, {}, {}, {}>"),
                (r"moe_dh_tcE", "moe_dh_tc"), (r"moe_dx_tcE", "moe_dx_tc"),
                (r"moe_dw_tcE", "moe_dw_tc"),
                (r"scan_bwd_kernelILi16E", "scan_bwd_kernel<16>"))
+
+
+def _rms_bwd_vec(d: int) -> str:
+    """The instantiation of rmsnorm_bwd.cu's bf16 vector route that its
+    launcher picks for rows of d columns (8 a vector): 256 threads
+    holding the row up to 8,192 columns, 512 reading it again past."""
+    if -(-d // 256) > 32:
+        return "rmsnorm_bwd_vec<bf16, 4, 512, 0>"
+    nvec = d // 8
+    nv = 1 if nvec <= 256 else 2 if nvec <= 512 else 4
+    return f"rmsnorm_bwd_vec<bf16, {nv}, 256, 1>"
 
 
 def _ptxas_lines(kernel) -> list:
@@ -1295,7 +1354,7 @@ def lm_kernel_times(dev, cfg, reps, errs):
             lambda: rn.rmsnorm_plain(*next(sets)),
             lambda: _library_rmsnorm(*next(sets)),
             2 * N * d * 2 + d * 2, 4 * N * d, F32_OPS_PER_S, reps,
-            f"{2 * cfg.n_layers + 1} a prefill or decode step")
+            f"{_norms(cfg) + 1} a prefill or decode step")
         if N == PREFILL_B * PREFILL_S:
             records["rmsnorm"] = {**row, "max_abs_err":
                                   errs[("rmsnorm", N, torch.bfloat16)]}
@@ -1553,7 +1612,7 @@ def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
     answering SERVE_REQUESTS requests; then prefill and decode speed, and
     where their time goes. Returns the tokens, the engine, the rng, the counts by
     path and the decode step's inputs."""
-    L, arch = cfg.n_layers, cfg.name
+    arch = cfg.name
     moe_layers = _count(cfg, ff="moe")
     toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
                          generator=torch.Generator(dev).manual_seed(seed),
@@ -1568,7 +1627,7 @@ def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
                                  f"{by_route} by route; every launch must "
                                  "take the tensor cores")
     ROUTE_COUNTS[f"{arch}/prefill"] = routes
-    want = {"simt_exec": 0, "rmsnorm": 2 * L + 1 - _count(cfg, ff="none"),
+    want = {"simt_exec": 0, "rmsnorm": _norms(cfg) + 1,
             "flash_attention": _count(cfg, "attn"),
             "moe_dispatch": moe_layers,
             "selective_scan": _count(cfg, "mamba") * math.ceil(
@@ -1665,20 +1724,50 @@ def _decode_vs_prefill(dev, model, params, prompt, cfg):
     return last[:, 0, :cfg.vocab], full[:, :cfg.vocab], apart
 
 
-def lm_phase(dev, seed: int, reps: int):
-    """The dense LM serving path on granite-3-2b, checked and timed;
-    returns its kernels' records and its counts by path."""
-    cfg = get_config(LM_ARCH)
-    model, params = _init(dev, cfg, seed)
+def _cut_config(arch):
+    """``arch``'s config cut for one card as DENSE_CUTS says (every width
+    as published; the cut printed), and whether it was cut."""
+    full = get_config(arch)
+    cut = DENSE_CUTS.get(arch, {})
+    if cut:
+        print(f"{arch} cut for one card: " + ", ".join(
+            f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items())
+            + "; every width as published")
+    return dataclasses.replace(full, **cut), bool(cut)
+
+
+def lm_phase(dev, seed: int, reps: int, arch: str = LM_ARCH):
+    """A dense LM serving path, checked and timed: granite-3-2b and
+    starcoder2-7b at full width and depth, command-r-plus-104b and
+    llama3-405b at full width cut to one layer (DENSE_CUTS). The kernels
+    are checked and timed at the path's shapes before its params exist;
+    then ``serve_path``, teacher-forced decode against prefill and, for
+    an uncut config, the depth-2 prefill on the card against the CPU.
+    Returns its kernels' records and its counts by path."""
+    cfg, cut = _cut_config(arch)
+    t0 = time.perf_counter()
     errs = lm_kernel_checks(dev, cfg, seed)
+    records = lm_kernel_times(dev, cfg, min(reps, 10), errs)
+    torch.cuda.empty_cache()
+    print(f"{arch} forward kernels checked and timed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    model, params = _init(dev, cfg, seed)
     toks, eng, rng, by_path, _ = serve_path(dev, cfg, model, params, seed)
 
-    # decode matches prefill at full width (tests/test_archs.py's check)
+    # decode matches prefill at full width (tests/test_archs.py's check);
+    # a parallel block decodes as prefill computes it (ROADMAP C11)
     got, want, _ = _decode_vs_prefill(dev, model, params, toks[:1, :64], cfg)
     e = _compare("decode vs prefill", {"l": got}, {"l": want}, 0.0,
                  DECODE_ATOL)
-    print(f"check decode (64 steps) vs prefill logits max abs err {e:.3g} "
-          f"(atol {DECODE_ATOL}, rtol 0; logits std {float(want.std()):.3g})")
+    print(f"check {arch} decode (64 steps) vs prefill logits max abs err "
+          f"{e:.3g} (atol {DECODE_ATOL}, rtol 0; logits std "
+          f"{float(want.std()):.3g}"
+          + ("; parallel attention and FF blocks" if cfg.parallel_block
+             else "") + ")")
+    del params, eng
+    torch.cuda.empty_cache()
+    if cut:
+        return records, by_path
 
     # the card (kernels) against the CPU (plain versions), depth 2
     m2 = get_model(dataclasses.replace(cfg, n_layers=2))
@@ -1688,11 +1777,11 @@ def lm_phase(dev, seed: int, reps: int):
     got2 = m2.prefill(tree_map(lambda a: a.to(dev), p_cpu), toks2.to(dev))
     e = _compare("depth-2 card vs cpu", {"l": got2.cpu()[:, :cfg.vocab]},
                  {"l": want2[:, :cfg.vocab]}, 0.1, 0.1)
-    print(f"check depth-2 prefill (2 x 128) card vs cpu logits max abs err "
-          f"{e:.3g} (atol = rtol = 0.1)")
-    del params, eng
+    print(f"check {arch} depth-2 prefill (2 x 128) card vs cpu logits max "
+          f"abs err {e:.3g} (atol = rtol = 0.1)")
+    del p_cpu, got2
     torch.cuda.empty_cache()
-    return lm_kernel_times(dev, cfg, min(reps, 10), errs), by_path
+    return records, by_path
 
 
 def moe_phase(dev, seed: int, reps: int):
@@ -2178,12 +2267,15 @@ def _fa_bwd_inputs(g, dev, B, H, Hkv, S, D, dtype):
 TRAIN_DO_SCALE = 1.0 / (TRAIN_B * TRAIN_S)
 
 
-def train_kernel_checks(dev, cfg, seed) -> dict:
+def train_kernel_checks(dev, cfg, seed, extra=True) -> dict:
     """Each backward kernel against its plain version at the train path's
-    shapes (rmsnorm (8192, 2048); attention (4, 32, 2048, 64) with 8 KV
-    heads, causal; head dims 112 and 128 at batch 1), bf16 (attention's
-    on the tensor cores) and float32 (the CUDA cores); attention at
-    granite's shape once more with do at the train step's scale; the
+    shapes (rmsnorm (8192, d_model); attention (4, H, 2048, D) with the
+    config's KV heads, causal; the plain version's float32 scores at
+    llama3's 128 heads are 8.6 GB an array, which fits before the
+    path's params exist; with ``extra``, head dims 112 and 128 at batch
+    1), bf16 (attention's on the tensor cores) and float32 (the CUDA
+    cores); attention at the config's shape once more with do at the
+    train step's scale; the
     forward's lse-writing launch bit for bit the launch without lse; two
     backward calls bit for bit the same."""
     g = torch.Generator(dev).manual_seed(seed)
@@ -2210,8 +2302,9 @@ def train_kernel_checks(dev, cfg, seed) -> dict:
         del x, s, dy, y, r, got, again
     shapes = [(TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 1.0),
               (TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-               TRAIN_DO_SCALE),
-              (1, 64, 8, 112, 1.0), (1, 16, 16, 128, 1.0)]
+               TRAIN_DO_SCALE)]
+    if extra:
+        shapes += [(1, 64, 8, 112, 1.0), (1, 16, 16, 128, 1.0)]
     for B, H, Hkv, D, do_scale in shapes:
         for dt in (torch.bfloat16, torch.float32):
             if do_scale != 1.0 and dt != torch.bfloat16:
@@ -2331,52 +2424,98 @@ def _zero_routers(params) -> None:
             layer["moe"]["router"].zero_()
 
 
-def _train_card_vs_cpu(dev, cfg, seed, batch=None, label="depth 2",
-                       adamw=True, opt=None, grads=True) -> None:
-    """One step of a short model at full width (granite's: depth 2) on
-    the card and on the CPU (plain versions) from the same params (drawn
-    on the card, copied to the host; MoE routers zeroed) and batch
-    (granite's: 1 x 512 tokens): the loss, each leaf's gradient and, with
-    ``adamw``, each leaf after AdamW (``opt``, default float32 moments).
-    ``cfg`` is the short config. ``grads`` False: the gradients are
-    printed, not held (ROADMAP C15: a whole random-weight hybrid period
-    in bf16 is too ill-conditioned to hold them)."""
+#: the CPU sides of the card-vs-CPU steps, one at a time, each in the
+#: background while the card works on (``_cpu_step``)
+CPU_SIDE = ThreadPoolExecutor(max_workers=1)
+
+
+@dataclasses.dataclass
+class _CpuStep:
+    """A card-vs-CPU step whose CPU side runs in the background."""
+    cfg: object
+    seed: int
+    batch: dict
+    opt: AdamWConfig | None
+    result: object            # the future of (loss, grads, params, s)
+
+
+def _cpu_step(dev, cfg, seed, batch=None, adamw=True,
+              opt=None) -> _CpuStep:
+    """Starts the CPU side (plain versions) of ``_train_card_vs_cpu`` for
+    the short config ``cfg``: the params drawn on the card from ``seed``
+    (MoE routers zeroed) and copied to the host, then, in a thread,
+    ``value_and_grad`` on the batch (granite's: 1 x 512 tokens) and, with
+    ``adamw``, one AdamW update (``opt``, default float32 moments). A
+    caller may start it before GPU-bound work on the card (the host's
+    cores it takes show in a host-bound step's time);
+    ``_train_card_vs_cpu`` waits for it."""
     m2 = get_model(cfg)
     p_card = init_params(m2.blueprint(), torch.Generator(dev).manual_seed(
         seed))
     _zero_routers(p_card)
     p_cpu = tree_map(lambda a: a.cpu(), p_card)
+    del p_card
     if batch is None:
         batch = {"tokens": torch.from_numpy(synthetic_batch(DataConfig(
             vocab=cfg.vocab, seq_len=CPU_S, global_batch=CPU_B, seed=seed),
             0)["tokens"])}
+    opt = (opt or AdamWConfig()) if adamw else None
+
+    def run():
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(m2, p_cpu, batch, remat=True)
+        secs = time.perf_counter() - t0
+        if opt is not None:
+            adamw_update(p_cpu, grads, init_opt_state(p_cpu, opt), opt)
+        return loss, grads, p_cpu, secs
+
+    return _CpuStep(cfg, seed, batch, opt, CPU_SIDE.submit(run))
+
+
+def _train_card_vs_cpu(dev, cpu: _CpuStep, label="depth 2",
+                       grads=True) -> None:
+    """One step of a short model at full width (granite's: depth 2) on
+    the card and on the CPU (plain versions, ``cpu`` from ``_cpu_step``)
+    from the same params and batch: the loss, each leaf's gradient and,
+    where the CPU side ran AdamW, each leaf after AdamW at the same
+    moments. ``grads`` False: the gradients are printed, not held
+    (ROADMAP C15: a whole random-weight hybrid period in bf16 is too
+    ill-conditioned to hold them)."""
+    t_all = time.perf_counter()
+    cfg = cpu.cfg
+    m2 = get_model(cfg)
+    p_card = init_params(m2.blueprint(), torch.Generator(dev).manual_seed(
+        cpu.seed))
+    _zero_routers(p_card)
+    batch = cpu.batch
     shape = " x ".join(map(str, batch["tokens"].shape))
-    t0 = time.perf_counter()
-    l_cpu, g_cpu = value_and_grad(m2, p_cpu, batch, remat=True)
-    cpu_s = time.perf_counter() - t0
     l_card, g_card = value_and_grad(
         m2, p_card, {k: v.to(dev) for k, v in batch.items()}, remat=True)
+    t_wait = time.perf_counter()
+    l_cpu, g_cpu, p_cpu, cpu_s = cpu.result.result()
+    waited = time.perf_counter() - t_wait
     names = _leaf_names(g_cpu)
-    gerr = {n: float((a.cpu().float() - b.float()).norm()
-                     / b.float().norm().clamp_min(1e-30))
-            for n, a, b in zip(names, leaves(g_card), leaves(g_cpu))
-            if b.float().any()}
-    zero = [n for n, b in zip(names, leaves(g_cpu)) if not b.float().any()]
-    zero_card = [n for n, a in zip(names, leaves(g_card))
-                 if not a.float().any()]
+
+    def rel(a, b):
+        """|a - b| / |b| in float32 on the card, b the CPU's leaf (the
+        host's passes over a few billion elements take a minute)."""
+        b = b.to(dev).float()
+        return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+
+    zero = [n for n, b in zip(names, leaves(g_cpu)) if not b.any()]
+    zero_card = [n for n, a in zip(names, leaves(g_card)) if not a.any()]
+    gerr = {n: rel(a, b) for n, a, b in zip(names, leaves(g_card),
+                                           leaves(g_cpu)) if n not in zero}
     perr: dict = {}
     # a leaf that starts at zero (a zeroed router) holds after one AdamW
     # step only lr * m / (sqrt(v) + eps), about lr * sign(g): an element
     # whose gradient is near zero takes either sign on the two devices,
     # so such a leaf is held by its gradient above, not by its params
-    from_zero = [n for n, b in zip(names, leaves(p_cpu))
-                 if not b.float().any()]
-    if adamw:
-        opt = opt or AdamWConfig()
-        adamw_update(p_cpu, g_cpu, init_opt_state(p_cpu, opt), opt)
-        adamw_update(p_card, g_card, init_opt_state(p_card, opt), opt)
-        perr = {n: float((a.cpu().float() - b.float()).norm()
-                         / b.float().norm().clamp_min(1e-30))
+    from_zero = [n for n, a in zip(names, leaves(p_card)) if not a.any()]
+    if cpu.opt is not None:
+        adamw_update(p_card, g_card, init_opt_state(p_card, cpu.opt),
+                     cpu.opt)
+        perr = {n: rel(a, b)
                 for n, a, b in zip(names, leaves(p_card), leaves(p_cpu))
                 if n not in from_zero}
     gap = abs(float(l_card) - float(l_cpu))
@@ -2392,7 +2531,9 @@ def _train_card_vs_cpu(dev, cfg, seed, batch=None, label="depth 2",
                          f"{max(perr, key=perr.get)}; leaves from zero, "
                          f"held by their gradients: {from_zero}); "
                          if perr else "AdamW not run; ")
-          + f"the CPU's value_and_grad {cpu_s:.1f} s")
+          + f"the CPU's value_and_grad {cpu_s:.1f} s in the background "
+          f"(waited for {waited:.1f} s), the card's side "
+          f"{time.perf_counter() - t_all:.1f} s")
     if gap > TRAIN_LOSS_ATOL or zero != zero_card or not all(
             math.isfinite(e) for e in gerr.values()) or grads and (
             max(gerr.values()) > TRAIN_GRAD_TOL
@@ -2430,31 +2571,43 @@ def _train_resume(dev, cfg, seed, ckpt_root: Path, opt=None) -> None:
         raise AssertionError("resumed losses differ from the straight run")
 
 
-def train_phase(dev, seed: int, reps: int):
-    """granite-3-2b trained at full width and depth on the card: the
-    backward kernels checked and timed, then TRAIN_STEPS steps through
-    ``train_loop`` (counted), the step's breakdown, every leaf's
-    gradient, the depth-2 step against the CPU and the depth-2 resume.
-    Returns the backward kernels' records, the counts of the path and
-    the steps' numbers."""
-    cfg = get_config(LM_ARCH)
-    errs = train_kernel_checks(dev, cfg, seed)
-    per_step = {"rmsnorm": 2 * (2 * cfg.n_layers) + 1,
-                "rmsnorm_bwd": 2 * cfg.n_layers + 1,
-                "flash_attention": 2 * cfg.n_layers,
-                "flash_attention_bwd": cfg.n_layers}
+def train_phase(dev, seed: int, reps: int, arch: str = LM_ARCH,
+                opt: AdamWConfig | None = None):
+    """A dense LM trained at full width and depth on the card (granite-3-2b
+    with float32 AdamW moments; starcoder2-7b with ``opt`` = MOE_OPT's
+    bf16 ones): the backward kernels checked and timed, then TRAIN_STEPS
+    steps through ``train_loop`` (counted), the step's breakdown, every
+    leaf's gradient, the depth-2 step against the CPU at the same
+    moments and, for granite, the depth-2 resume. Returns the backward
+    kernels' records, the counts of the path and the steps' numbers."""
+    cfg = get_config(arch)
+    opt = opt or AdamWConfig()
+    short = dataclasses.replace(cfg, n_layers=2)
+    # starcoder2's CPU side runs beside its steps, which keep the card
+    # busy (idle share 0.006); beside granite's shorter steps the host's
+    # cores it takes showed (idle share 0.018 -> 0.077), so granite's
+    # runs after them
+    cpu = None if arch == LM_ARCH else _cpu_step(dev, short, seed, opt=opt)
+    errs = train_kernel_checks(dev, cfg, seed, extra=arch == LM_ARCH)
+    per_step = _train_launches(cfg)
     model = get_model(cfg)
     data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
                       seed=seed)
-    scfg = StepConfig(remat=True, opt=AdamWConfig())
+    scfg = StepConfig(remat=True, opt=opt)
     params, secs = _sync_s(lambda: init_params(
         model.blueprint(), torch.Generator(dev).manual_seed(data.seed)))
-    print(f"train {cfg.name}: {count_params(model.blueprint())} params, "
+    n = count_params(model.blueprint())
+    moments = str(opt.state_dtype)[6:]
+    print(f"train {cfg.name}: {n} params, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
-          f"heads ({cfg.n_kv_heads} kv) x {cfg.head_dim}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}; AdamW moments "
-          f"{str(scfg.opt.state_dtype)[6:]}, remat; {TRAIN_B} x {TRAIN_S} "
-          f"tokens a step; init on the card {secs:.2f} s")
+          f"heads ({cfg.n_kv_heads} kv) x {cfg.head_dim}, d_ff {cfg.d_ff}"
+          f"{'' if cfg.gated_mlp else ' (gelu, not gated)'}, vocab "
+          f"{cfg.vocab}; AdamW moments {moments}"
+          + ("" if opt.state_dtype == torch.float32 else
+             f" (reduced: float32 ones would take params, grads and "
+             f"moments to {n * 12 / 1e9:.1f} GB)")
+          + f", remat; {TRAIN_B} x {TRAIN_S} tokens a step; init on the "
+          f"card {secs:.2f} s")
     ckpt_root = Path(__file__).resolve().parent / "build" / "train_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2481,7 +2634,8 @@ def train_phase(dev, seed: int, reps: int):
     tps = TRAIN_B * TRAIN_S * (TRAIN_STEPS - 1) / (sum(res.step_ms[1:]) / 1e3)
     for i, (l, gn, ms) in enumerate(zip(res.losses, res.grad_norms,
                                         res.step_ms)):
-        print(f"train step {i}: loss {l:.6f} grad_norm {gn:.6f} {ms:.1f} ms")
+        print(f"{cfg.name} train step {i}: loss {l:.6f} grad_norm "
+              f"{gn:.6f} {ms:.1f} ms")
     print(f"{cfg.name} train main path: {TRAIN_STEPS} steps, "
           f"{tps:.0f} tokens/s over steps 1-{TRAIN_STEPS - 1}, peak memory "
           f"{peak:.2f} GB (max_memory_allocated); launches {counts}, by "
@@ -2494,7 +2648,7 @@ def train_phase(dev, seed: int, reps: int):
     norms = {n: float(t.float().norm())
              for n, t in zip(_leaf_names(grads), leaves(grads))}
     bad = {n: v for n, v in norms.items() if not math.isfinite(v) or v <= 0}
-    print("train gradient norms by leaf: " + ", ".join(
+    print(f"{cfg.name} train gradient norms by leaf: " + ", ".join(
         f"{n} {v:.4g}" for n, v in norms.items()))
     if bad:
         raise AssertionError(f"train: leaves without a gradient {bad}")
@@ -2502,11 +2656,11 @@ def train_phase(dev, seed: int, reps: int):
 
     # where one step's time goes (a fresh optimizer state; uncounted)
     step = build_train_step(model, scfg)
-    opt = init_opt_state(params, scfg.opt)
+    state = init_opt_state(params, scfg.opt)
     step_ms = statistics.median(res.step_ms[1:])
-    _breakdown(lambda: step(params, opt, batch), step_ms,
+    _breakdown(lambda: step(params, state, batch), step_ms,
                f"{cfg.name} train step {TRAIN_B} x {TRAIN_S}")
-    del params, opt, batch, step, model
+    del params, state, batch, step, model
     torch.cuda.empty_cache()
     records = train_kernel_times(
         dev, cfg, min(reps, 10), errs,
@@ -2514,10 +2668,11 @@ def train_phase(dev, seed: int, reps: int):
     summary = {"arch": cfg.name, "tokens_per_step": TRAIN_B * TRAIN_S,
                "tokens_per_s": tps, "step_ms": res.step_ms,
                "losses": res.losses, "grad_norms": res.grad_norms,
-               "peak_gb": peak}
+               "peak_gb": peak, "opt_state_dtype": moments}
     torch.cuda.empty_cache()
-    _train_card_vs_cpu(dev, dataclasses.replace(cfg, n_layers=2), seed)
-    _train_resume(dev, cfg, seed, ckpt_root)
+    _train_card_vs_cpu(dev, cpu or _cpu_step(dev, short, seed, opt=opt))
+    if arch == LM_ARCH:
+        _train_resume(dev, cfg, seed, ckpt_root)
     shutil.rmtree(ckpt_root, ignore_errors=True)
     return records, {f"{cfg.name}/train": counts}, summary
 
@@ -2547,11 +2702,12 @@ def _train_launches(cfg) -> dict:
     4 x 2048 tokens: each forward kernel twice (the period's recompute),
     the scan three times (a checkpoint region a chunk inside the
     period's), each backward kernel once, the combine's gather three
-    times (the forward, its recompute, the dispatch's gradient)."""
-    L, n_attn = cfg.n_layers, _count(cfg, "attn")
+    times (the forward, its recompute, the dispatch's gradient). A
+    parallel block's dense layer runs one norm (``_norms``)."""
+    n_attn = _count(cfg, "attn")
     n_moe, n_mamba = _count(cfg, ff="moe"), _count(cfg, "mamba")
     chunks = n_mamba * math.ceil(TRAIN_S / cfg.ssm_chunk)
-    norms = 2 * L - _count(cfg, ff="none")
+    norms = _norms(cfg)
     return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
             "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
             "moe_dispatch": 2 * n_moe, "moe_dispatch_bwd": n_moe,
@@ -2887,7 +3043,7 @@ def moe_train_phase(dev, seed: int, reps: int):
                "losses": res.losses, "grad_norms": res.grad_norms,
                "peak_gb": peak, "opt_state_dtype": "bfloat16"}
     short = dataclasses.replace(cfg, n_layers=2)
-    _train_card_vs_cpu(dev, short, seed, opt=MOE_OPT)
+    _train_card_vs_cpu(dev, _cpu_step(dev, short, seed, opt=MOE_OPT))
     _moe_ff_card_vs_cpu(dev, cfg, seed)
     _train_resume(dev, cfg, seed, ckpt_root, opt=MOE_OPT)
     shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -3079,9 +3235,9 @@ def hybrid_train_phase(dev, seed: int, reps: int):
     sm = get_config(HYBRID_ARCH, smoke=True)
     sm = dataclasses.replace(sm, n_layers=len(sm.layer_pattern()))
     cg = torch.Generator().manual_seed(seed)
-    _train_card_vs_cpu(dev, sm, seed, batch={"tokens": torch.randint(
-        0, sm.vocab, (2, 40), generator=cg)}, label="one smoke period",
-        adamw=False, grads=False)
+    _train_card_vs_cpu(dev, _cpu_step(dev, sm, seed, batch={
+        "tokens": torch.randint(0, sm.vocab, (2, 40), generator=cg)},
+        adamw=False), label="one smoke period", grads=False)
     _mamba_block_card_vs_cpu(dev, sm, seed)
     return records, {label: counts}, summary
 
@@ -3360,10 +3516,10 @@ def encdec_phase(dev, seed: int, reps: int):
     # depth 2 card against cpu, half as many frames as tokens (C16)
     cg = torch.Generator().manual_seed(seed)
     short = dataclasses.replace(cfg, n_layers=2, enc_layers=2)
-    _train_card_vs_cpu(dev, short, seed, batch={
+    _train_card_vs_cpu(dev, _cpu_step(dev, short, seed, batch={
         "tokens": torch.randint(0, cfg.vocab, (1, 256), generator=cg),
         "frontend_embeds": torch.randn(1, 128, cfg.d_model,
-                                       generator=cg).bfloat16()},
+                                       generator=cg).bfloat16()}),
         label="decoder and encoder depth 2, 128 frames")
     torch.cuda.empty_cache()
     return {"flash_attention": fwd, "flash_attention_bwd": bwd}, by_path, \
@@ -3398,14 +3554,97 @@ def vlm_phase(dev, seed: int, reps: int):
     del params, batch, model
     torch.cuda.empty_cache()
     cg = torch.Generator().manual_seed(seed)
-    _train_card_vs_cpu(dev, cfg, seed, batch={
+    _train_card_vs_cpu(dev, _cpu_step(dev, cfg, seed, batch={
         "tokens": torch.randint(0, cfg.vocab, (1, 64), generator=cg),
         "frontend_embeds": torch.randn(1, 16, cfg.d_model,
                                        generator=cg).bfloat16(),
         "mrope_positions": mrope_grid_positions(1, 64, 4, 4)},
-        label="depth 1, 16 patches", adamw=False)
+        adamw=False), label="depth 1, 16 patches")
     torch.cuda.empty_cache()
     return {f"{arch}/train": counts}, summary
+
+
+#: the chunked loss against the whole logits' on the card (4 x 2048
+#: tokens, ``loss_chunk`` 512 against 0, the same params and batch): only
+#: the order of the float32 sum over the positions differs
+LOSS_CHUNK_RTOL = 1e-5
+#: the cut configs' step on the card against the CPU: 1 x 64 tokens in
+#: two loss chunks of 32, each over the whole vocab
+CUT_CPU_S, CUT_CPU_CHUNK = 64, 32
+
+
+def cut_train_phase(dev, seed: int, reps: int, arch: str):
+    """command-r-plus-104b or llama3-405b trained at full width cut to one
+    layer (DENSE_CUTS). The backward kernels are checked and timed at the
+    path's shapes before the params exist; then, on 4 x 2048 tokens, the
+    loss with ``loss_chunk`` 512 against the whole logits' (no grad) and
+    TRAIN_STEPS steps of ``build_train_step`` with MOE_OPT's bf16
+    moments (counted; peak memory, the step's breakdown); then one step
+    on the card against the CPU, 1 x 64 tokens in two loss chunks of 32
+    over the whole vocab: the loss and every leaf's gradient (no AdamW:
+    granite's and starcoder2's steps hold it). Returns the backward
+    kernels' records, the counts by path and the steps' numbers."""
+    cfg, _ = _cut_config(arch)
+    cg = torch.Generator().manual_seed(seed)
+    cpu = _cpu_step(
+        dev, dataclasses.replace(cfg, loss_chunk=CUT_CPU_CHUNK), seed,
+        batch={"tokens": torch.randint(0, cfg.vocab, (1, CUT_CPU_S),
+                                       generator=cg)}, adamw=False)
+    t0 = time.perf_counter()
+    errs = train_kernel_checks(dev, cfg, seed, extra=False)
+    per_step = _train_launches(cfg)
+    records = train_kernel_times(
+        dev, cfg, min(reps, 10), errs,
+        {k: f"{per_step[k]} a step" for k in per_step})
+    torch.cuda.empty_cache()
+    print(f"{arch} backward kernels checked and timed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    model, params = _init(dev, cfg, seed)
+    tg = torch.Generator(dev).manual_seed(seed + 2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                                     generator=tg, device=dev)}
+    whole_model = get_model(dataclasses.replace(cfg, loss_chunk=0))
+    with torch.no_grad():
+        (chunked, whole), secs = _sync_s(lambda: (
+            float(model.loss_fn(params, batch)),
+            float(whole_model.loss_fn(params, batch))))
+    rel = abs(chunked - whole) / abs(whole)
+    print(f"check {arch} loss {TRAIN_B} x {TRAIN_S}, loss_chunk "
+          f"{cfg.loss_chunk} ({TRAIN_S // cfg.loss_chunk} chunks of "
+          f"{cfg.padded_vocab} columns) vs the whole logits: {chunked!r} vs "
+          f"{whole!r}, relative gap {rel:.3g} (rtol {LOSS_CHUNK_RTOL}); both "
+          f"{secs:.2f} s")
+    if not math.isfinite(rel) or rel > LOSS_CHUNK_RTOL:
+        raise AssertionError(f"{arch}: chunked loss {chunked} against the "
+                             f"whole {whole}")
+    summary, counts = _train_steps(
+        model, params, batch, StepConfig(remat=True, opt=MOE_OPT),
+        f"{arch}/train", per_step, TRAIN_B * TRAIN_S)
+    summary["opt_state_dtype"] = "bfloat16"
+    del params, batch, model, whole_model
+    torch.cuda.empty_cache()
+    _train_card_vs_cpu(dev, cpu, label=f"depth 1, two loss chunks of "
+                       f"{CUT_CPU_CHUNK}")
+    torch.cuda.empty_cache()
+    return records, {f"{arch}/train": counts}, summary
+
+
+def dense_phase(dev, seed: int, reps: int, arch: str):
+    """``arch`` served (``lm_phase``) and trained (``train_phase`` at full
+    depth with MOE_OPT, or ``cut_train_phase`` for a cut config), each
+    phase's seconds printed. Returns the kernels' records at its shapes,
+    the counts by path and the train summary."""
+    t0 = time.perf_counter()
+    records, by_path = lm_phase(dev, seed, reps, arch)
+    print(f"lm phase {arch} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if arch in DENSE_CUTS:
+        bwd, train_paths, summary = cut_train_phase(dev, seed, reps, arch)
+    else:
+        bwd, train_paths, summary = train_phase(dev, seed, reps, arch,
+                                                MOE_OPT)
+    print(f"train phase {arch} {time.perf_counter() - t0:.1f} s")
+    return {**records, **bwd}, {**by_path, **train_paths}, summary
 
 
 # --------------------------------------------------------------------------
@@ -4358,6 +4597,16 @@ def main() -> int:
     for m in (*ROUTED.values(), rb, sb):
         for line in _ptxas_lines(m.KERNEL):
             print(f"ptxas {line}")
+    # rmsnorm_bwd's bf16 vector route at every config's d_model (1,024
+    # to 16,384): none of those instantiations may spill
+    want = {_rms_bwd_vec(get_config(a).d_model) for a in ARCHS}
+    rms = {ln.split(":")[0]: ln for ln in _ptxas_lines(rb.KERNEL)}
+    if any(n not in rms or "0 bytes spill stores, 0 bytes spill loads"
+           not in rms[n] for n in want):
+        raise AssertionError(f"rmsnorm_bwd bf16 vector route: {want} "
+                             f"spilled or missing in {list(rms.values())}")
+    print(f"ptxas rmsnorm_bwd: the configs' widths take {sorted(want)}, "
+          "none spilled")
 
     # 3. the main path at full size, counted
     _zero_counts()
@@ -4567,6 +4816,15 @@ def main() -> int:
     print(f"train phase {VLM_ARCH} {time.perf_counter() - t0:.1f} s")
     paths.update(vlm_paths)
     print(json.dumps({"train_encdec_vlm": [encdec_train, vlm_train]}))
+    dense_train = []
+    for arch in (DENSE_ARCH, COHERE_ARCH, LLAMA_ARCH):
+        rows, dense_paths, dense_summary = dense_phase(dev, args.seed,
+                                                       args.reps, arch)
+        paths.update(dense_paths)
+        dense_train.append(dense_summary)
+        for name, r in rows.items():
+            lm_records[name][arch] = r
+    print(json.dumps({"train_dense": dense_train}))
     t0 = time.perf_counter()
     dist_paths, dist_summary = distributed_phase(args.seed)
     print(f"distributed phase {time.perf_counter() - t0:.1f} s")

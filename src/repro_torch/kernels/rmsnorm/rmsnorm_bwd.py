@@ -14,7 +14,10 @@ row's ``r = rsqrt(var + eps)``), its backward ``csrc/rmsnorm_bwd.cu``:
     one element a thread otherwise (the C launcher picks);
   * dscale = the sum over rows of dy * x * r: per-CTA float32 partials,
     summed by a second kernel in one fixed order (no float atomics, so
-    the result is the same bits every call).
+    the result is the same bits every call);
+  * rows up to ``MAX_D`` = 16384 columns (llama3-405b's d_model): past
+    8192 a CTA of 512 threads holds only its partials and reads the row
+    again for dx.
 
 It is built with nvcc at first use into ``build/rmsnorm_bwd/<sha256>.so``
 and launched through ctypes on the current stream. On CPU tensors the
@@ -38,8 +41,9 @@ from . import rmsnorm as RN
 LAUNCHES = 0
 #: CTAs that take the rows, each writing one row of dscale partials
 PARTS = 528
-#: widest row the kernel takes: 32 columns a thread, 256 threads
-MAX_D = 8192
+#: widest row the kernel takes: 32 columns a thread, 512 threads (256
+#: threads up to 8192 columns)
+MAX_D = 16384
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = SourceKernel(

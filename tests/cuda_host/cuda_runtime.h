@@ -1,12 +1,13 @@
 // Host stand-in for the parts of the CUDA runtime that the simt_exec
 // kernels use, so that their emitted source compiles with g++ and runs on
-// the CPU: one std::thread per CUDA thread, the blocks of a grid in turn,
-// std::barrier for __syncthreads and the block-wide votes. The warp-level
-// calls (__syncwarp, __shfl_*_sync, __any_sync, __all_sync,
-// __ballot_sync) are scoped to the warp, as on the card: one std::barrier
-// for each 32 threads of the block, so the warps of a block may reach
-// them a different number of times, and a warp may return early. Every
-// thread of a warp must reach them, as the kernels' code does. The float32
+// the CPU: one std::thread per CUDA thread of a block, the blocks of a
+// grid in turn on the same threads, std::barrier for __syncthreads and
+// the block-wide votes. The warp-level calls (__syncwarp,
+// __shfl_*_sync, __any_sync, __all_sync, __ballot_sync) are scoped to the
+// warp, as on the card: one std::barrier for each 32 threads of the
+// block, so the warps of a block may reach them a different number of
+// times, and a warp may return early. Every thread of a warp must reach
+// them, as the kernels' code does. The float32
 // instantiations of the hand-written kernels (rmsnorm, flash_attention,
 // moe_dispatch, selective_scan) run on it too. Dynamic shared memory is
 // one buffer, sized by the launch and shared by the threads of the block
@@ -186,22 +187,32 @@ inline void vx_host_launch(int grid, int block, std::function<void()> body,
   vx_host::last_block = block;
   gridDim.x = grid;
   blockDim.x = block;
-  for (int b = 0; b < grid; ++b) {
-    blockIdx.x = b;
-    std::barrier<> bar(block);
-    vx_host::bar = &bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warps;
-    vx_host::warp_bars.clear();
-    for (int w = 0; w * 32 < block; ++w) {
-      warps.push_back(std::make_unique<std::barrier<>>(
-          std::min(32, block - w * 32)));
-      vx_host::warp_bars.push_back(warps.back().get());
-    }
-    std::vector<std::thread> ts;
-    for (int t = 0; t < block; ++t)
-      ts.emplace_back([t, &body] { threadIdx.x = t; body(); });
-    for (auto& th : ts) th.join();
+  blockIdx.x = 0;
+  if (grid < 1) return;
+  std::barrier<> bar(block);
+  vx_host::bar = &bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  vx_host::warp_bars.clear();
+  for (int w = 0; w * 32 < block; ++w) {
+    warps.push_back(std::make_unique<std::barrier<>>(
+        std::min(32, block - w * 32)));
+    vx_host::warp_bars.push_back(warps.back().get());
   }
+  // one thread per CUDA thread of a block, kept for every block of the
+  // grid: the blocks run in turn, the next one's index set once all of
+  // this one's threads have returned from the kernel
+  auto next = []() noexcept { ++blockIdx.x; };
+  std::barrier<decltype(next)> done(block, next);
+  std::vector<std::thread> ts;
+  for (int t = 0; t < block; ++t)
+    ts.emplace_back([t, grid, &body, &done] {
+      threadIdx.x = t;
+      for (int b = 0; b < grid; ++b) {
+        body();
+        done.arrive_and_wait();
+      }
+    });
+  for (auto& th : ts) th.join();
 }
 
 // the geometry of the last launch: which 0 gives its grid, 1 its block

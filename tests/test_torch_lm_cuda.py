@@ -58,7 +58,7 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 8, 8192])
-@pytest.mark.parametrize("d", [2048, 7168, 8192, 100])
+@pytest.mark.parametrize("d", [2048, 7168, 8192, 100, 4608, 12288, 16384])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain_at_path_shapes(cuda, N, d, dtype):
     """The paths' widths (16-byte vectors, one CTA a row) and d 100 (in

@@ -18,7 +18,9 @@ backward's route is held as a rounding model too: P and dS rounded to
 bf16 before their products, against the float32 plain version.
 
 The CUDA kernels against their plain versions, on a card, are in
-``test_torch_lm_cuda.py`` and ``test_torch_train_cuda.py``.
+``test_torch_lm_cuda.py`` and ``test_torch_train_cuda.py``. The forward
+rmsnorm source's host runs are in ``test_torch_rmsnorm_host.py``; the
+host builds (``host_libs``, ``host_tc_libs``) in ``torch_host_kernels.py``.
 
 Tolerances are those of ``tests/test_kernels.py``: rmsnorm 1e-5 in
 float32 and 2e-2 in bfloat16; attention 2e-5 in float32 and 3e-2 in
@@ -28,11 +30,7 @@ the CUDA sources are held to the plain version at 1e-5 (rmsnorm) and
 tensor-core route's rounding model is held at chip_smoke.py's bf16
 tolerance, rtol 1e-2 and atol 2e-3.
 """
-import ctypes
 import math
-import shutil
-import subprocess
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -44,13 +42,13 @@ from repro.kernels.flash_attention.ops import flash_attention_op
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.rmsnorm.ops import rmsnorm_op
 from repro.kernels.rmsnorm.ref import rmsnorm_ref
-from repro_torch.kernels.build import CSRC
 from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.flash_attention import flash_attention_bwd as FB
 from repro_torch.kernels.rmsnorm import rmsnorm as RN
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd as RB
+from torch_host_kernels import close as _close
+from torch_host_kernels import host_libs, host_tc_libs  # noqa: F401
 
-HOST_CUDA = Path(__file__).parent / "cuda_host"
 #: chip_smoke.py's bf16 tolerance for flash_attention: rtol, atol
 CARD_BF16_TOL = (1e-2, 2e-3)
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -60,12 +58,6 @@ def _pair(a: np.ndarray, dtype: torch.dtype):
     """The same values as a JAX array and a torch tensor of ``dtype``."""
     t = torch.from_numpy(a).to(dtype)
     return jnp.array(t.float().numpy(), JNP[dtype]), t
-
-
-def _close(got: torch.Tensor, want, tol: float):
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want, np.float32), atol=tol,
-                               rtol=tol)
 
 
 @pytest.mark.parametrize("shape", [(256, 64), (128, 512), (384, 128)])
@@ -378,77 +370,9 @@ def test_wrappers_refuse_other_devices():
 
 # --------------------------------------------------------------------------
 # the CUDA sources, run on the host: g++ with the stand-in runtime in
-# tests/cuda_host (one std::thread per CUDA thread), float32 only
+# tests/cuda_host (one std::thread per CUDA thread), float32 only; the
+# forward rmsnorm's are in test_torch_rmsnorm_host.py
 # --------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
-    """The four kernel sources (rmsnorm, flash_attention and their
-    backward) built for the host, one g++ each, at once."""
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is needed to run the CUDA sources on the host")
-    out = tmp_path_factory.mktemp("host_lm_kernels")
-    procs = {}
-    for mod in (RN, FA, RB, FB):
-        so = out / f"{mod.KERNEL.kind}.so"
-        procs[mod] = (so, subprocess.Popen(
-            ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             f"-I{HOST_CUDA}", f"-I{CSRC}", "-x", "c++", "-o", str(so),
-             str(mod.KERNEL.cu)], stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for mod, (so, p) in procs.items():
-        _, err = p.communicate(timeout=300)
-        assert p.returncode == 0, err
-        lib = ctypes.CDLL(str(so))
-        for name, types in mod.KERNEL.argtypes.items():
-            if "bf16" not in name:
-                getattr(lib, name).argtypes = types
-        libs[mod] = lib
-    return libs
-
-
-@pytest.mark.parametrize("shape", [(3, 64), (5, 300), (2, 2048)])
-def test_rmsnorm_source_matches_plain_on_host(shape, host_libs):
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn(shape, generator=g)
-    s = torch.randn(shape[1], generator=g)
-    out, rstd = torch.empty_like(x), torch.empty(shape[0])
-    err = host_libs[RN].rmsnorm_f32(x.data_ptr(), s.data_ptr(),
-                                    out.data_ptr(), rstd.data_ptr(),
-                                    shape[0], shape[1], 1e-6, None)
-    assert err == 0
-    want, want_rstd = RN.rmsnorm_plain(x, s, with_rstd=True)
-    _close(out, want.numpy(), 1e-5)
-    _close(rstd, want_rstd.numpy(), 1e-5)
-
-
-@pytest.mark.parametrize("N", [1, 8, 129])
-@pytest.mark.parametrize("d", [8, 99, 100, 2048, 4096, 7168, 8196])
-@pytest.mark.parametrize("offset", [0, 1])
-def test_rmsnorm_routes_match_plain_on_host(N, d, offset, host_libs):
-    """Each route of the float32 source: 256 threads a row holding one,
-    two, four or eight vectors of 4 (d 8, 100, 2048, 4096 and 7168: 2,
-    25, 512, 1024 and 1792 vectors), and the scalar route (d 99, not a
-    whole number of vectors; d 8196, more than 8 vectors a thread; or x
-    one element past a 16-byte boundary)."""
-    g = torch.Generator().manual_seed(N * d)
-    x = torch.randn(N * d + offset, generator=g)[offset:].view(N, d)
-    s = torch.randn(d, generator=g)
-    out, rstd = torch.empty(N, d), torch.empty(N)
-    err = host_libs[RN].rmsnorm_f32(x.data_ptr(), s.data_ptr(),
-                                    out.data_ptr(), rstd.data_ptr(), N, d,
-                                    1e-6, None)
-    assert err == 0
-    want, want_rstd = RN.rmsnorm_plain(x, s, with_rstd=True)
-    _close(out, want.numpy(), 1e-5)
-    _close(rstd, want_rstd.numpy(), 1e-5)
-    # without an rstd buffer the same output
-    again = torch.empty(N, d)
-    assert host_libs[RN].rmsnorm_f32(x.data_ptr(), s.data_ptr(),
-                                     again.data_ptr(), None, N, d, 1e-6,
-                                     None) == 0
-    assert torch.equal(again, out)
-
 
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", [
     (1, 2, 1, 80, 80, 32, True),      # ragged second query tile, GQA
@@ -594,35 +518,6 @@ def test_flash_attention_bwd_source_matches_plain_on_host(
 # forward's route, proven on the card, checks the emulation; the
 # backward's is held to the plain version at the card's tolerance.
 # --------------------------------------------------------------------------
-
-HOST_SM90 = HOST_CUDA / "sm90"
-
-
-@pytest.fixture(scope="module")
-def host_tc_libs(tmp_path_factory):
-    """flash_attention.cu and flash_attention_bwd.cu with their bf16
-    tensor-core entries, built for the host, one g++ each, at once."""
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is needed to run the CUDA sources on the host")
-    out = tmp_path_factory.mktemp("host_tc_kernels")
-    procs = {}
-    for mod in (FA, FB):
-        so = out / f"{mod.KERNEL.kind}.so"
-        procs[mod] = (so, subprocess.Popen(
-            ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             "-D__CUDACC__", f"-I{HOST_SM90}", f"-I{HOST_CUDA}", "-x", "c++",
-             "-o", str(so), str(mod.KERNEL.cu)],
-            stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for mod, (so, p) in procs.items():
-        _, err = p.communicate(timeout=300)
-        assert p.returncode == 0, err
-        lib = ctypes.CDLL(str(so))
-        for name, types in mod.KERNEL.argtypes.items():
-            if "_tc_" in name:
-                getattr(lib, name).argtypes = types
-        libs[mod] = lib
-    return libs
 
 
 def _bf16_qkv(g, B, H, Hkv, Sq, Sk, D):

@@ -59,7 +59,8 @@ def _rel(got, want) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,d", [(8192, 2048), (300, 2048), (5, 300),
-                                 (64, 7168), (33, 8192)])
+                                 (64, 7168), (33, 8192), (8192, 12288),
+                                 (8192, 16384), (600, 16384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, d, dtype):
     g = torch.Generator(cuda).manual_seed(N + d)
@@ -87,6 +88,10 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, d, dtype):
     (64, 8192, 0),       # four vectors a thread (bf16)
     (300, 2047, 0),      # odd d: the scalar route
     (300, 2048, 1),      # x, dy one element past 16 bytes: scalar route
+    (700, 12288, 0),     # command-r-plus's rows: 512 threads a CTA
+    (64, 16384, 0),      # llama3's rows: 512 threads, the row read again
+    (300, 12290, 0),     # wide and not whole vectors: the scalar route
+    (300, 16384, 1),     # wide, one element past 16 bytes: scalar route
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_bwd_routes_match_plain(cuda, N, d, offset, dtype):
