@@ -127,17 +127,20 @@ Seventeen paths of the port, each at full width:
     nothing cut (24 encoder and 24 decoder layers, d_model 1024, 16 heads
     of 64, d_ff 8192 with gelu, vocab 256,206: 1.63 B params, random
     weights from ``--seed``, granite's freed first). First the routes it
-    puts on the attention kernels, each on the tensor cores against its
-    plain version and timed beside ``scaled_dot_product_attention``: the
-    forward non-causal at (4, 16, 2048, 64), at 2048 queries against
-    1500 keys, at one query row against 2048 keys at 8 slots (and at
-    qwen2-vl's head dim 128 against 4096 keys, checked only), the
-    backward non-causal at 2048 queries against 1500 keys (do at unit
-    scale and at the train step's). Then, each counted: the encoder over
+    puts on the attention kernels, each against its plain version and
+    timed beside ``scaled_dot_product_attention``: the forward
+    non-causal on the tensor cores at (4, 16, 2048, 64) and at 2048
+    queries against 1500 keys, on the decode route at one query row
+    against 2048 keys at 8 slots and at qwen2-vl's head dim 128 and GQA
+    group of 8 against 4096 keys (two calls bit for bit, each also timed
+    beside the parent's route, the tensor cores, A/B), the backward
+    non-causal at 2048 queries against 1500 keys (do at unit scale and at
+    the train step's). Then, each counted: the encoder over
     8 x 2048 frames (49 RMSNorms, 24 non-causal attentions); ``prefill``
     of 4 x 2048 tokens, the decoder alone as the reference's (49, 24);
     ``decode_step`` at 8 slots against the encoder's output (73, and 24
-    cross-attentions of one query row; ms, idle share, kernels by name);
+    cross-attentions of one query row, every one on the decode route;
+    ms, idle share, kernels by name);
     64 teacher-forced decode steps against the decoder's full forward
     over the same tokens and encoder output (held layer by layer at
     XLSTM_LAYER_TOL if the chained logits miss, ROADMAP C15); 4 steps of
@@ -238,14 +241,26 @@ the backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``,
 the forward ones, and the combine's gather (``moe_combine``, one a MoE
 layer at prefill and decode) on its own. flash_attention, moe_dispatch,
 flash_attention_bwd and moe_dispatch_bwd also count by route
-(``launches_by_route``:
-tensor_cores or cuda_cores, on each path); every launch of theirs on the
-four prefill paths, the train paths and seamless's paths must take the
-tensor cores. flash_attention's and flash_attention_bwd's records hold
-the cross routes' rows under ``seamless``.
+(``launches_by_route``: tensor_cores, cuda_cores and, for the first
+two, decode, on each path); every launch of theirs on the four prefill
+paths, the train paths and seamless's encode and prefill must take the
+tensor cores, every flash_attention launch of seamless's decode step
+and every moe_dispatch launch of the MoE configs' serve paths the
+decode route. flash_attention's and flash_attention_bwd's records hold
+the cross routes' rows under ``seamless``. The two decode routes have
+records of their own, ``flash_attention/decode`` and
+``moe_dispatch/decode`` (``flash_attention_decode.cu``,
+``moe_decode.cu``): seamless's and olmoe's decode shapes, qwen2-vl's
+check shape and jamba's and kimi's under ``d128``, ``jamba``, ``kimi``,
+each with the parent's route timed in turns beside it (``ab_ms``,
+``ab_parent_ms``) and its launches on the decode route by path.
+The expert FF at decode (C = 1) is checked with the counts of a random
+routing and with every slot filled (counts of 1), both on the decode
+route, two calls bit for bit.
 nvcc's ``-Xptxas -v`` registers and spills of the tensor-core kernels
-(and of rmsnorm_bwd's bf16 vector route at every width, none of which
-may spill) are printed after the build. Each
+and the decode routes' (none of the paths' decode instantiations may
+spill), and of rmsnorm_bwd's bf16 vector route at every width (none of
+which may spill), are printed after the build. Each
 kernel is timed, and
 the script prints one JSON line of kernel records and a last line
 ``{"ok": true, "device": {...}}``.
@@ -913,9 +928,10 @@ DENSE_CUTS = {COHERE_ARCH: {"n_layers": 1}, LLAMA_ARCH: {"n_layers": 1}}
 HYBRID_CUT = {"n_layers": 4, "attn_every_k": 4}
 #: kimi-k2 on one card: every width, one period (one attention / MoE layer)
 KIMI_CUT = {"n_layers": 1}
-#: kimi-k2's expert FF is held against its plain version on this many of
-#: its 384 experts (all 384 in float32 would be 67.6 GB)
-KIMI_CHECK_EXPERTS = 32
+#: kimi-k2's expert FF runs whole, and its plain version this many of
+#: the 384 experts a call, in turn over all of them (all 384 in float32
+#: at once would be 67.6 GB)
+KIMI_PLAIN_EXPERTS = 32
 PREFILL_B, PREFILL_S = 4, 2048       # 8192 rows for each RMSNorm
 #: the engine's requests: 12 on 8 slots, so that 4 slots are reused (the
 #: engine is host-bound: 12 rather than 16 keep the whole script near 10
@@ -1008,8 +1024,78 @@ def _route_counts() -> dict:
     return {k: dict(m.LAUNCHES_BY_ROUTE) for k, m in ROUTED.items()}
 
 
+def _only(by_route: dict, way: str, n: int) -> bool:
+    """All n launches of a kernel's counts by route took ``way``."""
+    return by_route == {**dict.fromkeys(by_route, 0), way: n}
+
+
+#: the two decode routes' sources (their records on the kernels line)
+DECODE_SOURCES = {
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_attention_decode.cu",
+    "moe_dispatch":
+        "src/repro_torch/kernels/moe_dispatch/csrc/moe_decode.cu"}
+
+
+def _parent_fa(q, k, v):
+    """Attention at Sq = 1 as the parent ran it, for timing beside the
+    decode route: the tensor-core entry (v converted to fp16 by its
+    pre-pass, a 64-row tile for one row), launched as the wrapper
+    launched it, uncounted (a comparison, not the path)."""
+    B, H, Hkv, Sq, Sk, D = fa._shapes(q, k, v)
+    out = torch.empty(B, H, Sq, D, dtype=q.dtype, device=q.device)
+    vh = [t.data_ptr() for t in fa.v_scratch(B, Hkv, Sk, D, q.device)]
+    fa.KERNEL.call(fa.entry(q.dtype, D), q.get_device(), q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), *vh, out.data_ptr(), None, B,
+                   H, Hkv, Sq, Sk, *q.stride()[:3], *k.stride()[:3],
+                   *v.stride()[:3], 0, 1.0 / math.sqrt(D))
+    return out
+
+
+def _parent_moe(x, wi, wo, counts):
+    """The expert FF at C = 1 with counts as the parent ran it, for timing
+    beside the decode route: moe_ff_partial<bf16, 1> over f cut as
+    ``slicing(1, 1, f)``, then moe_ff_sum, uncounted (a comparison)."""
+    E, C, d, f = md._shapes(x, wi, wo)
+    n, fs = md.slicing(1, C, f)
+    ws = torch.empty(n, E, C, d, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    md.KERNEL.call("moe_ff_bf16", x.get_device(), x.data_ptr(),
+                   wi.data_ptr(), wo.data_ptr(), counts.data_ptr(),
+                   ws.data_ptr(), out.data_ptr(), E, C, d, f, fs, n)
+    return out
+
+
+def _ab(new, parent, lib, reps, batch=10) -> dict:
+    """The decode route, the parent's and the library call in turns:
+    parent, change, library, library, change, parent (CUDA events,
+    ``_median_ms`` each), so that all three meet the same state of the
+    host (a profiler trace run before leaves each host-bound launch
+    slower)."""
+    p1, n1, l1, l2, n2, p2 = (_median_ms(fn, reps, batch) for fn in (
+        parent, new, lib, lib, new, parent))
+    return {"ab_ms": [n1, n2], "ab_parent_ms": [p1, p2],
+            "ab_library_ms": [l1, l2]}
+
+
+def _ab_line(name, r) -> str:
+    """The A/B of ``_ab``, the parent's and the library's device ms, as a
+    line."""
+    def ms(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+    return (f"time {name} A/B parent, change, library, library, change, "
+            "parent: " + ", ".join(f"{x:.4f}" for x in (
+                r["ab_parent_ms"][0], r["ab_ms"][0], r["ab_library_ms"][0],
+                r["ab_library_ms"][1], r["ab_ms"][1], r["ab_parent_ms"][1]))
+            + f" ms; device: the change {ms(r['device_ms'])}, the parent "
+            f"{ms(r['parent_device_ms'])}, the library "
+            f"{ms(r['library_device_ms'])}")
+
+
 #: the kernels whose registers and spills the build log is read for: the
-#: tensor-core kernels, decode's expert FF (bf16, one row a CTA) and the
+#: tensor-core kernels, the decode routes' (bf16) and the parent's expert
+#: FF at decode (bf16, one row a CTA) and the
 #: rmsnorm backward's vector route at one vector a thread (four CTAs an
 #: SM need at most 64 registers)
 PTXAS_NAMES = ((r"fa_tc_kernelILi(\d+)E", "fa_tc_kernel<{}>"),
@@ -1017,6 +1103,10 @@ PTXAS_NAMES = ((r"fa_tc_kernelILi(\d+)E", "fa_tc_kernel<{}>"),
                (r"moe_down_scaledE", "moe_down_scaled"),
                (r"moe_ff_partialI13__nv_bfloat16Li1E",
                 "moe_ff_partial<bf16, 1>"),
+               (r"fa_decode_kernelI13__nv_bfloat16Li(\d+)ELi(\d+)E",
+                "fa_decode_kernel<bf16, {}, {}>"),
+               (r"moe_decode_kernelILi(\d)E", "moe_decode_kernel<{}>"),
+               (r"moe_decode_sumE", "moe_decode_sum"),
                (r"fa_bwd_dkdv_tcILi(\d+)E", "fa_bwd_dkdv_tc<{}>"),
                (r"fa_bwd_dq_tcILi(\d+)E", "fa_bwd_dq_tc<{}>"),
                (r"rmsnorm_bwd_vecI13__nv_bfloat16Li(\d+)ELi(\d+)ELb(\d)E",
@@ -1159,23 +1249,45 @@ def _max_hidden(x, wi, counts=None) -> float:
     return worst
 
 
-def _moe_checks(g, dev, cfg, wi, wo, errs, experts=None):
-    """The expert FF against its plain version at the path's capacities
-    (x drawn as the unit-RMS output of an RMSNorm), with every slot filled
-    and with the counts of a random routing (x's rows past them not
-    zero); on the first ``experts`` experts only, where given, at full d
-    and f. Prints the largest |h| beside fp16's 65504."""
+def _plain_blocks(x, wi, wo, counts, step):
+    """The plain expert FF over ``step`` experts a call, in turn over all
+    of them, joined."""
+    return torch.cat([md.grouped_expert_ff_plain(
+        x[a:a + step], wi[a:a + step], wo[a:a + step],
+        None if counts is None else counts[a:a + step])
+        for a in range(0, x.shape[0], step)])
+
+
+def _moe_checks(g, dev, cfg, wi, wo, errs, plain_experts=None):
+    """The expert FF over all the layer's experts against its plain
+    version at the path's capacities (x drawn as the unit-RMS output of
+    an RMSNorm), with every slot filled and with the counts of a random
+    routing (x's rows past them not zero); the plain version
+    ``plain_experts`` experts a call, where given. Prefill takes the
+    tensor cores; decode (C = 1) the decode route, its every slot as
+    counts of 1 (decode's dispatch always passes counts), two calls bit
+    for bit. Prints the largest |h| beside fp16's 65504."""
     rtol, atol = MOE_TOL
-    E = cfg.moe_experts if experts is None else experts
-    wi, wo = wi[:E], wo[:E]
+    E = cfg.moe_experts
+    step = E if plain_experts is None else plain_experts
     for name, C in _moe_shapes(cfg).items():
         T = PREFILL_B * PREFILL_S if name == "prefill" else SERVE_SLOTS
-        counts = _sim_counts(g, dev, cfg, T, C)[:E].contiguous()
+        counts = _sim_counts(g, dev, cfg, T, C)
         x = torch.randn(E, C, cfg.d_model, generator=g,
                         device=dev).bfloat16()
-        for label, cn in (("every slot", None), ("counts", counts)):
-            want = md.grouped_expert_ff_plain(x, wi, wo, cn)
+        every = (None if name == "prefill" else
+                 torch.full((E,), C, dtype=torch.int32, device=dev))
+        for label, cn in (("every slot", every), ("counts", counts)):
+            want = _plain_blocks(x, wi, wo, cn, step)
+            way = md.route(x.dtype, C, cfg.d_model, cfg.moe_d_ff,
+                           0 if cn is None else E)
+            if way != ("tensor_cores" if name == "prefill" else "decode"):
+                raise AssertionError(f"moe_dispatch {name}: route {way}")
+            n0 = md.LAUNCHES_BY_ROUTE[way]
             got = md.grouped_expert_ff(x, wi, wo, cn)
+            if md.LAUNCHES_BY_ROUTE[way] != n0 + 1:
+                raise AssertionError(f"moe_dispatch {name}: {way} not "
+                                     "launched")
             e = _compare(f"moe_dispatch({C}, {label})", {"y": got},
                          {"y": want}, rtol, atol)
             errs[("moe_dispatch", name, torch.bfloat16)] = max(
@@ -1183,12 +1295,20 @@ def _moe_checks(g, dev, cfg, wi, wo, errs, experts=None):
             filled = ("" if cn is None else
                       f", {int((cn > 0).sum())} experts filled, "
                       f"{int(cn.sum())} rows")
+            same = ""
+            if way == "decode":
+                if not torch.equal(md.grouped_expert_ff(x, wi, wo, cn),
+                                   got):
+                    raise AssertionError(f"moe_dispatch {name} {label}: "
+                                         "two calls differ")
+                same = (f"; {md.decode_slicing(E, cfg.d_model, cfg.moe_d_ff)}"
+                        " (slices, width); two calls bit for bit equal")
             print(f"check moe_dispatch ({E}, {C}, {cfg.d_model}) f "
-                  f"{cfg.moe_d_ff} bf16 {label}{filled} vs plain max abs "
-                  f"err {e:.3g} (rtol {rtol}, atol {atol}; median |y| "
-                  f"{float(want.float().abs().median()):.3g})"
-                  + ("" if experts is None else
-                     f"; on {E} of {cfg.moe_experts} experts"))
+                  f"{cfg.moe_d_ff} bf16 {label}{filled} ({way}) vs plain "
+                  f"max abs err {e:.3g} (rtol {rtol}, atol {atol}; median "
+                  f"|y| {float(want.float().abs().median()):.3g})"
+                  + ("" if step == E else
+                     f"; the plain version {step} experts a call") + same)
             del want, got
         print(f"moe_dispatch ({E}, {C}, {cfg.d_model}) largest |h| "
               f"{_max_hidden(x, wi):.4g} (fp16 holds up to 65504)")
@@ -1406,10 +1526,30 @@ def _moe_rows(dev, cfg, wi, wo, reps, errs, launches, prefill_batch=10,
             "experts_filled": n_live,
             "max_abs_err": errs[("moe_dispatch", name, torch.bfloat16)]}
         if counts is not None:
-            rows[name]["ms_every_slot"] = _median_ms(
+            r = rows[name]
+            r["route"] = md.route(x.dtype, C, d, f, E)
+            r.update(_ab(lambda: md.grouped_expert_ff(x, wi, wo, counts),
+                         lambda: _parent_moe(x, wi, wo, counts),
+                         lambda: _library_moe(x, wi, wo), reps, batch))
+            r["parent_device_ms"] = _device_ms(
+                lambda: _parent_moe(x, wi, wo, counts), 2 * batch)[0]
+            r["library_device_ms"] = _device_ms(
+                lambda: _library_moe(x, wi, wo), 2 * batch)[0]
+            print(_ab_line(f"moe_dispatch ({E}, {C}, {d}) decode", r))
+            full = torch.full((E,), C, dtype=torch.int32, device=dev)
+            r["ms_every_slot_decode"] = _median_ms(
+                lambda: md.grouped_expert_ff(x, wi, wo, full), reps, batch)
+            every_bound = 2 * (E * 3 * d * f + 2 * E * C * d) \
+                / HBM_BYTES_PER_S * 1e3
+            r["bound_ms_every_slot"] = every_bound
+            r["ms_every_slot"] = _median_ms(
                 lambda: md.grouped_expert_ff(x, wi, wo), reps, batch)
-            print(f"time moe_dispatch ({E}, {C}, {d}) every expert read "
-                  f"(no counts): {rows[name]['ms_every_slot']:.4f} ms")
+            print(f"time moe_dispatch ({E}, {C}, {d}) every expert read: "
+                  f"decode route (counts of 1) "
+                  f"{r['ms_every_slot_decode']:.4f} ms, bound "
+                  f"{every_bound:.4f} ms, share "
+                  f"{every_bound / r['ms_every_slot_decode']:.3f}; the CUDA "
+                  f"cores without counts {r['ms_every_slot']:.4f} ms")
         else:   # as training runs it: the pre-activation kept too
             gu = torch.empty(E, C, 2 * f, dtype=torch.bfloat16, device=dev)
             rows[name]["ms_with_gu"] = _median_ms(
@@ -1622,7 +1762,7 @@ def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
     per_prefill = _counts()
     routes = _route_counts()
     for name, by_route in routes.items():
-        if by_route != {"tensor_cores": per_prefill[name], "cuda_cores": 0}:
+        if not _only(by_route, "tensor_cores", per_prefill[name]):
             raise AssertionError(f"{arch} prefill: {name} launched "
                                  f"{by_route} by route; every launch must "
                                  "take the tensor cores")
@@ -1657,6 +1797,12 @@ def serve_path(dev, cfg, model, params, seed, prefill_reps=3,
     _, serve_s = _sync_s(eng.run_until_drained)
     per_serve = _counts()
     ROUTE_COUNTS[f"{arch}/serve"] = _route_counts()
+    if moe_layers and not _only(ROUTE_COUNTS[f"{arch}/serve"]["moe_dispatch"],
+                                "decode", per_serve["moe_dispatch"]):
+        raise AssertionError(f"{arch} serve: moe_dispatch launched "
+                             f"{ROUTE_COUNTS[f'{arch}/serve']['moe_dispatch']}"
+                             " by route; every decode step's must take the "
+                             "decode route")
     bad = [(r.rid, r.error, len(r.out)) for r in reqs
            if not r.done or r.error or len(r.out) != SERVE_NEW]
     if (bad or per_serve["rmsnorm"] < 1 or per_serve["simt_exec"]
@@ -2030,9 +2176,8 @@ def _smoke_card_vs_cpu(dev, sm, seed, rng) -> None:
 def kimi_phase(dev, seed: int, reps: int):
     """The MoE LM serving path on kimi-k2-1t-a32b at full width, cut to
     one layer (its period): 19.4 B params, 38.8 GB in bf16. Checked and
-    timed; the expert FF is held against its plain version on
-    KIMI_CHECK_EXPERTS of its experts at full d and f, and timed at the
-    full shape. Returns its kernels' records and its counts by path."""
+    timed; the expert FF runs at its full shape, held against its plain
+    version KIMI_PLAIN_EXPERTS experts a call, and is timed there. Returns its kernels' records and its counts by path."""
     full = get_config(KIMI_ARCH)
     cfg = dataclasses.replace(full, **KIMI_CUT)
     print(f"{KIMI_ARCH} cut for one card: " + ", ".join(
@@ -2043,7 +2188,7 @@ def kimi_phase(dev, seed: int, reps: int):
     errs = lm_kernel_checks(dev, cfg, seed)
     _moe_checks(torch.Generator(dev).manual_seed(seed), dev, cfg,
                 layer0["wi"], layer0["wo"], errs,
-                experts=KIMI_CHECK_EXPERTS)
+                plain_experts=KIMI_PLAIN_EXPERTS)
     toks, eng, rng, by_path, step = serve_path(dev, cfg, model, params,
                                                seed)
     _print_drops(cfg, model, params, toks, step)
@@ -2054,7 +2199,7 @@ def kimi_phase(dev, seed: int, reps: int):
     records["moe_dispatch"] = _moe_rows(
         dev, cfg, layer0["wi"], layer0["wo"], min(reps, 5), errs,
         f"{_count(cfg, ff='moe')} a prefill or decode step",
-        prefill_batch=3, plain_experts=KIMI_CHECK_EXPERTS)
+        prefill_batch=3, plain_experts=KIMI_PLAIN_EXPERTS)
     del params, layer0
     torch.cuda.empty_cache()
 
@@ -2623,7 +2768,7 @@ def train_phase(dev, seed: int, reps: int, arch: str = LM_ARCH,
     if counts != want:
         raise AssertionError(f"train launched {counts}; expected {want}")
     for name, by_route in ROUTE_COUNTS[f"{cfg.name}/train"].items():
-        if by_route != {"tensor_cores": counts[name], "cuda_cores": 0}:
+        if not _only(by_route, "tensor_cores", counts[name]):
             raise AssertionError(f"train: {name} launched {by_route} by "
                                  "route; every launch must take the "
                                  "tensor cores")
@@ -3013,7 +3158,7 @@ def moe_train_phase(dev, seed: int, reps: int):
     if counts != want:
         raise AssertionError(f"{label} launched {counts}; expected {want}")
     for name, by_route in ROUTE_COUNTS[label].items():
-        if by_route != {"tensor_cores": counts[name], "cuda_cores": 0}:
+        if not _only(by_route, "tensor_cores", counts[name]):
             raise AssertionError(f"{label}: {name} launched {by_route} by "
                                  "route; every launch must take the tensor "
                                  "cores")
@@ -3279,19 +3424,25 @@ def _sdpa(q, k, v, causal=False):
 
 
 def cross_kernel_checks(dev, seed, reps, launches) -> tuple:
-    """The encoder-decoder's attention routes on the tensor cores against
-    their plain versions at FA_TOL (the lse at 1e-5) and BWD_TOL, each
-    (but D 128's) timed beside SDPA: returns the forward rows by route
-    and the backward's row, with their max abs errors."""
+    """The encoder-decoder's attention routes against their plain
+    versions at FA_TOL (the lse at 1e-5) and BWD_TOL: Sq > 1 on the
+    tensor cores, Sq = 1 on the decode route (two calls bit for bit),
+    each timed beside SDPA, the decode shapes also beside the parent's
+    route (``_parent_fa``, A/B): returns the forward rows by shape and
+    the backward's row, with their max abs errors."""
     g = torch.Generator(dev).manual_seed(seed + 22)
     rtol, atol = FA_TOL[torch.bfloat16]
     fwd = {}
     for name, (B, H, Hkv, Sq, Sk, D) in CROSS_FWD.items():
         q, k, v = _cross_qkv(g, dev, B, H, Hkv, Sq, Sk, D)
-        way = fa.route(torch.bfloat16, D, fa._rows_aligned(q, k, v))
-        if way != "tensor_cores":
+        way = fa.route(torch.bfloat16, D, fa._rows_aligned(q, k, v), Sq)
+        if way != ("decode" if Sq == 1 else "tensor_cores"):
             raise AssertionError(f"flash_attention {name}: route {way}")
+        n0 = fa.LAUNCHES_BY_ROUTE[way]
         got, lse = fa.flash_attention(q, k, v, causal=False, with_lse=True)
+        if fa.LAUNCHES_BY_ROUTE[way] != n0 + 1:
+            raise AssertionError(f"flash_attention {name}: {way} not "
+                                 "launched")
         want, want_lse = fa.flash_attention_plain(q, k, v, causal=False,
                                                   with_lse=True)
         e = _compare(f"flash_attention {name}", {"o": got}, {"o": want},
@@ -3299,22 +3450,40 @@ def cross_kernel_checks(dev, seed, reps, launches) -> tuple:
         e_lse = _rel(lse, want_lse)
         if e_lse > 1e-5:
             raise AssertionError(f"flash_attention {name}: lse {e_lse}")
+        same = ""
+        if way == "decode":
+            again = fa.flash_attention(q, k, v, causal=False)
+            if not torch.equal(again, got):
+                raise AssertionError(f"flash_attention {name}: two calls "
+                                     "differ")
+            slots = fa.decode_slots(q.get_device(), q.dtype, D, H // Hkv)
+            same = (f"; {fa.decode_splits(B, Hkv, H // Hkv, Sk, slots)} "
+                    f"(splits, keys a split; {slots} CTAs at once); two "
+                    "calls bit for bit equal")
         print(f"check flash_attention {name} ({B}, {H}, {Sq}, {D}) against "
               f"{Sk} keys, kv heads {Hkv}, non-causal bf16 ({way}) vs plain "
               f"max abs err {e:.3g} (rtol {rtol}, atol {atol}; median |o| "
               f"{float(want.float().abs().median()):.3g}); lse relative "
-              f"error {e_lse:.3g}")
-        if name != "cross_decode_d128":
-            nbytes = 2 * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D)
-            row = _kernel_row(
-                "flash_attention", f"({B}, {H}, {Sq}, {D}) x {Sk} keys "
-                "non-causal bf16",
+              f"error {e_lse:.3g}{same}")
+        nbytes = 2 * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D)
+        row = _kernel_row(
+            "flash_attention", f"({B}, {H}, {Sq}, {D}) x {Sk} keys "
+            f"kv {Hkv} non-causal bf16 ({way})",
+            lambda: fa.flash_attention(q, k, v, causal=False),
+            lambda: fa.flash_attention_plain(q, k, v, causal=False),
+            lambda: _sdpa(q, k, v), nbytes, 4 * B * H * D * Sq * Sk,
+            BF16_OPS_PER_S, reps, launches.get(name, "not on a path"))
+        fwd[name] = {**row, "max_abs_err": e, "route": way,
+                     "shape": [B, H, Hkv, Sq, Sk, D]}
+        if way == "decode":   # the parent's route and SDPA beside it
+            fwd[name].update(_ab(
                 lambda: fa.flash_attention(q, k, v, causal=False),
-                lambda: fa.flash_attention_plain(q, k, v, causal=False),
-                lambda: _sdpa(q, k, v), nbytes, 4 * B * H * D * Sq * Sk,
-                BF16_OPS_PER_S, reps, launches[name])
-            fwd[name] = {**row, "max_abs_err": e, "shape": [B, H, Hkv, Sq,
-                                                            Sk, D]}
+                lambda: _parent_fa(q, k, v), lambda: _sdpa(q, k, v), reps))
+            fwd[name]["parent_device_ms"] = _device_ms(
+                lambda: _parent_fa(q, k, v))[0]
+            fwd[name]["library_device_ms"] = _device_ms(
+                lambda: _sdpa(q, k, v))[0]
+            print(_ab_line(f"flash_attention {name}", fwd[name]))
         del q, k, v, got, want, lse, want_lse
     B, H, Hkv, Sq, Sk, D = CROSS_BWD
     q, k, v = _cross_qkv(g, dev, B, H, Hkv, Sq, Sk, D)
@@ -3353,11 +3522,12 @@ def cross_kernel_checks(dev, seed, reps, launches) -> tuple:
     return fwd, bwd
 
 
-def _counted(fn, label, want):
+def _counted(fn, label, want, way=None):
     """``fn()`` with the counts set to 0 just before and read just after:
     every kernel of ``want`` launched exactly that often, none other, and
-    every flash_attention and flash_attention_bwd launch on the tensor
-    cores; returns (its result, its wall s, the counts)."""
+    every launch of the routed kernels on the tensor cores, or on the
+    route ``way`` names for a kernel; returns (its result, its wall s,
+    the counts)."""
     _zero_counts()
     out, secs = _sync_s(fn)
     counts = _counts()
@@ -3366,10 +3536,10 @@ def _counted(fn, label, want):
     if counts != full:
         raise AssertionError(f"{label} launched {counts}; expected {full}")
     for name, by_route in routes.items():
-        if by_route != {"tensor_cores": counts[name], "cuda_cores": 0}:
+        w = (way or {}).get(name, "tensor_cores")
+        if not _only(by_route, w, counts[name]):
             raise AssertionError(f"{label}: {name} launched {by_route} by "
-                                 "route; every launch must take the tensor "
-                                 "cores")
+                                 f"route; every launch must take {w}")
     print(f"{label}: launches {counts}, by route {routes}; {secs:.3f} s")
     return out, secs, counts
 
@@ -3462,7 +3632,8 @@ def encdec_phase(dev, seed: int, reps: int):
         return model.decode_step(params, cache, step_toks, step_pos, enc)
 
     (logits, _), _, by_path[f"{arch}/decode"] = _counted(
-        step, f"{arch}/decode", {"rmsnorm": 3 * L + 1, "flash_attention": L})
+        step, f"{arch}/decode", {"rmsnorm": 3 * L + 1, "flash_attention": L},
+        {"flash_attention": "decode"})
     if logits.shape != (SERVE_SLOTS, 1, cfg.padded_vocab) or \
             not torch.isfinite(logits).all():
         raise AssertionError(f"decode logits {tuple(logits.shape)}")
@@ -4188,12 +4359,12 @@ def _dist_path(label, results, want) -> tuple:
     by route)."""
     counts = {k: sum(r["counts"][k] for r in results) for k in KERNELS}
     routes = {k: {w: sum(r["routes"][k][w] for r in results)
-                  for w in ("tensor_cores", "cuda_cores")} for k in ROUTED}
+                  for w in results[0]["routes"][k]} for k in ROUTED}
     full = {k: want.get(k, 0) for k in KERNELS}
     if counts != full:
         raise AssertionError(f"{label} launched {counts}; expected {full}")
     for name in ("flash_attention", "flash_attention_bwd"):
-        if routes[name] != {"tensor_cores": counts[name], "cuda_cores": 0}:
+        if not _only(routes[name], "tensor_cores", counts[name]):
             raise AssertionError(f"{label}: {name} launched {routes[name]} "
                                  "by route; every launch must take the "
                                  "tensor cores")
@@ -4329,8 +4500,8 @@ def distributed_phase(seed: int) -> tuple:
     # the sharded decode
     label = f"{LM_ARCH}/tp_decode"
     by_path[label] = dict.fromkeys(KERNELS, 0)
-    ROUTE_COUNTS[label] = {k: {"tensor_cores": 0, "cuda_cores": 0}
-                           for k in ROUTED}
+    ROUTE_COUNTS[label] = {k: dict.fromkeys(m.LAUNCHES_BY_ROUTE, 0)
+                           for k, m in ROUTED.items()}
     for shape in DEC_MESHES:
         rs = res[("tp_decode", (shape,))]
         n = shape[0] * shape[1]
@@ -4583,9 +4754,11 @@ def main() -> int:
             a, b = ALIASED[name]
             alias_srcs[name] = sx.kernel_source(ck.fn, params,
                                                 {**cpu, a: cpu[b]})
-    with ThreadPoolExecutor(9) as pool:
-        lm_built = {m.KERNEL.kind: pool.submit(m.KERNEL.build)
-                    for m in (rn, fa, md, ss, rb, fb, mc, mb, sb)}
+    with ThreadPoolExecutor(11) as pool:
+        lm_built = {k.kind: pool.submit(k.build)
+                    for k in (*(m.KERNEL for m in (rn, fa, md, ss, rb, fb,
+                                                   mc, mb, sb)),
+                              fa.DECODE_KERNEL, md.DECODE_KERNEL)}
         built = sx.build_many(list(srcs.values())
                               + list(alias_srcs.values()))
         for kind, fut in lm_built.items():
@@ -4594,9 +4767,20 @@ def main() -> int:
     for name, (so, secs) in zip(srcs, built):
         print(f"build {name:13s} {so.name[:12]} nvcc {secs:.1f} s")
     print(f"build total {time.perf_counter() - t0:.1f} s")
-    for m in (*ROUTED.values(), rb, sb):
-        for line in _ptxas_lines(m.KERNEL):
+    for k in (*(m.KERNEL for m in (*ROUTED.values(), rb, sb)),
+              fa.DECODE_KERNEL, md.DECODE_KERNEL):
+        for line in _ptxas_lines(k):
             print(f"ptxas {line}")
+    # the decode routes' instantiations that the paths run: none may spill
+    dec = [ln for k in (fa.DECODE_KERNEL, md.DECODE_KERNEL)
+           for ln in _ptxas_lines(k)
+           if ln.startswith(("fa_decode_kernel<bf16, 64, 1>",
+                             "fa_decode_kernel<bf16, 128, 8>",
+                             "moe_decode_kernel<1>", "moe_decode_kernel<4>"))]
+    if len(dec) != 4 or any("0 bytes spill stores, 0 bytes spill loads"
+                            not in ln for ln in dec):
+        raise AssertionError(f"decode routes: the paths' instantiations "
+                             f"spilled or are missing: {dec}")
     # rmsnorm_bwd's bf16 vector route at every config's d_model (1,024
     # to 16,384): none of those instantiations may spill
     want = {_rms_bwd_vec(get_config(a).d_model) for a in ARCHS}
@@ -4842,6 +5026,25 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(per_path.values()),
                         "launches_by_path": per_path, **by_route, **r})
+    # the decode routes, each a record of its own: seamless's and olmoe's
+    # decode shapes, the others' rows beside them
+    fa_r, md_r = lm_records["flash_attention"], lm_records["moe_dispatch"]
+    for name, row, more in (
+            ("flash_attention", fa_r["seamless"]["cross_decode"],
+             {"d128": fa_r["seamless"]["cross_decode_d128"]}),
+            ("moe_dispatch", md_r["decode"],
+             {"jamba": md_r["jamba"]["decode"],
+              "kimi": md_r["kimi"]["decode"]})):
+        per_path = {p: n[name]["decode"] for p, n in ROUTE_COUNTS.items()
+                    if n[name].get("decode")}
+        if not per_path:
+            raise AssertionError(f"{name}: the decode route was launched on "
+                                 "no path")
+        records.append({**row, **more, "name": f"{name}/decode",
+                        "route": "cuda", "source": DECODE_SOURCES[name],
+                        "replaces": LM_SOURCES[name][1],
+                        "launches": sum(per_path.values()),
+                        "launches_by_path": per_path})
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -29,11 +29,26 @@ default):
     same keeping the states for the backward;
   * ``scan_bwd``: the scan's backward there from the forward's states,
     with the last state's gradient, first held against its plain
-    version; bound 16 bytes an element.
+    version; bound 16 bytes an element;
+  * ``fa_decode``: flash_attention at one query row, bf16, non-causal,
+    at seamless-m4t's cross-attention at decode (8, 16, 1 x 2048, 64)
+    and qwen2-vl's check shape (8, 64 on 8 KV heads, 1 x 4096, 128):
+    the checkout's route at Sq = 1 (the decode route, or the tensor
+    cores before it); bound the bytes of q, k, v and o;
+  * ``expert_decode``: the expert FF at C = 1 with the counts of a
+    random routing of the engine's 8 tokens, at olmoe-1b-7b's,
+    jamba's and kimi-k2's widths (one layer's experts); bound the live
+    experts' weights;
+  * ``decode_step``: ``LM.decode_step`` at 8 slots (cache 512, position
+    100), olmoe-1b-7b at full width and depth and seamless-m4t-large-v2
+    against its encoder's output over 8 x 2048 frames (random weights
+    from ``--seed``): the median of 10 host-clock steps ending in a
+    sync, and the device's busy ms in one step's trace.
 
-``fa``, ``expert_fwd`` and ``scan_fwd`` call only entry points that
-checkouts from before the kept gu and states had too, so they time such
-a parent as well; the other groups need the kept gu or states.
+``fa``, ``expert_fwd``, ``scan_fwd`` and the decode groups call only
+entry points that checkouts from before the kept gu and states had too,
+so they time such a parent as well; the other groups need the kept gu
+or states.
 
     python3 scripts/tc_rows.py --root <checkout> [--rows a,b] [--seed N]
         [--reps N]
@@ -49,7 +64,8 @@ import sys
 from pathlib import Path
 
 GROUPS = ("fa", "expert_fwd", "expert_fwd_gu", "expert_bwd", "scan_fwd",
-          "scan_fwd_states", "scan_bwd")
+          "scan_fwd_states", "scan_bwd", "fa_decode", "expert_decode",
+          "decode_step")
 
 
 def main() -> int:
@@ -66,6 +82,7 @@ def main() -> int:
     spec = importlib.util.spec_from_file_location("checkout_chip_smoke",
                                                   root / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = cs   # its dataclasses look their module up
     spec.loader.exec_module(cs)
     torch = cs.torch
     if not torch.cuda.is_available():
@@ -77,11 +94,16 @@ def main() -> int:
     print(card)
     mods = {"fa": [cs.fa], "expert_fwd": [cs.md], "expert_fwd_gu": [cs.md],
             "expert_bwd": [cs.md, cs.mb], "scan_fwd": [cs.ss],
-            "scan_fwd_states": [cs.ss], "scan_bwd": [cs.ss, cs.sb]}
-    for m in dict.fromkeys(m for w in want for m in mods[w]):
-        so, secs = m.KERNEL.build()
-        print(f"build {m.KERNEL.kind} {so.name[:12]} nvcc {secs:.1f} s")
-        for line in cs._ptxas_lines(m.KERNEL):
+            "scan_fwd_states": [cs.ss], "scan_bwd": [cs.ss, cs.sb],
+            "fa_decode": [cs.fa], "expert_decode": [cs.md],
+            "decode_step": [cs.rn, cs.fa, cs.md, cs.mc]}
+    # each module's kernels: the decode routes' where the checkout has them
+    kernels = [k for m in dict.fromkeys(m for w in want for m in mods[w])
+               for k in (m.KERNEL, getattr(m, "DECODE_KERNEL", None)) if k]
+    for k in kernels:
+        so, secs = k.build()
+        print(f"build {k.kind} {so.name[:12]} nvcc {secs:.1f} s")
+        for line in cs._ptxas_lines(k):
             print(f"ptxas {line}")
     g = torch.Generator(dev).manual_seed(args.seed)
     B, S = cs.PREFILL_B, cs.PREFILL_S
@@ -167,6 +189,74 @@ def main() -> int:
             del x, dy, gu
         del wi, wo
         torch.cuda.empty_cache()
+    if "fa_decode" in want:
+        for name in ("cross_decode", "cross_decode_d128"):
+            B, H, Hkv, Sq, Sk, D = cs.CROSS_FWD[name]
+            q, k, v = cs._cross_qkv(g, dev, B, H, Hkv, Sq, Sk, D)
+            err = rel_err([cs.fa.flash_attention(q, k, v, causal=False)],
+                          [cs.fa.flash_attention_plain(q, k, v,
+                                                       causal=False)])
+            row("flash_attention", name, [B, H, Hkv, Sq, Sk, D],
+                lambda: cs.fa.flash_attention(q, k, v, causal=False), 10,
+                4 * B * H * D * Sk, 2 * (2 * B * H * D + 2 * B * Hkv * Sk
+                                         * D), cs.BF16_OPS_PER_S, err)
+            del q, k, v
+    if "expert_decode" in want:
+        for arch in (cs.MOE_ARCH, cs.HYBRID_ARCH, cs.KIMI_ARCH):
+            cfg = cs.get_config(arch)
+            E, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+            wi, wo = cs._expert_weights(g, dev, E, d, f)
+            counts = cs._sim_counts(g, dev, cfg, cs.SERVE_SLOTS, 1)
+            x = torch.randn(E, 1, d, generator=g, device=dev, dtype=bf16)
+            live = int((counts > 0).sum())
+            k = min(E, 32)      # the plain version k experts a call
+            got = cs.md.grouped_expert_ff(x, wi, wo, counts)
+            err = rel_err(
+                [got[a:a + k] for a in range(0, E, k)],
+                [cs.md.grouped_expert_ff_plain(
+                    x[a:a + k], wi[a:a + k], wo[a:a + k],
+                    counts[a:a + k].contiguous()) for a in range(0, E, k)])
+            row("moe_dispatch", arch, f"({E}, 1, {d}) f {f}, {live} "
+                "experts live", lambda: cs.md.grouped_expert_ff(
+                    x, wi, wo, counts), 10 if E * f * d < 2**31 else 3,
+                6 * live * d * f, 2 * (live * 3 * d * f + live * d + E * d),
+                cs.BF16_OPS_PER_S, err)
+            del wi, wo, x
+            torch.cuda.empty_cache()
+    if "decode_step" in want:
+        for arch in (cs.MOE_ARCH, cs.ENCDEC_ARCH):
+            cfg = cs.get_config(arch)
+            model, params = cs._init(dev, cfg, args.seed)
+            enc = None
+            if cfg.enc_dec:
+                frames = torch.randn(cs.ENC_B, cs.ENC_S, cfg.d_model,
+                                     generator=g, device=dev).bfloat16()
+                with torch.no_grad():
+                    enc = model._encode(params, frames)
+            cache = model.init_cache(cs.SERVE_SLOTS, cs.SERVE_MAX_SEQ,
+                                     device=dev)
+            toks = torch.randint(0, cfg.vocab, (cs.SERVE_SLOTS, 1),
+                                 generator=g, device=dev)
+            pos = torch.full((cs.SERVE_SLOTS,), 100, device=dev)
+
+            def step():
+                with torch.no_grad():
+                    return model.decode_step(params, cache, toks, pos, enc)
+
+            for _ in range(3):
+                cs._sync_s(step)
+            ms = sorted(cs._sync_s(step)[1] * 1e3 for _ in range(10))
+            busy, _, _ = cs._device_ms(step, 3)
+            rows.append({"kernel": "decode_step", "arch": arch,
+                         "shape": [cs.SERVE_SLOTS, cs.SERVE_MAX_SEQ],
+                         "ms": (ms[4] + ms[5]) / 2, "ms_all": ms,
+                         "device_ms": busy})
+            print(f"decode_step {arch} {cs.SERVE_SLOTS} slots: median "
+                  f"{(ms[4] + ms[5]) / 2:.2f} ms (min {ms[0]:.2f}, max "
+                  f"{ms[-1]:.2f}), device busy "
+                  + ("not measured" if busy is None else f"{busy:.2f} ms"))
+            del model, params, cache, enc
+            torch.cuda.empty_cache()
     if not {"scan_fwd", "scan_fwd_states", "scan_bwd"} & set(want):
         print(json.dumps({"root": str(root), "card": card, "rows": rows}))
         return 0

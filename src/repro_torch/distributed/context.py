@@ -18,8 +18,18 @@ each block, side by side, so that the rank's columns of every block
 match (Megatron's layout of a SwiGLU's column-parallel product). The
 gated FF's ``wi`` [gate | up] and mamba's ``in_proj`` [x | z] have 2
 blocks, the sLSTM's ``wx``, ``wh`` and ``b`` [i | f | z | o] have 4.
-Where a dim divides its axes but not its blocks' parts (4·d dividing
-the model axis where d does not), ``shard`` raises.
+
+Uneven leaves, stored as far as the reference's plan can be (ROADMAP
+C19: an sLSTM whose 4·d splits over the model axis where d does not).
+A ``blocks`` leaf whose dim splits over its axes but whose blocks' parts
+do not is cut as one dim, the rank taking a contiguous range of it, as
+the reference's GSPMD cuts it (``block_split`` says which; ``gather``
+and ``unshard`` join such a shard the same way). Beside such a leaf, a
+dim on the same axes that does not split over them at all (the sLSTM's
+``wo`` rows there) is kept whole: the context's ``specs`` replicate it
+(``fit_specs``), so ``sum_replicas`` sums its gradient's copies. Any
+other dim that does not split is refused by ``shard``. ``param_specs``
+itself, the plan held against the reference's, is not changed.
 
 Design limits, as the reference's rules set them: a dim is sharded on
 the model axis only where ``dynamic_rules`` shards it; activations are
@@ -74,8 +84,8 @@ class ShardCtx:
 
     def __post_init__(self):
         if self.specs is None:
-            self.specs = param_specs(self.bp, self.rules,
-                                     fsdp_axis(self.mesh))
+            self.specs = self.fit_specs(param_specs(
+                self.bp, self.rules, fsdp_axis(self.mesh)))
         # every group a step can use, made now, in one order on every rank
         names = self.axes
         for r in range(1, len(names) + 1):
@@ -145,10 +155,59 @@ class ShardCtx:
 
     def gather(self, x: torch.Tensor, dim: int, axes,
                blocks: int = 1) -> torch.Tensor:
+        """x's shards over ``axes`` joined along ``dim``; with ``blocks``,
+        block by block where the shard holds a part of each block (a
+        shard of ``x.shape[dim]`` not made of whole blocks' parts was cut
+        as one dim, ``block_split``, and is joined as one)."""
         axes = as_axes(axes)
-        if self.size(axes) == 1:
+        k = self.size(axes)
+        if k == 1:
             return x
-        return col.all_gather(x, dim, self.group(axes), blocks)
+        b = blocks if self.block_split(x.shape[dim] * k, k, blocks) else 1
+        return col.all_gather(x, dim, self.group(axes), b)
+
+    @staticmethod
+    def block_split(n: int, k: int, blocks: int) -> bool:
+        """Whether a dim of n in ``blocks`` blocks, over k ranks, is cut
+        block by block (each block's part splits k ways); where it is
+        not, the dim is cut as one (ROADMAP C19)."""
+        return blocks > 1 and n % (k * blocks) == 0
+
+    def fit_specs(self, specs, bp=None):
+        """``specs`` with the dims replicated that the module's docstring
+        keeps whole (uneven leaves): in a dict of the blueprint that holds
+        a ``blocks`` leaf cut as one dim, a sibling's dim on the same axes
+        that does not split over them (the sLSTM's ``wo`` rows). Any
+        other dim that does not split keeps its spec, and ``shard``
+        refuses it."""
+        bp = self.bp if bp is None else bp
+        if isinstance(bp, dict):
+            uneven = set()
+            for k, l in bp.items():
+                if isinstance(l, Leaf) and l.blocks > 1:
+                    axes = dim_axes(specs[k], len(l.shape) - 1)
+                    m = self.size(axes)
+                    if (m > 1 and l.shape[-1] % m == 0
+                            and not self.block_split(l.shape[-1], m,
+                                                     l.blocks)):
+                        uneven.add(axes)
+            return {k: self._whole(specs[k], l, uneven)
+                    if isinstance(l, Leaf) else self.fit_specs(specs[k], l)
+                    for k, l in bp.items()}
+        if isinstance(bp, (list, tuple)) and not isinstance(bp, PSpec):
+            return type(bp)(self.fit_specs(s, b) for s, b in zip(specs, bp))
+        return specs
+
+    def _whole(self, s: PSpec, l: Leaf, uneven) -> PSpec:
+        """``s`` with each dim on axes in ``uneven`` that does not split
+        over them replicated."""
+        parts = [None if dim_axes(s, d) in uneven
+                 and l.shape[d] % self.size(dim_axes(s, d))
+                 else (s[d] if d < len(s) else None)
+                 for d in range(len(l.shape))]
+        while parts and parts[-1] is None:
+            parts.pop()
+        return s if tuple(parts) == tuple(s) else PSpec(*parts)
 
     # -- the sequence-parallel residual ---------------------------------------
     def seq_full(self, x: torch.Tensor) -> torch.Tensor:
@@ -201,12 +260,11 @@ class ShardCtx:
             i = self.index(axes)
             n = t.shape[d]
             b = blocks if d == t.dim() - 1 else 1
-            if n % (k * b):
-                why = (f": each of its {b} blocks of {n // b} must split "
-                       f"{k} ways, and {n // b} does not"
-                       if b > 1 and n % k == 0 else "")
+            if n % k:
                 raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
-                                 f"split {k} x {b} ways ({spec}){why}")
+                                 f"split {k} ways ({spec})")
+            if not self.block_split(n, k, b):
+                b = 1           # cut as one dim (ROADMAP C19)
             s = n // (k * b)
             if b == 1:
                 t = t.narrow(d, i * s, s)

@@ -150,6 +150,17 @@ class SourceKernel:
                                f"cudaError {err}")
 
 
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(device: int) -> int:
+    """The SMs of CUDA device ``device``, read once."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
 def launch_on(device: int, fn, *args) -> int:
     """``fn(*args, stream)`` with the current CUDA stream of ``device``;
     the device is entered only where it is not the current one (a launch

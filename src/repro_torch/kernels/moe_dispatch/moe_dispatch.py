@@ -2,8 +2,8 @@
 
 Replaces ``repro/kernels/moe_dispatch/moe_dispatch.py:grouped_expert_ff``
 (the Pallas TPU kernel). ``csrc/moe_dispatch.cu`` holds the kernels and
-their note, in two routes that ``route`` picks from the dtype and the
-shapes:
+their note, in three routes that ``route`` picks from the dtype, the
+shapes and whether the caller passes counts:
 
   * ``tensor_cores``: bf16 at C > 1 (prefill) with d and f multiples of
     8. Two grouped GEMMs by wgmma (float32 accumulators): the gate and up
@@ -18,8 +18,15 @@ shapes:
     passes ``gu`` (training, ``moe_dispatch_bwd.GroupedExpertFF``), the
     up kernel also stores the gate and up products of the filled rows
     there in bf16, for the backward;
-  * ``cuda_cores``: everything else (float32; decode's C = 1; bf16 rows
-    the 16-byte copies cannot take). One CTA per (expert, slice of the
+  * ``decode``: bf16 at C = 1 with counts (decode's dispatch), d and f
+    multiples of 8, d at most ``DECODE_MAX_D``. ``csrc/moe_decode.cu``
+    (its note): bound by bytes; a persistent grid of ``DECODE_CTAS_PER_SM``
+    CTAs an SM walks units of (live expert, slice of f), the live experts
+    listed on the device from ``counts``, each unit's weights streamed
+    through a cp.async ring; the slices' float32 partials summed in order
+    by a second small kernel (``decode_slicing``);
+  * ``cuda_cores``: everything else (float32; C = 1 without counts; bf16
+    rows the 16-byte copies cannot take). One CTA per (expert, slice of the
     hidden columns, block of capacity rows), float32 on the CUDA cores,
     the hidden kept in shared memory a chunk of columns at a time, each
     slice's part of the output summed by a second small kernel.
@@ -31,11 +38,13 @@ block of rows wholly past it reads no weights, so at decode an expert
 that no token chose costs only its zeros. ``models/moe.py`` passes the
 counts of its dispatch table, where every free slot is the zero row.
 
-It is built with nvcc at first use into ``build/moe_dispatch/<sha256>.so``
+They are built with nvcc at first use into
+``build/moe_dispatch/<sha256>.so`` and ``build/moe_decode/<sha256>.so``
 and launched through ctypes on the current stream. ``LAUNCHES`` counts
-wrapper calls: one call launches two kernels on the CUDA cores, three
-on the tensor cores (the up product, the down product and its scaled
-pass, which finds nothing to do wherever the values are in range).
+wrapper calls: one call launches two kernels on the CUDA cores and at
+decode, three on the tensor cores (the up product, the down product and
+its scaled pass, which finds nothing to do wherever the values are in
+range).
 
 Unlike the Pallas kernel, any capacity C and any width f are taken (the
 block size is the kernel's own business), and C = 0 gives an empty
@@ -61,13 +70,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..build import CSRC, SourceKernel
+from ..build import CSRC, SourceKernel, sm_count
 
 #: wrapper calls that launched the CUDA kernels; the plain version does
 #: not count
 LAUNCHES = 0
 #: the same calls by route (``route``)
-LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0}
+LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0, "decode": 0}
 #: capacity rows per CTA on the CUDA cores at C > 1 (one row at C = 1)
 BLOCK_ROWS = 16
 #: rows and columns of a CTA's output tile on the tensor cores
@@ -87,6 +96,19 @@ KERNEL = SourceKernel(
      "moe_ff_bf16_tc": [_P] * 10 + [_I] * 4 + [_P]},
     headers=[CSRC / "sm90.cuh",
              Path(__file__).resolve().parent / "csrc" / "moe_tc.cuh"])
+DECODE_KERNEL = SourceKernel(
+    "moe_decode", Path(__file__).resolve().parent / "csrc" / "moe_decode.cu",
+    {"moe_ff_decode_bf16": [_P] * 6 + [_I] * 6 + [_P]},
+    headers=[CSRC / "sm90.cuh"])
+#: the decode route's widest d (its CTA holds 8 columns of every 2048 in
+#: four passes) and most experts (their live list in shared memory)
+DECODE_MAX_D, DECODE_MAX_E = 8192, 1024
+#: the decode route's persistent CTAs an SM (82-106 KB of shared memory)
+DECODE_CTAS_PER_SM = 2
+#: hidden columns a chunk of a decode unit; a slice is whole chunks
+DECODE_CHUNK = 64
+#: the most float32 scratch the decode route's slices may take, bytes
+DECODE_WS_BYTES = 128 << 20
 
 
 def _shapes(x, wi, wo):
@@ -103,20 +125,43 @@ def _shapes(x, wi, wo):
     return E, C, d, f
 
 
-def route(dtype: torch.dtype, C: int, d: int, f: int) -> str:
-    """The route a CUDA launch takes: ``tensor_cores`` for bf16 at C > 1
-    with d and f multiples of 8 (rows of x, wi, wo and h a multiple of
-    16 bytes: the copies move 16 bytes a thread), else ``cuda_cores``."""
-    if dtype == torch.bfloat16 and C > 1 and d % 8 == 0 and f % 8 == 0:
-        return "tensor_cores"
+def route(dtype: torch.dtype, C: int, d: int, f: int,
+          n_counts: int = 0) -> str:
+    """The route a CUDA launch takes, d and f multiples of 8 (rows of x,
+    wi, wo and h a multiple of 16 bytes: the copies move 16 bytes a
+    thread) for both bf16 routes: ``tensor_cores`` for bf16 at C > 1;
+    ``decode`` for bf16 at C = 1 where the caller passes counts, one an
+    expert (``n_counts``, their number E; 0 where it passes none), d <=
+    ``DECODE_MAX_D`` and E <= ``DECODE_MAX_E``; else ``cuda_cores``."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+        if C > 1:
+            return "tensor_cores"
+        if C == 1 and 0 < n_counts <= DECODE_MAX_E and d <= DECODE_MAX_D:
+            return "decode"
     return "cuda_cores"
 
 
-def entry(dtype: torch.dtype, C: int, d: int, f: int) -> str:
+def entry(dtype: torch.dtype, C: int, d: int, f: int,
+          n_counts: int = 0) -> str:
     """The exported C function a CUDA launch calls."""
-    if route(dtype, C, d, f) == "tensor_cores":
+    way = route(dtype, C, d, f, n_counts)
+    if way == "tensor_cores":
         return "moe_ff_bf16_tc"
+    if way == "decode":
+        return "moe_ff_decode_bf16"
     return f"moe_ff_{_SUFFIX[dtype]}"
+
+
+def decode_slicing(E: int, d: int, f: int):
+    """(n_slices, W) of the decode route: f cut into slices of W hidden
+    columns, W a multiple of ``DECODE_CHUNK``, as many slices as the
+    chunks allow within ``DECODE_WS_BYTES`` of float32 scratch (n_slices
+    E d floats): 16 of 64 at olmoe, 192 of 128 at jamba, 11 of 192 at
+    kimi-k2."""
+    chunks = -(-f // DECODE_CHUNK)
+    n = max(1, min(chunks, DECODE_WS_BYTES // (4 * E * d)))
+    W = -(-chunks // n) * DECODE_CHUNK
+    return -(-f // W), W
 
 
 def _check_counts(counts, E: int, device) -> None:
@@ -210,7 +255,7 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                                 for t in (x, wi, wo)):
         raise ValueError(f"grouped_expert_ff kernel: d = {d} and f = {f} "
                          f"must be >= 1, x, wi, wo 16-byte aligned")
-    way = route(x.dtype, C, d, f)
+    way = route(x.dtype, C, d, f, 0 if counts is None else E)
     if gu is not None and way != "tensor_cores":
         raise ValueError(f"grouped_expert_ff kernel: the {way} route keeps "
                          f"no gu; only the tensor-core route writes it")
@@ -223,6 +268,17 @@ def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
         raise ValueError(f"grouped_expert_ff kernel: {n_blocks} blocks")
     out = torch.empty_like(x)
     if C == 0 or E == 0:
+        return out
+    if way == "decode":
+        n_sl, W = decode_slicing(E, d, f)
+        ws = torch.empty(n_sl, E, d, dtype=torch.float32, device=x.device)
+        DECODE_KERNEL.call(
+            "moe_ff_decode_bf16", x.get_device(), x.data_ptr(),
+            wi.data_ptr(), wo.data_ptr(), counts.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), E, d, f, W, n_sl,
+            min(E * n_sl, DECODE_CTAS_PER_SM * sm_count(x.get_device())))
+        LAUNCHES += 1
+        LAUNCHES_BY_ROUTE[way] += 1
         return out
     # the hidden as fp16 with its exponents (tensor cores) or the slices'
     # float32 sums (CUDA cores)

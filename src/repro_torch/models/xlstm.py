@@ -57,7 +57,12 @@ Under a sharding context (``distributed/context.py``):
     into ``wo`` (the gathers' adjoint sums each rank's part of the
     weights' gradients, so each shard gets its whole gradient once). Its
     decode state is sharded on d: h is all-gathered once a step, before
-    ``h @ wh``, and the rest of the step is the rank's channels.
+    ``h @ wh``, and the rest of the step is the rank's channels. Where
+    4·d splits over the model axis and d does not (ROADMAP C19), the
+    context stores ``wx``, ``wh`` and ``b`` cut as one dim and ``wo``
+    whole (``ShardCtx``'s uneven leaves), and the decode state is
+    replicated (``cache_pspecs``): both functions then gather the three
+    leaves whole and run every channel, as one device does, with no sum.
 """
 from __future__ import annotations
 
@@ -237,14 +242,22 @@ def slstm_seq(p: Params, x: torch.Tensor, ctx=None) -> torch.Tensor:
     fax = () if ctx is None else ctx.logical("ff")
     wo = p["wo"]
     if fax:     # every channel's weights, once, outside the loop
-        p = {k: ctx.gather(p[k], p[k].dim() - 1, fax, blocks=4)
-             for k in ("wx", "wh", "b")}
+        p = _whole_gates(p, ctx, fax)
     hs = _slstm_steps(p, x @ p["wx"], d)                 # zx (B, S, 4d)
-    if fax:     # the rank's channels, its rows of wo
+    if fax and d % ctx.size(fax) == 0:   # the rank's channels, its wo rows
         lo, hi = ctx.part("ff", d)
         hs = hs[..., lo:hi]
+    else:       # wo whole (C19): every rank has the whole output
+        fax = ()
     out = hs @ wo
     return out if ctx is None else ctx.row_out(out, fax)
+
+
+def _whole_gates(p: Params, ctx, fax) -> Params:
+    """``wx``, ``wh`` and ``b`` gathered whole over ``fax`` (block by
+    block, or as one dim where the context cut them so)."""
+    return {**p, **{k: ctx.gather(p[k], p[k].dim() - 1, fax, blocks=4)
+                    for k in ("wx", "wh", "b")}}
 
 
 def _slstm_steps(p: Params, zx: torch.Tensor, d: int) -> torch.Tensor:
@@ -265,6 +278,8 @@ def slstm_decode_step(p: Params, x: torch.Tensor, state, ctx=None
     (under ``ctx``, each the rank's channels). Returns (out (B, 1, d),
     state)."""
     fax = () if ctx is None else ctx.logical("ff")
+    if fax and x.shape[-1] % ctx.size(fax):   # C19: the state is whole
+        p, fax = _whole_gates(p, ctx, fax), ()
     h_in = ctx.gather(state[0], 1, fax) if fax else None
     carry = _slstm_cell(p, x[:, 0] @ p["wx"], state, h_in)
     for t, new in zip(state, carry):

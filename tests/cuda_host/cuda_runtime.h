@@ -161,6 +161,13 @@ inline int atomicMax(int* p, int v) {
   }
   return old;
 }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+// the blocks run one after another, each thread's stores seen by all
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+template <typename T>
+inline T __ldcg(const T* p) { return *p; }
 inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   *v = vx_host::sm_count;
@@ -168,6 +175,14 @@ inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
 }
 template <typename F>
 inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+// the blocks a multiprocessor holds: vx_host_set_sm_count's companion,
+// fixed at 2 here (the host runs one block at a time)
+template <typename F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                         size_t) {
+  *n = 2;
+  return 0;
+}
 
 // kernel<<<grid, block, 0, stream>>>(args) is rewritten to this call; the
 // hand-written kernels launch through VX_LAUNCH, which comes to the same

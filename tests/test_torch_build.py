@@ -107,3 +107,18 @@ def test_rmsnorm_kernels_hash_their_shared_header(mod):
     both build keys, so an edit to it rebuilds both."""
     assert RN.VEC16 in mod.KERNEL.headers and RN.VEC16.exists()
     assert '#include "vec16.cuh"' in mod.KERNEL.cu.read_text()
+
+
+@pytest.mark.parametrize("kernel", (FA.DECODE_KERNEL, MD.DECODE_KERNEL),
+                         ids=lambda k: k.kind)
+def test_decode_kernels_build_apart_with_the_shared_header(kernel):
+    """The decode routes' sources, each a library of its own: every header
+    they include declared (``sm90.cuh``'s cp.async helpers), their kind
+    and entries apart from the other routes'."""
+    assert build.CSRC / "sm90.cuh" in kernel.headers
+    assert build.CSRC in kernel.includes()
+    names = re.findall(r'#include\s+"([^"]+)"', kernel.cu.read_text())
+    assert names == ["sm90.cuh"]
+    other = FA.KERNEL if kernel is FA.DECODE_KERNEL else MD.KERNEL
+    assert kernel.kind != other.kind and kernel.cu != other.cu
+    assert not set(kernel.argtypes) & set(other.argtypes)

@@ -51,7 +51,10 @@ one-device path, on the CPU.
       ``build_train_step`` at ``STEP_TOL``, and its prefill and decode
       logits, and xlstm's decode, in float32 on both sides (each one's
       ``float32_lm`` patch) against the reference's on a (2, 2) host
-      mesh at ``F32_TOL``; the 2- and 4-block layouts.
+      mesh at ``F32_TOL``; the 2- and 4-block layouts; ROADMAP C19's
+      sLSTM (the smoke xlstm at d 6 on (1, 4): 4·d splits 4 ways, d
+      does not) in float32, its prefill, decode, loss and gradients
+      against one process at ``F32_TOL``.
   (g) The sequence-parallel residual: the sharded step with
       ``seq_shard_activations`` against the same step without it on
       (2, 2), for a config of every family (jamba and xlstm in float32,
@@ -553,10 +556,62 @@ def test_blocks_layouts_shard_and_round_trip(world, blocks):
 
 
 def test_blocks_refuse_a_block_that_does_not_split(world):
-    """4 blocks of 6 on a model axis of 4: 24 splits 4 ways, a block does
-    not; the error names the case."""
+    """ROADMAP C19, repaired: where 4 blocks of 6 meet a model axis of 4
+    (24 splits 4 ways, a block does not), nothing is refused any more.
+    The smoke xlstm at d 6 on (1, 4), in float32: the sharded prefill's
+    logits and the sharded step's loss meet one process at ``F32_TOL``
+    (the same sums in another order)."""
+    r0 = _result(world, ("uneven_slstm", (1, 4)))[0]
+    assert r0["prefill"] < F32_TOL
+    assert abs(r0["loss"] - r0["loss_one"]) < F32_TOL * abs(r0["loss_one"])
+
+
+def test_uneven_block_leaf_is_cut_as_one_dim(world):
+    """The 24 columns cut as one dim, 6 a rank (the reference's layout),
+    and joined back the same way; the sLSTM's wx, wh and b so stored and
+    its wo (6 rows, which do not split 4 ways) whole on every rank, its
+    spec replicated there."""
     for r in _result(world, ("blocks", (1, 4))):
-        assert r["refused"] and "each of its 4 blocks of 6" in r["refused"]
+        assert r["uneven"] == {"shard": True, "round_trip": True}
+    for r in _result(world, ("uneven_slstm", (1, 4))):
+        assert r["local"] == {"wx": (1, 6, 6), "wh": (1, 6, 6),
+                              "b": (1, 6), "wo": (1, 6, 6)}
+        assert tuple(r["wx_spec"]) == ("data", "model")
+        assert "model" not in tuple(r["wo_spec"])
+
+
+def test_only_a_dim_beside_an_uneven_leaf_is_kept_whole(world):
+    """``fit_specs`` replicates a dim that does not split only beside a
+    ``blocks`` leaf cut as one dim (the sLSTM's wo rows); a lone dim of 6
+    on a model axis of 4 keeps its spec, and ``shard`` still refuses
+    it."""
+    for r in _result(world, ("blocks", (1, 4))):
+        assert r["fit"] == {"wx": (None, "model"), "wo": (),
+                            "lone": ("model",)}
+        assert r["lone_refused"] and "does not split 4 ways" in \
+            r["lone_refused"]
+
+
+def test_uneven_slstm_decode_matches_one_process(world):
+    """C19's xlstm: 6 sharded decode steps (the sLSTM's state whole on
+    every rank, its gates gathered each step) against one process, in
+    float32, at ``F32_TOL``."""
+    r0 = _result(world, ("uneven_slstm", (1, 4)))[0]
+    assert len(r0["decode"]) == W.DEC_STEPS
+    assert max(r0["decode"]) < F32_TOL, r0["decode"]
+
+
+def test_uneven_slstm_gradients_match_one_process(world):
+    """C19's xlstm step: every leaf's gradient, gathered, against one
+    process in float32 at relative L2 ``F32_TOL``; the embedding's at
+    ``GRAD_TOL``, as the LM looks its rows up in bf16 on both paths (the
+    gradient there is rounded to bf16 and summed over the ranks in
+    another order)."""
+    r0 = _result(world, ("uneven_slstm", (1, 4)))[0]
+    assert any("/slstm/" in n for n in r0["gerr"])
+    bad = {n: e for n, e in r0["gerr"].items()
+           if not e < (GRAD_TOL if n == "/embed" else F32_TOL)}
+    assert not bad, bad
 
 
 # --------------------------------------------------------------------------

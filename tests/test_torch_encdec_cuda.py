@@ -1,7 +1,8 @@
 """The encoder-decoder's attention routes on the card, at seamless-m4t's
 shapes (16 heads of 64), against the plain versions: the forward
-non-causal at Sq = Sk, at Sq != Sk both ways and ragged, and at Sq = 1
-against up to 4096 keys (cross-attention at decode; at head dim 128 too);
+non-causal at Sq = Sk, at Sq != Sk both ways and ragged on the tensor
+cores, and at Sq = 1 against up to 4096 keys on the decode route
+(cross-attention at decode; at head dim 128 and a GQA group of 8 too);
 the backward non-causal at Sq != Sk; then seamless's and qwen2-vl's smoke
 models, whose encoder, cross-attention, decode and M-RoPE training run
 on the card against the same models on the CPU.
@@ -58,13 +59,15 @@ def _rel(got, want) -> float:
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-#: (B, H, Hkv, Sq, Sk, D): the encoder (Sq = Sk), cross-attention in
-#: training (Sq = S_tgt against Sk = S_src, both ways, ragged) and at
-#: decode (one query row against the encoder's keys)
+#: (B, H, Hkv, Sq, Sk, D): the encoder (Sq = Sk) and cross-attention in
+#: training (Sq = S_tgt against Sk = S_src, both ways, ragged)
 FWD_SHAPES = [(4, 16, 16, 2048, 2048, 64), (4, 16, 16, 2048, 1500, 64),
-              (2, 16, 16, 1000, 2048, 64), (8, 16, 16, 1, 2048, 64),
-              (8, 16, 16, 1, 4096, 64), (8, 16, 16, 1, 130, 64),
-              (4, 64, 8, 1, 4096, 128)]
+              (2, 16, 16, 1000, 2048, 64)]
+#: cross-attention at decode: one query row against the encoder's keys,
+#: the decode route's (ragged 130 keys: one split; qwen2-vl's GQA group
+#: of 8 at head dim 128)
+DECODE_SHAPES = [(8, 16, 16, 1, 2048, 64), (8, 16, 16, 1, 4096, 64),
+                 (8, 16, 16, 1, 130, 64), (4, 64, 8, 1, 4096, 128)]
 
 
 @pytest.mark.cuda
@@ -82,6 +85,28 @@ def test_non_causal_forward_on_the_tensor_cores(B, H, Hkv, Sq, Sk, D, cuda):
     torch.testing.assert_close(got.float(), want.float(), rtol=FWD_TOL[0],
                                atol=FWD_TOL[1])
     assert _rel(lse, want_lse) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", DECODE_SHAPES)
+def test_non_causal_forward_at_one_row_on_the_decode_route(B, H, Hkv, Sq,
+                                                           Sk, D, cuda):
+    """The Sq = 1 cases, which took the tensor cores before the decode
+    route: o at the forward's tolerance, the lse at 1e-5, two calls bit
+    for bit."""
+    q, k, v = _qkv(cuda, B, H, Hkv, Sq, Sk, D)
+    assert FA.route(torch.bfloat16, D, FA._rows_aligned(q, k, v),
+                    Sq) == "decode"
+    before = dict(FA.LAUNCHES_BY_ROUTE)
+    got, lse = FA.flash_attention(q, k, v, causal=False, with_lse=True)
+    assert FA.LAUNCHES_BY_ROUTE == {**before,
+                                    "decode": before["decode"] + 1}
+    want, want_lse = FA.flash_attention_plain(q, k, v, causal=False,
+                                              with_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=FWD_TOL[0],
+                               atol=FWD_TOL[1])
+    assert _rel(lse, want_lse) < 1e-5
+    assert torch.equal(FA.flash_attention(q, k, v, causal=False), got)
 
 
 @pytest.mark.cuda

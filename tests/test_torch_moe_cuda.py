@@ -145,7 +145,7 @@ def _path_inputs(dev, shape, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("how", ["zero", "mixed", "full"])
 @pytest.mark.parametrize("shape,dtype", [
-    ((64, 1, 1024, 512), torch.bfloat16),    # C = 1, CUDA cores
+    ((64, 1, 1024, 512), torch.bfloat16),    # C = 1, the decode route
     ((64, 1, 1024, 512), torch.float32),
     ((4, 300, 256, 96), torch.bfloat16),     # C > 1, tensor cores
     ((2, 130, 100, 300), torch.bfloat16),    # C > 1, CUDA cores
@@ -153,7 +153,8 @@ def _path_inputs(dev, shape, seed):
 def test_grouped_expert_ff_counts_match_plain(cuda, shape, dtype, how):
     """With counts (none filled, a mix, all filled) on every route: x's
     rows past the count are not zero here and come out zero; at C = 1
-    the hidden is cut into the finest slices."""
+    bf16 takes the decode route (float32 the CUDA cores, the hidden cut
+    into the finest slices)."""
     E, C, d, f = shape
     x, wi, wo = (t.to(dtype) for t in _path_inputs(cuda, shape, 5))
     if how == "zero":
@@ -168,7 +169,7 @@ def test_grouped_expert_ff_counts_match_plain(cuda, shape, dtype, how):
     routes = dict(MD.LAUNCHES_BY_ROUTE)
     got = MD.grouped_expert_ff(x, wi, wo, counts)
     torch.cuda.synchronize()
-    routes[MD.route(dtype, C, d, f)] += 1
+    routes[MD.route(dtype, C, d, f, E)] += 1
     assert MD.LAUNCHES_BY_ROUTE == routes
     want = MD.grouped_expert_ff_plain(x, wi, wo, counts)
     keep = torch.arange(C, device=cuda)[None, :] < counts[:, None]
@@ -176,6 +177,45 @@ def test_grouped_expert_ff_counts_match_plain(cuda, shape, dtype, how):
     rtol, atol = (CARD_BF16_TOL if dtype == torch.bfloat16
                   else (TOL[dtype],) * 2)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (64, 1, 2048, 1024),     # olmoe's layer at decode
+    (16, 1, 8192, 2048),     # jamba's d (four passes), f cut
+    (24, 1, 7168, 200),      # kimi-k2's d, f past a whole slice of 64
+    (3, 1, 136, 200),        # d, f multiples of 8, not of 64
+    (300, 1, 256, 192)])     # E past 256: the live list in two rounds
+@pytest.mark.parametrize("how", ["mixed", "full"])
+def test_grouped_expert_ff_decode_route_matches_plain(cuda, shape, how):
+    """The decode route (bf16, C = 1 with counts) at the card's bf16
+    tolerance: an empty expert's row zero, two calls bit for bit, and the
+    parent's route (the CUDA cores, one CTA a slice) within the same
+    tolerance of it."""
+    E, C, d, f = shape
+    x, wi, wo = _path_inputs(cuda, shape, 7)
+    counts = torch.ones(E, dtype=torch.int32, device=cuda)
+    if how == "mixed":
+        counts[::3] = 0
+    assert MD.route(torch.bfloat16, C, d, f, E) == "decode"
+    n = MD.LAUNCHES_BY_ROUTE["decode"]
+    got = MD.grouped_expert_ff(x, wi, wo, counts)
+    torch.cuda.synchronize()
+    assert MD.LAUNCHES_BY_ROUTE["decode"] == n + 1
+    want = MD.grouped_expert_ff_plain(x, wi, wo, counts)
+    assert (got[counts == 0] == 0).all()
+    rtol, atol = CARD_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert torch.equal(MD.grouped_expert_ff(x, wi, wo, counts), got)
+    n_sl, fs = MD.slicing(1, 1, f)
+    ws = torch.empty(n_sl, E, 1, d, device=cuda)
+    old = torch.empty_like(x)
+    MD.KERNEL.call("moe_ff_bf16", x.get_device(), x.data_ptr(),
+                   wi.data_ptr(), wo.data_ptr(), counts.data_ptr(),
+                   ws.data_ptr(), old.data_ptr(), E, 1, d, f, fs, n_sl)
+    torch.testing.assert_close(old.float(), want.float(), rtol=rtol,
                                atol=atol)
 
 

@@ -591,10 +591,11 @@ def task_mixer_decode(workdir, rank, shape, which):
 def task_blocks(workdir, rank, shape):
     """A leaf of 2 and of 4 blocks on the mesh: the rank's shard holds its
     part of each block, and ``unshard`` gives the leaf back; a leaf whose
-    blocks' parts do not split is refused."""
+    blocks' parts do not split is cut as one dim (ROADMAP C19), and
+    ``fit_specs`` keeps whole only a dim beside it."""
     from repro_torch.distributed.context import ShardCtx
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.blueprint import PSpec
+    from repro_torch.models.blueprint import PSpec, leaf
     mesh = make_mesh(shape, ("data", "model"), "cpu")
     ctx = ShardCtx(mesh, {}, {}, specs={})
     m, i = shape[1], ctx.index("model")
@@ -609,11 +610,82 @@ def task_blocks(workdir, rank, shape):
                   "round_trip": torch.equal(
                       ctx.unshard(sh.contiguous(), PSpec(None, "model"), b),
                       t)}
-    try:    # 4 blocks of 6: 24 splits 4 ways, each block does not
-        ctx.shard(torch.zeros(2, 24), PSpec(None, "model"), 4)
-        out["refused"] = None
+    # 4 blocks of 6: 24 splits 4 ways, each block does not, so the leaf
+    # is cut as one dim (ROADMAP C19) and joined back the same way
+    t = torch.arange(2 * 24).reshape(2, 24)
+    sh = ctx.shard(t, PSpec(None, "model"), 4)
+    out["uneven"] = {"shard": torch.equal(sh, t[:, 6 * i:6 * i + 6]),
+                     "round_trip": torch.equal(ctx.unshard(
+                         sh.contiguous(), PSpec(None, "model"), 4), t)}
+    # the context keeps whole only a dim beside such a leaf: a lone dim
+    # of 6 on the model axis keeps its spec, and shard refuses it
+    bp = {"slstm": {"wx": leaf((2, 24), (None, "ff"), blocks=4),
+                    "wo": leaf((6, 2), ("ff", None))},
+          "lone": leaf((6, 2), ("ff", None))}
+    specs = {"slstm": {"wx": PSpec(None, "model"),
+                       "wo": PSpec("model")},
+             "lone": PSpec("model")}
+    fit = ShardCtx(mesh, {}, bp, specs=specs).fit_specs(specs)
+    out["fit"] = {"wx": tuple(fit["slstm"]["wx"]),
+                  "wo": tuple(fit["slstm"]["wo"]),
+                  "lone": tuple(fit["lone"])}
+    try:
+        ctx.shard(torch.zeros(6, 2), fit["lone"])
+        out["lone_refused"] = None
     except ValueError as e:
-        out["refused"] = str(e)
+        out["lone_refused"] = str(e)
+    return out
+
+
+#: ROADMAP C19's case: the smoke xlstm at d 6, whose sLSTM's 4·d (24)
+#: splits over a model axis of 4 where d does not; one period (an sLSTM
+#: and seven mLSTM layers, 2 heads of 3: the heads stay whole)
+UNEVEN_SLSTM = {"d_model": 6, "n_heads": 2, "head_dim": 3, "n_layers": 8}
+
+
+def task_uneven_slstm(workdir, rank, shape):
+    """C19's xlstm on the mesh, in float32 (``float32_lm``): the sharded
+    prefill's logits, DEC_STEPS decode steps' and the sharded step's
+    loss and every leaf's gradient, against the one-device port (rank
+    0); the leaves' local shapes and the contexts' specs of wx and wo."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.blueprint import init_params, leaves
+    from repro_torch.models.registry import input_shardings
+    from repro_torch.train.train_step import make_step_ctx, value_and_grad
+    model = _model("xlstm-1.3b", **UNEVEN_SLSTM)
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    params = _f32(init_params(model.blueprint(),
+                              torch.Generator().manual_seed(11),
+                              device="cpu"))
+    toks = torch.from_numpy(np.load(workdir / "batch.npz")["tokens"])
+    batch = {"tokens": toks}
+    ctx = make_step_ctx(model, mesh, "train_4k")
+    bsh = input_shardings(model.cfg, "train_4k", ("data",),
+                          dict(zip(("data", "model"), shape)))
+    k = [i for i, kd in enumerate(model.period) if kd.mixer == "slstm"][0]
+    lay = ctx.layout("stack", period=True)[k]["slstm"]
+    local = ctx.shard_tree(params)["stack"][k]["slstm"]
+    with float32_lm():
+        with torch.no_grad():
+            logits, got, _, _ = _serve_run(model, mesh, params,
+                                           toks[:, :PRE_S], None, f32=True)
+        loss, g = _sharded_grads(model, ctx, params, batch, bsh)
+    out = {"wx_spec": lay["wx"][0], "wo_spec": lay["wo"][0],
+           "local": {n: tuple(t.shape) for n, t in local.items()}}
+    if rank:
+        return out
+    with float32_lm():
+        with torch.no_grad():
+            want, want_dec = _one_device_run(model, params, toks[:, :PRE_S],
+                                             None, f32=True)
+        loss1, g1 = value_and_grad(model, params, batch, remat=True)
+    names = list(_paths(params))
+    out.update(prefill=_max_err(logits, want),
+               decode=[_max_err(a, b) for a, b in zip(got, want_dec)],
+               loss=float(loss), loss_one=float(loss1),
+               gerr={n: _rel(a, b) for n, a, b in zip(names, leaves(g),
+                                                      leaves(g1))
+                     if b.float().any()})
     return out
 
 
@@ -642,7 +714,7 @@ TASKS = {"gpipe": task_gpipe, "train": task_train, "serve": task_serve,
          "placements": task_placements, "rows": task_rows,
          "loss": task_loss, "seqpar": task_seqpar, "mixer": task_mixer,
          "mixer_decode": task_mixer_decode, "blocks": task_blocks,
-         "seq_split": task_seq_split}
+         "seq_split": task_seq_split, "uneven_slstm": task_uneven_slstm}
 
 
 def rank_main(rank: int, world: int, workdir: str, tasks) -> None:
@@ -678,7 +750,8 @@ def all_tasks():
             out.append(("loss", shape, arch))
         for which in MIXERS:
             out += [("mixer", shape, which), ("mixer_decode", shape, which)]
-    out += [("blocks", (1, 4)), ("seq_split", (1, 4))]
+    out += [("blocks", (1, 4)), ("seq_split", (1, 4)),
+            ("uneven_slstm", (1, 4))]
     for arch in SEQPAR_ARCHS:
         out.append(("seqpar", (2, 2), arch))
     return out
