@@ -1,0 +1,8 @@
+"""device_idle.prefill: the share of the traced window's device phase
+(a cycle of batches, CUDA activity alone) in which no kernel, copy or
+fill ran on the card, in %. Device trace."""
+from bench.metrics._work import driver_is, idle
+
+
+def read(run):
+    return idle(run) if driver_is(run, "prefill") else None
