@@ -4,7 +4,10 @@ One route for every kernel of the port: a source with a plain C interface
 is written to ``build/<kind>/<sha256>.cu`` at the repo root and built by
 one nvcc process into ``<sha256>.so`` beside it. The key hashes the
 source, the headers it includes and the flags, so a stale library is
-never loaded. Several sources build at once, one nvcc each.
+never loaded. Several sources build at once, one nvcc each. The
+program's counters (``tracing``) keep ``kernel.builds``, the nvcc runs,
+``kernel.build_s``, the seconds spent waiting for them, and
+``kernel.loads``, the libraries found built already.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+
+from .. import tracing
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 #: headers shared by the hand-written kernels (``sm90.cuh``)
@@ -62,7 +67,10 @@ def build_many(kind: str, sources: List[str], *, flags: Sequence[str],
         key = source_key(src, headers, flags)
         so = build_dir / f"{key}.so"
         outs.append(so)
-        if so.exists() or so in procs:
+        if so.exists():
+            tracing.count("kernel.loads", 1)
+            continue
+        if so in procs:
             continue
         cu = build_dir / f"{key}.cu"
         cu.write_text(src)
@@ -86,6 +94,9 @@ def build_many(kind: str, sources: List[str], *, flags: Sequence[str],
             else:
                 os.replace(tmp, so)
         time.sleep(0.02)
+    if procs:
+        tracing.count("kernel.builds", len(procs))
+        tracing.count("kernel.build_s", time.perf_counter() - t0)
     if errors:
         raise RuntimeError("\n".join(errors))
     return [(so, seconds.get(so, 0.0)) for so in outs]

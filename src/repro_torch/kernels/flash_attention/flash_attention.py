@@ -56,12 +56,14 @@ from pathlib import Path
 import torch
 
 from .. import plain_dtype
+from ... import tracing
 from ..build import CSRC, SourceKernel, sm_count
 
 #: launches of the CUDA kernels; the plain version does not count
 LAUNCHES = 0
-#: the same launches by route (``route``)
-LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0, "decode": 0}
+#: the same launches by route (``route``), kept in the program's counters
+LAUNCHES_BY_ROUTE = tracing.Routes("flash_attention",
+                                   ("tensor_cores", "cuda_cores", "decode"))
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 112, 128)
 #: head dims the tensor-core route takes (bf16)
@@ -227,6 +229,7 @@ def v_scratch(B: int, Hkv: int, Sk: int, D: int, device):
             torch.empty(B, Hkv, dtype=torch.int32, device=device))
 
 
+@tracing.kernel("flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, with_lse: bool = False):
     """q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D) -> (B, H, Sq, D), and with

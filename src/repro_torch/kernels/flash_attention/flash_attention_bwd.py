@@ -39,14 +39,16 @@ from typing import Tuple
 
 import torch
 
+from ... import tracing
 from ..build import CSRC, SourceKernel
 from . import flash_attention as FA
 
 #: launches of the CUDA backward (one a call, three kernels); the plain
 #: version does not count
 LAUNCHES = 0
-#: the same launches by route (``route``)
-LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0}
+#: the same launches by route (``route``), kept in the program's counters
+LAUNCHES_BY_ROUTE = tracing.Routes("flash_attention_bwd",
+                                   ("tensor_cores", "cuda_cores"))
 HEAD_DIMS = FA.HEAD_DIMS
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -123,6 +125,7 @@ def _check(q, k, v, o, do, lse):
     return B, H, Hkv, Sq, Sk, D
 
 
+@tracing.kernel("flash_attention_bwd")
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True

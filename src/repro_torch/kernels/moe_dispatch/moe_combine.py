@@ -26,6 +26,7 @@ from pathlib import Path
 import torch
 
 from .. import plain_dtype
+from ... import tracing
 from ..build import SourceKernel
 from ..rmsnorm.rmsnorm import VEC16
 
@@ -66,6 +67,7 @@ def gather_sum_plain(src: torch.Tensor, slots: torch.Tensor
     return out.to(src.dtype)
 
 
+@tracing.kernel("gather_sum")
 def gather_sum(src: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """src: (M, d) float32 or bfloat16, slots: (T, k) int32 -> (T, d) in
     src's dtype, as ``gather_sum_plain``. CPU tensors take the plain

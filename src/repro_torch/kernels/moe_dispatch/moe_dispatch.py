@@ -70,13 +70,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ... import tracing
 from ..build import CSRC, SourceKernel, sm_count
 
 #: wrapper calls that launched the CUDA kernels; the plain version does
 #: not count
 LAUNCHES = 0
-#: the same calls by route (``route``)
-LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0, "decode": 0}
+#: the same calls by route (``route``), kept in the program's counters
+LAUNCHES_BY_ROUTE = tracing.Routes("grouped_expert_ff",
+                                   ("tensor_cores", "cuda_cores", "decode"))
 #: capacity rows per CTA on the CUDA cores at C > 1 (one row at C = 1)
 BLOCK_ROWS = 16
 #: rows and columns of a CTA's output tile on the tensor cores
@@ -217,6 +219,7 @@ def up_product_plain(x: torch.Tensor, wi: torch.Tensor,
     return torch.bmm(xf, wi.float()).to(x.dtype)
 
 
+@tracing.kernel("grouped_expert_ff")
 def grouped_expert_ff(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                       counts: Optional[torch.Tensor] = None,
                       gu: Optional[torch.Tensor] = None) -> torch.Tensor:

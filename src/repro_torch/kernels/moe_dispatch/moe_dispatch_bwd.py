@@ -51,6 +51,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import plain_dtype
+from ... import tracing
 from ..build import CSRC, SourceKernel
 from ..rmsnorm.rmsnorm import VEC16
 from . import moe_dispatch as MD
@@ -59,8 +60,9 @@ from . import moe_dispatch as MD
 #: plain version does not count
 LAUNCHES = 0
 #: the same launches by route (``route``): ``swiglu_bwd`` is the
-#: CUDA-core route's
-LAUNCHES_BY_ROUTE = {"tensor_cores": 0, "cuda_cores": 0}
+#: CUDA-core route's; kept in the program's counters
+LAUNCHES_BY_ROUTE = tracing.Routes("grouped_expert_ff_bwd",
+                                   ("tensor_cores", "cuda_cores"))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}

@@ -22,6 +22,7 @@ from pathlib import Path
 import torch
 
 from .. import plain_dtype
+from ... import tracing
 from ..build import SourceKernel
 
 #: launches of the CUDA kernel; the plain version does not count
@@ -50,6 +51,7 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *,
     return (y, r[..., 0]) if with_rstd else y
 
 
+@tracing.kernel("rmsnorm")
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-6, with_rstd: bool = False):
     """x: (N, d) row-normalized; scale: (d,). CPU tensors take the plain

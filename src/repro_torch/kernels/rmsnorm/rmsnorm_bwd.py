@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 
 from .. import plain_dtype
+from ... import tracing
 from ..build import SourceKernel
 from . import rmsnorm as RN
 
@@ -69,6 +70,7 @@ def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
+@tracing.kernel("rmsnorm_bwd")
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor,
                 dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx, dscale) as ``rmsnorm_bwd_plain``. CPU tensors take the plain

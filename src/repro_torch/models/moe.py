@@ -39,6 +39,19 @@ row gathers through the table, each slot one token (``_Dispatch``,
 Capacity comes from shapes and nothing here reads a value back to the
 host.
 
+The layer's spans (``tracing``) are ``moe.ff`` around it, and within it
+``moe.route`` (the router, the top-k and the aux loss), ``moe.dispatch``
+(the capacity, the dispatch table, the counts and the gather),
+``moe.expert_ff`` and ``moe.combine`` (the gate weights, the combine
+and the cast back). While tracing is on it also counts, summed over its
+calls since the counters' reset: ``moe.assignments``, the T*k expert
+assignments (a host number), ``moe.kept``, those the capacity kept, and
+``moe.expert_load``, each expert's assignments before the capacity (both
+on the device). Under a sharding context each rank counts its own
+tokens' assignments, and ``moe.kept`` the filled slots of its own
+experts. Under remat a recomputation of the layer is a call and counts
+again.
+
 Under a sharding context (``distributed/context.py``) the layer keeps
 the one-device semantics over the whole batch: the capacity comes from
 the tokens of every data rank, and an assignment is kept where its place
@@ -57,6 +70,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..kernels.moe_dispatch.moe_combine import gather_sum
 from ..kernels.moe_dispatch.moe_dispatch_bwd import GroupedExpertFF
 from .blueprint import leaf
@@ -167,47 +181,57 @@ def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
-    probs, gate_vals, gate_idx = route(p, xt, top_k)
+    with tracing.span("moe.ff"):
+        with tracing.span("moe.route"):
+            probs, gate_vals, gate_idx = route(p, xt, top_k)
 
-    # load-balancing aux loss (Switch-style)
-    assigned = torch.zeros(n_experts, device=x.device).index_add_(
-        0, gate_idx.reshape(-1),
-        torch.ones(gate_idx.numel(), device=x.device))
-    before, T_all = None, T
-    if ctx is not None and ctx.size(ctx.batch) > 1:
-        # the whole batch's counts and probabilities
-        each = ctx.gather(assigned[None], 0, ctx.batch)     # (n, E)
-        before = each[:ctx.index(ctx.batch)].sum(0)
-        T_all = T * ctx.size(ctx.batch)
-        ce = each.sum(0) / (T_all * top_k)
-        aux = n_experts * torch.sum(
-            ctx.reduce(probs.sum(0), ctx.batch) / T_all * ce)
-    else:
-        ce = assigned / (T * top_k)
-        aux = n_experts * torch.sum(probs.mean(0) * ce)
+            # load-balancing aux loss (Switch-style)
+            assigned = torch.zeros(n_experts, device=x.device).index_add_(
+                0, gate_idx.reshape(-1),
+                torch.ones(gate_idx.numel(), device=x.device))
+            before, T_all = None, T
+            if ctx is not None and ctx.size(ctx.batch) > 1:
+                # the whole batch's counts and probabilities
+                each = ctx.gather(assigned[None], 0, ctx.batch)  # (n, E)
+                before = each[:ctx.index(ctx.batch)].sum(0)
+                T_all = T * ctx.size(ctx.batch)
+                ce = each.sum(0) / (T_all * top_k)
+                aux = n_experts * torch.sum(
+                    ctx.reduce(probs.sum(0), ctx.batch) / T_all * ce)
+            else:
+                ce = assigned / (T * top_k)
+                aux = n_experts * torch.sum(probs.mean(0) * ce)
 
-    C = capacity(T_all, top_k, n_experts, capacity_factor)
-    table, wtable, slots = dispatch(gate_idx, gate_vals, T, n_experts, C,
-                                    before)
-    E_lo, E_hi = (0, n_experts) if ctx is None else ctx.part("experts",
-                                                             n_experts)
-    if (E_lo, E_hi) != (0, n_experts):    # this rank's experts only
-        table = table[E_lo * C:E_hi * C]
-        wtable = wtable[E_lo * C:E_hi * C]
-        M = (E_hi - E_lo) * C
-        slots = slots - E_lo * C
-        slots = torch.where((slots >= 0) & (slots < M), slots, M)
-    E = E_hi - E_lo
-    # filled slots of each expert: min(assigned, C), on the device
-    counts = (table.view(E, C) != T).sum(1, dtype=torch.int32)
-    xg = _Dispatch.apply(xt, table, slots).reshape(E, C, d)
-    y = GroupedExpertFF.apply(xg, p["wi"], p["wo"], counts,
-                              torch.is_grad_enabled())
-    yw = y.reshape(E * C, d).float() * wtable[:, None]
-    out = _Combine.apply(yw, table, slots).reshape(B, S, d)
-    if ctx is not None:
-        out = ctx.row_out(out, ctx.logical("experts"))
-    return out.to(x.dtype), aux
+        with tracing.span("moe.dispatch"):
+            C = capacity(T_all, top_k, n_experts, capacity_factor)
+            table, wtable, slots = dispatch(gate_idx, gate_vals, T,
+                                            n_experts, C, before)
+            E_lo, E_hi = (0, n_experts) if ctx is None else ctx.part(
+                "experts", n_experts)
+            if (E_lo, E_hi) != (0, n_experts):  # this rank's experts only
+                table = table[E_lo * C:E_hi * C]
+                wtable = wtable[E_lo * C:E_hi * C]
+                M = (E_hi - E_lo) * C
+                slots = slots - E_lo * C
+                slots = torch.where((slots >= 0) & (slots < M), slots, M)
+            E = E_hi - E_lo
+            # filled slots of each expert: min(assigned, C), on the device
+            counts = (table.view(E, C) != T).sum(1, dtype=torch.int32)
+            xg = _Dispatch.apply(xt, table, slots).reshape(E, C, d)
+        with tracing.span("moe.expert_ff"):
+            y = GroupedExpertFF.apply(xg, p["wi"], p["wo"], counts,
+                                      torch.is_grad_enabled())
+        with tracing.span("moe.combine"):
+            yw = y.reshape(E * C, d).float() * wtable[:, None]
+            out = _Combine.apply(yw, table, slots).reshape(B, S, d)
+            if ctx is not None:
+                out = ctx.row_out(out, ctx.logical("experts"))
+            out = out.to(x.dtype)
+    if tracing.enabled():
+        tracing.count("moe.assignments", gate_idx.numel())
+        tracing.count("moe.kept", counts.sum())
+        tracing.count("moe.expert_load", assigned)
+    return out, aux
 
 
 def dropped_share(p: Params, x: torch.Tensor, *, n_experts: int,

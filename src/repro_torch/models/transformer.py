@@ -32,7 +32,10 @@ layers over the frames ``frontend_embeds``, and a decoder whose
 without RoPE, through the same flash_attention kernel), the VLM inputs
 (qwen2-vl: ``frontend_embeds`` written over the first embeddings and
 the (3, B, S) ``mrope_positions`` of M-RoPE), and the training loss
-``loss_fn``. As in the reference, an MoE layer runs
+``loss_fn``. Its spans (``tracing``): ``lm.prefill``, ``lm.period``
+around each period of the stack (also where remat recomputes it in the
+backward) and ``lm.loss_head`` (the final norm, the unembedding and the
+loss). As in the reference, an MoE layer runs
 sequentially even under ``parallel_block``, and its load-balancing loss
 is carried through the stack in training and dropped in decode. Under
 ``remat`` each period is a ``torch.utils.checkpoint`` region, whose
@@ -110,6 +113,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..device import resolve_device
 from . import layers as L
 from . import moe as MOE
@@ -327,16 +331,17 @@ class LM:
                   else self.ctx.layout(stack, period=True))
 
         def period_fn(x, auxs, enc_out, mrope, pparams):
-            if layout is not None:
-                pparams = self.ctx.gather_fsdp(pparams, layout)
-            aux: List = []
-            for k, kind in enumerate(kinds):
-                x = self._apply_layer(kind, pparams[k], x, positions,
-                                      causal=causal, enc_out=enc_out,
-                                      mrope=mrope, aux=aux)
-            for a in aux:
-                auxs = auxs + a
-            return x, auxs
+            with tracing.span("lm.period"):
+                if layout is not None:
+                    pparams = self.ctx.gather_fsdp(pparams, layout)
+                aux: List = []
+                for k, kind in enumerate(kinds):
+                    x = self._apply_layer(kind, pparams[k], x, positions,
+                                          causal=causal, enc_out=enc_out,
+                                          mrope=mrope, aux=aux)
+                for a in aux:
+                    auxs = auxs + a
+                return x, auxs
 
         auxs = torch.zeros((), dtype=torch.float32, device=x.device)
         for pparams in _unstack(stack_params):
@@ -404,27 +409,28 @@ class LM:
         x, aux = self._run_stack(params["stack"], x, positions,
                                  kinds=self.period, causal=True,
                                  enc_out=enc_out, mrope=mrope, remat=remat)
-        x = self._full(L.rmsnorm(self._p(params, "ln_f"), x))
-        unembed = self._unembed(params)
-        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-        valid = torch.ones(B, S, dtype=torch.float32, device=x.device)
-        valid[:, -1] = 0.0
-        if c.loss_chunk and S > c.loss_chunk:
-            n, C = S // c.loss_chunk, c.loss_chunk
-            xs = x.reshape(B, n, C, c.d_model)
-            ls, vs = labels.reshape(B, n, C), valid.reshape(B, n, C)
-            tot = torch.zeros((), dtype=torch.float32, device=x.device)
-            for i in range(n):
-                tot = tot + self._nll_sum(xs[:, i], unembed, ls[:, i],
-                                          vs[:, i])
-        else:
-            tot = self._nll_sum(x, unembed, labels, valid)
-        count = valid.sum()
-        if self.ctx is not None:   # the whole batch's sums
-            tot = self.ctx.reduce(tot, self.ctx.batch)
-            count = self.ctx.reduce(count, self.ctx.batch)
-        nll = tot / count.clamp_min(1.0)
-        return nll + 0.01 * aux / max(1, self.n_periods)
+        with tracing.span("lm.loss_head"):
+            x = self._full(L.rmsnorm(self._p(params, "ln_f"), x))
+            unembed = self._unembed(params)
+            labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+            valid = torch.ones(B, S, dtype=torch.float32, device=x.device)
+            valid[:, -1] = 0.0
+            if c.loss_chunk and S > c.loss_chunk:
+                n, C = S // c.loss_chunk, c.loss_chunk
+                xs = x.reshape(B, n, C, c.d_model)
+                ls, vs = labels.reshape(B, n, C), valid.reshape(B, n, C)
+                tot = torch.zeros((), dtype=torch.float32, device=x.device)
+                for i in range(n):
+                    tot = tot + self._nll_sum(xs[:, i], unembed, ls[:, i],
+                                              vs[:, i])
+            else:
+                tot = self._nll_sum(x, unembed, labels, valid)
+            count = valid.sum()
+            if self.ctx is not None:   # the whole batch's sums
+                tot = self.ctx.reduce(tot, self.ctx.batch)
+                count = self.ctx.reduce(count, self.ctx.batch)
+            nll = tot / count.clamp_min(1.0)
+            return nll + 0.01 * aux / max(1, self.n_periods)
 
     def _nll_sum(self, x, unembed, labels, valid) -> torch.Tensor:
         """The summed NLL of ``labels`` under the float32 logits of x,
@@ -606,13 +612,14 @@ class LM:
         inference-prefill shape), float32 (B, V). An encoder-decoder's
         prefill runs the decoder alone, without cross-attention, as the
         reference's does (it passes no encoder output)."""
-        B, S = tokens.shape
-        x = self._embed(params, tokens)
-        positions = torch.arange(S, device=tokens.device)[None, :]
-        x, _ = self._run_stack(params["stack"], x, positions,
-                               kinds=self.period, causal=True)
-        x = self._full(L.rmsnorm(self._p(params, "ln_f"), x))
-        return (x[:, -1] @ self._unembed(params)).float()
+        with tracing.span("lm.prefill"):
+            B, S = tokens.shape
+            x = self._embed(params, tokens)
+            positions = torch.arange(S, device=tokens.device)[None, :]
+            x, _ = self._run_stack(params["stack"], x, positions,
+                                   kinds=self.period, causal=True)
+            x = self._full(L.rmsnorm(self._p(params, "ln_f"), x))
+            return (x[:, -1] @ self._unembed(params)).float()
 
 
 def _unstack(stack_params) -> list:

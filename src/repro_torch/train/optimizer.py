@@ -23,6 +23,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..models.blueprint import leaves, tree_map
 
 #: elements of a leaf updated at once (256 MB of float32 a temporary)
@@ -83,7 +84,10 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
     all-reduced over every axis, each leaf counted once however it is
     replicated); else ``global_norm(grads)``."""
     step = state["step"] + 1
-    gn = global_norm(grads) if grad_norm is None else grad_norm
+    gn = grad_norm
+    if gn is None:
+        with tracing.span("train.grad_norm"):
+            gn = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     lr = _schedule(cfg, state["step"])
     bc1 = 1 - cfg.b1 ** step

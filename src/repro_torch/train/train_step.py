@@ -30,6 +30,13 @@ gradient convention):
     (the data axes for a data-replicated leaf), once, after the
     microbatches;
   * AdamW runs on the shards, with the global grad norm.
+
+The step's spans (``tracing``): ``train.step`` around it,
+``train.forward`` around the loss, ``train.backward`` around its
+gradient (autograd's backward, which on the card runs on autograd's own
+thread while this one waits), and ``train.optimizer`` around the
+gradients' sum over replicas and AdamW, with ``train.grad_norm`` around
+the global norm.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..launch.mesh import data_axes, mesh_axis_sizes
 from ..models.blueprint import PSpec, placements, tree_map
 from ..models.registry import batch_spec, input_shardings
@@ -67,9 +75,12 @@ def value_and_grad(model, params, batch: Dict[str, torch.Tensor], *,
     1 / world)."""
     ps = tree_map(lambda a: a.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss = model.loss_fn(ps, batch, remat=remat)
-        gs = iter(torch.autograd.grad(loss if scale == 1.0 else loss * scale,
-                                      leaves(ps), materialize_grads=True))
+        with tracing.span("train.forward"):
+            loss = model.loss_fn(ps, batch, remat=remat)
+        with tracing.span("train.backward"):
+            gs = iter(torch.autograd.grad(
+                loss if scale == 1.0 else loss * scale, leaves(ps),
+                materialize_grads=True))
     return loss.detach(), tree_map(lambda _: next(gs), params)
 
 
@@ -98,6 +109,10 @@ def build_train_step(model, step_cfg: StepConfig, ctx=None):
     scale = 1.0 if ctx is None else 1.0 / ctx.size(ctx.axes)
 
     def step(params, opt_state, batch):
+        with tracing.span("train.step"):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         n = step_cfg.microbatches
         if n > 1:
             acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -115,11 +130,13 @@ def build_train_step(model, step_cfg: StepConfig, ctx=None):
             loss, grads = value_and_grad(model, params, batch,
                                          remat=step_cfg.remat, scale=scale)
         gn = None
-        if ctx is not None:
-            grads = ctx.sum_replicas(grads)
-            gn = ctx.global_norm(grads)
-        params, opt_state, metrics = adamw_update(params, grads, opt_state,
-                                                  step_cfg.opt, grad_norm=gn)
+        with tracing.span("train.optimizer"):
+            if ctx is not None:
+                grads = ctx.sum_replicas(grads)
+                with tracing.span("train.grad_norm"):
+                    gn = ctx.global_norm(grads)
+            params, opt_state, metrics = adamw_update(
+                params, grads, opt_state, step_cfg.opt, grad_norm=gn)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
