@@ -1571,13 +1571,18 @@ def _moe_rows(dev, cfg, wi, wo, reps, errs, launches, prefill_batch=10,
 
 def _combine_row(dev, cfg, reps, launches):
     """The MoE combine's gather at the prefill's shape (4 x 2048 tokens,
-    top_k gate ranks, E * C slots of the expert FF's output scaled by
-    their weights, float32), from the dispatch of a random routing:
-    against its plain version (bit for bit: the same float32 sums in the
-    same order) and against the scatter-add it replaces, ``index_add_``
-    over the dispatch table (the library yardstick, float32 rounding
-    apart). The bound: the kept slots' rows read, the output written and
-    the slots read once."""
+    top_k gate ranks, E * C slots of the expert FF's output), from the
+    dispatch of a random routing. The row (``weighted``): the combine as
+    the layer runs it, the bf16 rows scaled by their gate weights in the
+    gather and stored in bf16, against its plain version and against the
+    composition it replaced (the float32 product over every slot, the
+    float32 gather, the cast: the yardstick), both bit for bit; its
+    bound: the kept slots' bf16 rows read, the output written, the slots
+    and the kept weights read once. ``unweighted``: the float32 gather of
+    the dispatch's gradient, against its plain version (bit for bit) and
+    against the scatter-add it replaces, ``index_add_`` over the dispatch
+    table (its yardstick, float32 rounding apart); its bound: the kept
+    rows, the output and the slots."""
     g = torch.Generator(dev).manual_seed(12)
     T, k, E = PREFILL_B * PREFILL_S, cfg.moe_top_k, cfg.moe_experts
     d, C = cfg.d_model, _moe_shapes(cfg)["prefill"]
@@ -1585,6 +1590,37 @@ def _combine_row(dev, cfg, reps, launches):
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     table, wtable, slots = MOE.dispatch(idx[:, :k], vals[:, :k], T,
                                               E, C)
+    kept = int((slots < E * C).sum())
+    y = torch.randn(E * C, d, generator=g, device=dev).bfloat16()
+    bf = torch.bfloat16
+
+    def before():
+        return mc.gather_sum(y.float() * wtable[:, None], slots).to(bf)
+
+    n0 = mc.LAUNCHES_BY_ROUTE["weighted"]
+    got = mc.gather_sum(y, slots, wtable)
+    torch.cuda.synchronize()
+    if mc.LAUNCHES_BY_ROUTE["weighted"] != n0 + 1:
+        raise AssertionError("moe_combine: the weighted call did not take "
+                             "the weighted route")
+    err_w = _compare("moe_combine weighted", {"y": got},
+                     {"y": mc.gather_sum_plain(y, slots, wtable)})
+    e_before = _compare("moe_combine weighted vs the composition",
+                        {"y": got}, {"y": before()})
+    print(f"check moe_combine weighted ({T} tokens, {k} ranks, {E * C} "
+          f"slots, d {d}) bf16, {kept} of {T * k} assignments kept: vs "
+          f"plain max abs err {err_w:.3g}, vs the float32 product, gather "
+          f"and cast {e_before:.3g} (both exact)")
+    weighted = _kernel_row(
+        "moe_combine_w", f"({T}, {k}) of ({E * C}, {d}) bf16, weighted",
+        lambda: mc.gather_sum(y, slots, wtable),
+        lambda: mc.gather_sum_plain(y, slots, wtable), before,
+        2 * (kept * d + T * d) + 4 * (T * k + kept), 2 * kept * d,
+        F32_OPS_PER_S, reps, launches)
+    print("yardstick for moe_combine weighted: y.float() * wtable[:, None]"
+          ", gather_sum in float32, .to(bf16), the composition "
+          "models/moe.py ran before")
+    del y
     yw = torch.randn(E * C, d, generator=g, device=dev) * wtable[:, None]
     got = mc.gather_sum(yw, slots)
     want = mc.gather_sum_plain(yw, slots)
@@ -1592,7 +1628,6 @@ def _combine_row(dev, cfg, reps, launches):
     lib = torch.zeros(T + 1, d, device=dev).index_add_(0, table, yw)[:T]
     e_lib = _compare("moe_combine vs index_add_", {"y": got}, {"y": lib},
                      1e-5, 1e-5)
-    kept = int((slots < E * C).sum())
     print(f"check moe_combine ({T} tokens, {k} ranks, {E * C} slots, d "
           f"{d}) float32, {kept} of {T * k} assignments kept: vs plain max "
           f"abs err {err:.3g} (exact); vs index_add_ {e_lib:.3g} (rtol = "
@@ -1606,9 +1641,13 @@ def _combine_row(dev, cfg, reps, launches):
         launches)
     print("library for moe_combine: torch.zeros(T + 1, d).index_add_(0, "
           "table, yw), the scatter-add models/moe.py ran before")
-    return {**row, "max_abs_err": err, "max_abs_err_vs_index_add": e_lib,
+    return {**weighted, "max_abs_err": err_w,
+            "max_abs_err_vs_before": e_before,
+            "library": "y.float() * wtable, gather_sum, .to(bf16)",
             "shape": [T, k, E * C, d], "kept": kept,
-            "library": "Tensor.index_add_ (float32)"}
+            "unweighted": {**row, "max_abs_err": err,
+                           "max_abs_err_vs_index_add": e_lib,
+                           "library": "Tensor.index_add_ (float32)"}}
 
 
 def moe_kernel_times(dev, cfg, layer0, reps, errs):

@@ -33,7 +33,9 @@ same scatter-add. Here both are gathers over the table's inverse
 (``dispatch``: each (token, gate rank)'s slot, or none where the
 capacity dropped it) through the ``moe_combine`` kernel
 (``kernels/moe_dispatch/moe_combine.py``), which sums a token's k slots
-in gate-rank order; the combine's own gradient and the dispatch are
+in gate-rank order, for the combine each slot's row of the expert FF's
+output read in its own dtype and scaled by its gate weight, and stores
+the sum in x's dtype; the combine's own gradient and the dispatch are
 row gathers through the table, each slot one token (``_Dispatch``,
 ``_Combine``). The values are the reference's within float32 rounding.
 Capacity comes from shapes and nothing here reads a value back to the
@@ -42,8 +44,8 @@ host.
 The layer's spans (``tracing``) are ``moe.ff`` around it, and within it
 ``moe.route`` (the router, the top-k and the aux loss), ``moe.dispatch``
 (the capacity, the dispatch table, the counts and the gather),
-``moe.expert_ff`` and ``moe.combine`` (the gate weights, the combine
-and the cast back). While tracing is on it also counts, summed over its
+``moe.expert_ff`` and ``moe.combine`` (the combine, its gate weights
+and its cast in one gather). While tracing is on it also counts, summed over its
 calls since the counters' reset: ``moe.assignments``, the T*k expert
 assignments (a host number), ``moe.kept``, those the capacity kept, and
 ``moe.expert_load``, each expert's assignments before the capacity (both
@@ -158,19 +160,30 @@ class _Dispatch(torch.autograd.Function):
 
 
 class _Combine(torch.autograd.Function):
-    """yw (E*C, d), the slots' outputs scaled by their gate weights ->
-    each token's sum of its slots in gate-rank order (T, d); the gradient
-    is the row of the slot's token (a free slot's is zero)."""
+    """y (E*C, d), the slots' outputs in their own dtype, and wtable
+    (E*C,), their gate weights -> each token's sum of its slots' outputs
+    scaled by their weights, in gate-rank order (T, d), in ``out_dtype``:
+    one gather (``gather_sum``) that reads y's kept rows once. The
+    gradient is autograd's of ``y.float() * wtable[:, None]`` gathered and
+    cast, bit for bit: the slot's token's row of dout (a free slot's is
+    zero) scaled by its weight for y, dotted with its row of y for the
+    weight."""
 
     @staticmethod
-    def forward(ctx, yw, table, slots):
-        ctx.save_for_backward(table)
-        return gather_sum(yw, slots)
+    def forward(ctx, y, wtable, table, slots, out_dtype):
+        ctx.save_for_backward(y, wtable, table)
+        return gather_sum(y, slots, wtable, out_dtype)
 
     @staticmethod
     def backward(ctx, dout):
-        table, = ctx.saved_tensors
-        return _take(dout, table), None, None
+        y, wtable, table = ctx.saved_tensors
+        dyw = _take(dout.float(), table)
+        dy = dw = None
+        if ctx.needs_input_grad[0]:
+            dy = (dyw * wtable[:, None]).to(y.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (dyw * y.float()).sum(1)
+        return dy, dw, None, None, None
 
 
 def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -222,11 +235,13 @@ def moe_ff(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
             y = GroupedExpertFF.apply(xg, p["wi"], p["wo"], counts,
                                       torch.is_grad_enabled())
         with tracing.span("moe.combine"):
-            yw = y.reshape(E * C, d).float() * wtable[:, None]
-            out = _Combine.apply(yw, table, slots).reshape(B, S, d)
+            # under a sharding context the float32 partials are summed
+            # over the ranks before the one cast
+            out = _Combine.apply(y.reshape(E * C, d), wtable, table, slots,
+                                 x.dtype if ctx is None else torch.float32
+                                 ).reshape(B, S, d)
             if ctx is not None:
-                out = ctx.row_out(out, ctx.logical("experts"))
-            out = out.to(x.dtype)
+                out = ctx.row_out(out, ctx.logical("experts")).to(x.dtype)
     if tracing.enabled():
         tracing.count("moe.assignments", gate_idx.numel())
         tracing.count("moe.kept", counts.sum())

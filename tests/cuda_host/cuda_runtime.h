@@ -138,6 +138,7 @@ inline int __ffs(int x) { return __builtin_ffs(x); }
 inline float __int_as_float(int x) { float f; std::memcpy(&f, &x, 4); return f; }
 inline int __float_as_int(float f) { int x; std::memcpy(&x, &f, 4); return x; }
 inline float __int2float_rn(int x) { return (float)x; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 inline int __float2int_rz(float f) {
   if (f != f) return 0;
   if (f >= 2147483648.0f) return 2147483647;

@@ -31,7 +31,9 @@ from repro_torch.kernels.moe_dispatch import moe_dispatch as MD
 from repro_torch.kernels.moe_dispatch import moe_dispatch_bwd as MB
 from repro_torch.kernels.rmsnorm import rmsnorm as RN
 from repro_torch.models import get_model
+from repro_torch.models import moe as MOE
 from repro_torch.models.blueprint import init_params, tree_map
+from moe_combine_before import CombineBefore, moe_ff_and_grads
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 #: the backward against its plain version: the largest |got - want| over
@@ -412,3 +414,74 @@ def test_gather_sum_kernel_matches_plain(cuda, d, dtype):
         assert torch.equal(got, want)
     else:
         assert _rel(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048, 100, 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_gather_sum_weighted_kernel_matches_plain(cuda, d, dtype, out_dtype):
+    """Each slot scaled by its weight, 10 gate ranks a token (two chunks
+    of slot loads), some dropped: bit for bit the plain version (the same
+    float32 products and sums in the same order, one cast), on the
+    vector route and on the element route."""
+    g = torch.Generator(cuda).manual_seed(8)
+    M, T, k = 300, 97, 10
+    src = torch.randn(M, d, generator=g, device=cuda).to(dtype)
+    w = torch.rand(M, generator=g, device=cuda)
+    slots = torch.randint(0, M + 20, (T, k), generator=g, device=cuda,
+                          dtype=torch.int32).clamp_max(M)
+    got = MC.gather_sum(src, slots, w, out_dtype)
+    assert got.dtype == (out_dtype or dtype)
+    assert torch.equal(got, MC.gather_sum_plain(src, slots, w, out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gather_sum_weighted_at_olmoes_prefill_shape(cuda, out_dtype):
+    """The combine as olmoe's prefill runs it: 8,192 tokens x 8 gate ranks
+    into 81,920 bf16 slots of 2,048, from the dispatch of a skewed
+    routing (about 20 % of the assignments dropped), against the
+    composition it replaces on the card (the float32 product over every
+    slot, the float32 gather, the cast): bit for bit, one ``weighted``
+    launch."""
+    g = torch.Generator(cuda).manual_seed(6)
+    T, k, E, d = 8192, 8, 64, 2048
+    C = MOE.capacity(T, k, E, 1.25)
+    bias = torch.randn(E, generator=g, device=cuda) * 0.45
+    probs = (torch.randn(T, E, generator=g, device=cuda) + bias).softmax(-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    table, wtable, slots = MOE.dispatch(idx[:, :k], vals[:, :k], T, E, C)
+    dropped = float((slots == E * C).float().mean())
+    assert 0.15 < dropped < 0.25, dropped
+    y = torch.randn(E * C, d, generator=g, device=cuda).bfloat16()
+    n = MC.LAUNCHES_BY_ROUTE["weighted"], MC.LAUNCHES_BY_ROUTE["unweighted"]
+    got = MC.gather_sum(y, slots, wtable, out_dtype)
+    torch.cuda.synchronize()
+    assert (MC.LAUNCHES_BY_ROUTE["weighted"],
+            MC.LAUNCHES_BY_ROUTE["unweighted"]) == (n[0] + 1, n[1])
+    want = MC.gather_sum(y.float() * wtable[:, None], slots).to(out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.0, 8.0])      # with drops; without
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_ff_combine_equals_the_composition_it_replaces(cuda, monkeypatch,
+                                                           dtype, cf):
+    """``moe_ff`` on the card (the expert FF's and the combine's kernels):
+    its output and the gradients of x and of every leaf, with the gate
+    weights and the casts inside the gather, are bit for bit those of the
+    float32 product, gather and cast it replaces."""
+    T, d, E, f, k = 96, 64, 8, 32, 2
+    p = init_params(MOE.moe_bp(d, E, f), torch.Generator().manual_seed(2))
+    x = np.random.default_rng(4).standard_normal((2, T // 2, d)).astype(
+        np.float32)
+    kw = dict(n_experts=E, top_k=k)
+    got = moe_ff_and_grads(p, x, dtype, cf, kw, cuda)
+    monkeypatch.setattr(MOE, "_Combine", CombineBefore)
+    want = moe_ff_and_grads(p, x, dtype, cf, kw, cuda)
+    assert got[0].dtype == dtype and torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    for key, g in got[2].items():
+        assert g is not None and torch.equal(g, want[2][key]), key

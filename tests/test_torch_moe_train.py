@@ -47,6 +47,7 @@ from repro_torch.kernels.moe_dispatch import moe_dispatch as MD
 from repro_torch.kernels.moe_dispatch import moe_dispatch_bwd as MB
 from repro_torch.kernels.rmsnorm.rmsnorm import VEC16
 from repro_torch.models import moe as PM
+from moe_combine_before import CombineBefore, moe_ff_and_grads
 
 HOST_CUDA = Path(__file__).parent / "cuda_host"
 HOST_SM90 = HOST_CUDA / "sm90"
@@ -263,6 +264,63 @@ def test_moe_ff_routes_its_gradient_through_the_functions(monkeypatch):
                      "gather_sum"]
 
 
+@pytest.mark.parametrize("cf", [1.0, 8.0])      # with drops; without
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_combine_equals_the_composition_it_replaces(monkeypatch, dtype, cf):
+    """``moe_ff``'s output and the gradients of x, of every leaf and of
+    the gate weights, with the weights and the casts inside the gather,
+    are bit for bit those of the product, float32 gather and cast it
+    replaces."""
+    _, p, x, kw = _layer(11, T=40, k=3)
+    got = moe_ff_and_grads(p, x, dtype, cf, kw)
+    # the gate weights' gradient: the Function alone at this layer's table
+    xt = torch.from_numpy(x).reshape(40, -1)
+    _, gv, gi = PM.route(p, xt, 3)
+    Cap = PM.capacity(40, 3, 4, cf)
+    table, wtable, slots = PM.dispatch(gi, gv, 40, 4, Cap)
+    assert (cf == 1.0) == bool((slots == 4 * Cap).any())
+    y = torch.randn(4 * Cap, xt.shape[1]).to(dtype)
+    dout = torch.randn(40, xt.shape[1]).to(dtype)
+
+    def combine(fn):
+        yl, wl = y.clone().requires_grad_(), wtable.clone().requires_grad_()
+        out = fn(yl, wl, table, slots, dtype)
+        out.backward(dout)
+        return out.detach(), yl.grad, wl.grad
+
+    c_got = combine(PM._Combine.apply)
+    monkeypatch.setattr(PM, "_Combine", CombineBefore)
+    want = moe_ff_and_grads(p, x, dtype, cf, kw)
+    c_want = combine(CombineBefore.apply)
+    assert got[0].dtype == dtype and torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    for key, g in got[2].items():
+        assert g is not None and torch.equal(g, want[2][key]), key
+    for name, g, w in zip(("out", "dy", "dw"), c_got, c_want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_gather_sum_plain_weights_and_out_dtype(out_dtype):
+    """bf16 src with weights: the float32 products summed in gate-rank
+    order, stored in float32 or cast once to bf16, are the bits of the
+    product over every slot, the float32 gather and the cast."""
+    g = torch.Generator().manual_seed(4)
+    M, T, k, d = 30, 11, 4, 24
+    src = torch.randn(M, d, generator=g).bfloat16()
+    w = torch.rand(M, generator=g)
+    slots = torch.randint(0, M + 6, (T, k), generator=g, dtype=torch.int32)
+    got = MC.gather_sum_plain(src, slots, w, out_dtype)
+    want = MC.gather_sum_plain(src.float() * w[:, None], slots)
+    assert got.dtype == (out_dtype or torch.bfloat16)
+    assert torch.equal(got, want.to(got.dtype))
+    assert torch.equal(MC.gather_sum(src, slots, w, out_dtype), got)
+    with pytest.raises(TypeError):
+        MC.gather_sum_plain(src, slots, w, torch.float16)
+    with pytest.raises(ValueError):
+        MC.gather_sum_plain(src, slots, w[:-1])
+
+
 # --------------------------------------------------------------------------
 # the CUDA sources, run on the host: g++ with the stand-in runtime in
 # tests/cuda_host (one std::thread per CUDA thread), float32 only
@@ -308,7 +366,18 @@ def fwd_tc_lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def combine_lib(tmp_path_factory):
     lib = _host_build(tmp_path_factory, MC.KERNEL.cu, "moe_combine")
-    lib.gather_sum_f32.argtypes = MC.KERNEL.argtypes["gather_sum_f32"]
+    for name in ("gather_sum_f32", "gather_sum_w_f32"):
+        getattr(lib, name).argtypes = MC.KERNEL.argtypes[name]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def combine_tc_lib(tmp_path_factory):
+    lib = _host_build(tmp_path_factory, MC.KERNEL.cu, "moe_combine_tc",
+                      tc=True)
+    for name in ("gather_sum_bf16", "gather_sum_w_bf16",
+                 "gather_sum_w_bf16_f32"):
+        getattr(lib, name).argtypes = MC.KERNEL.argtypes[name]
     return lib
 
 
@@ -483,6 +552,56 @@ def test_combine_source_matches_plain_on_host(d, combine_lib):
     assert combine_lib.gather_sum_f32(src.data_ptr(), slots.data_ptr(),
                                       out.data_ptr(), T, k, M, d, None) == 0
     assert torch.equal(out, MC.gather_sum_plain(src, slots))
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("d", [64, 13])        # vectors; scalar
+def test_combine_weighted_source_matches_plain_on_host(d, weighted,
+                                                       combine_lib):
+    """The weighted entry, k = 10 (two chunks of slot loads), slots past
+    M and repeated ones among them: bit for bit the plain version with
+    the weights; without them (a null pointer), the unweighted sums."""
+    rng = np.random.default_rng(d + 1)
+    M, T, k = 20, 9, 10
+    src = torch.from_numpy(rng.standard_normal((M, d)).astype(np.float32))
+    w = torch.from_numpy(rng.random(M).astype(np.float32))
+    slots = torch.from_numpy(rng.integers(-2, M + 3, (T, k))
+                             .astype(np.int32))
+    out = torch.full((T, d), float("nan"))
+    assert combine_lib.gather_sum_w_f32(
+        src.data_ptr(), slots.data_ptr(), w.data_ptr() if weighted else None,
+        out.data_ptr(), T, k, M, d, None) == 0
+    want = MC.gather_sum_plain(src, slots, w if weighted else None)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("entry", ["gather_sum_w_bf16",
+                                   "gather_sum_w_bf16_f32",
+                                   "gather_sum_bf16"])
+@pytest.mark.parametrize("d", [2048, 100])      # vectors; scalar
+def test_combine_bf16_source_matches_plain_on_host(d, entry, combine_tc_lib):
+    """The bf16 entries (``-D__CUDACC__``, the emulated bf16 type), k = 8
+    with dropped and negative slots: bit for bit the plain version, the
+    weighted ones also the float32 product, gather and cast they
+    replace."""
+    g = torch.Generator().manual_seed(d)
+    M, T, k = 40, 5, 8
+    src = torch.randn(M, d, generator=g).bfloat16()
+    w = torch.rand(M, generator=g)
+    slots = torch.randint(-3, M + 8, (T, k), generator=g, dtype=torch.int32)
+    od = torch.float32 if entry.endswith("_f32") else torch.bfloat16
+    out = torch.full((T, d), float("nan"), dtype=od)
+    fn = getattr(combine_tc_lib, entry)
+    if entry == "gather_sum_bf16":
+        assert fn(src.data_ptr(), slots.data_ptr(), out.data_ptr(), T, k, M,
+                  d, None) == 0
+        assert torch.equal(out, MC.gather_sum_plain(src, slots))
+        return
+    assert fn(src.data_ptr(), slots.data_ptr(), w.data_ptr(), out.data_ptr(),
+              T, k, M, d, None) == 0
+    assert torch.equal(out, MC.gather_sum_plain(src, slots, w, od))
+    assert torch.equal(out, MC.gather_sum_plain(src.float() * w[:, None],
+                                                slots).to(od))
 
 
 def test_combine_source_refuses_k_past_its_limit(combine_lib):
